@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of `csrc/` (nvcc → shared library → ctypes).
 
-The sources have a plain C interface and include no PyTorch header, so one
-nvcc call builds them in seconds. The library goes to `build/kernels/` at
-the root of the checkout, named by a hash of the sources and flags, and is
-built at first use; nothing is built when the module is imported.
+The sources have a plain C interface and include no PyTorch header, so nvcc
+builds them in seconds: one nvcc process per source, all started together,
+then one link. The library goes to `build/kernels/` at the root of the
+checkout, named by a hash of the sources and flags, and is built at first
+use; nothing is built when the module is imported.
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mul_relin.cu",)
+SOURCES = ("mul_relin.cu", "rescale.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -41,12 +42,23 @@ def library_path() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src}.o" for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    link = None
+    if all(proc.returncode == 0 for proc in procs):
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+    so.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "".join(logs))
     os.replace(tmp, so)     # atomic: concurrent builders never see half a file
     return so
 
@@ -58,8 +70,15 @@ def library() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.tensor_intt.argtypes = [P] * 8 + [I, I, I, P]
     lib.tensor_intt.restype = I
-    lib.digit_relin.argtypes = [P] * 11 + [I, I, I, P]
+    lib.digit_relin.argtypes = [P] * 11 + [I] * 4 + [P]
     lib.digit_relin.restype = I
+    lib.hybrid_digit_relin.argtypes = [P] * 10 + [I] * 7 + [P]
+    lib.hybrid_digit_relin.restype = I
+    for name in ("intt_grid", "ntt_grid"):
+        getattr(lib, name).argtypes = [P] * 5 + [I] * 3 + [P]
+        getattr(lib, name).restype = I
+    lib.rescale_fwd.argtypes = [P] * 10 + [I] * 5 + [P]
+    lib.rescale_fwd.restype = I
     lib.zq_error_string.argtypes = [I]
     lib.zq_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,18 +1,26 @@
-// Kernels A and B of BGV ciphertext multiply + relinearize (CRT gadget),
-// for sm_90a, with a plain C interface loaded through ctypes.
+// Kernels A, B and 4 of BGV ciphertext multiply + relinearize, for sm_90a,
+// with a plain C interface loaded through ctypes.
 //
 // Kernel A, tensor_intt, replaces alchemy_tpu/backend/pallas/
-// mul_relin_pallas.py:232 _tensor_intt_kernel. Kernel B, digit_relin,
-// replaces mul_relin_pallas.py:439 _digit_relin_ctmajor_kernel.
+// mul_relin_pallas.py:232 _tensor_intt_kernel. Kernel B, digit_relin (CRT
+// gadget), replaces mul_relin_pallas.py:439 _digit_relin_ctmajor_kernel, and
+// at n <= 2^15 also does the work of :319 _digit_relin_kernel (raw or Shoup
+// hints). Kernel 4, hybrid_digit_relin (hybrid key-switching), replaces
+// :807 _hybrid_digit_relin_kernel.
 //
 // Layouts (uint32 residues, canonical, the 3-factor NTT slot order of
 // backend/ntt3.py at the boundaries):
 //   ct_a, ct_b  [Bt, 2, L, n]   NTT domain
 //   c0, c1      [Bt, L, n]      NTT domain
 //   c2c         [Bt, L, n]      coefficients of c2 (natural order)
-//   hints       [L, L, n] x 4   (values, companions) of hint_b and hint_a,
-//                               indexed [digit i, limb l]
-//   out         [Bt, 2, L, n]   NTT domain
+//   hints (B)   [L, L, n]       hint_b and hint_a, indexed [digit i, limb l];
+//                               raw values or (values, companions) pairs
+//   out (B)     [Bt, 2, L, n]   NTT domain
+//   x (4)       [Bt, L, n]      Garner digits of c2c per limb group,
+//                               group-major (natural order)
+//   ext (4)     [T, 2, L]       [pi_k]_{q_t} and Shoup companions
+//   hints (4)   [dnum, T, n]    over the extended chain of T = L + K limbs
+//   out (4)     [2, Bt, T, n]   NTT domain, before the rescale by P
 //
 // What bounds them on the H100: each block keeps one limb of one
 // ciphertext (n words: 128 KB at n = 2^15) in shared memory for its NTT, so
@@ -28,6 +36,9 @@
 // with 8 blocks (Bt = 1) takes 70% of its time with 128 blocks (Bt = 16), and
 // its unique bytes would take ~1/30 of its time at full bandwidth, so one
 // block's serial chain of L*log2(n) barrier-separated stages bounds it.
+// Kernel 4 has the same shape with dnum transforms per block instead of L,
+// over T blocks per ciphertext; its base extension (alpha Shoup products
+// per slot and group) is built in shared memory, never in device memory.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -36,7 +47,7 @@
 
 namespace {
 
-constexpr int kLimbWords = 8;
+using zq::kLimbWords;
 
 // One block per (limb l, ciphertext b).
 __global__ void __launch_bounds__(1024)
@@ -78,6 +89,10 @@ tensor_intt_kernel(const uint32_t* __restrict__ ct_a, const uint32_t* __restrict
 // One block per (output limb l, ciphertext b); the gadget digits i loop
 // inside: digit i = c2c[b, i] (a residue mod q_i) is reduced mod q_l,
 // transformed, and its products with hint row (i, l) are added to the sums.
+// kShoup: the hints are (values, companions) pairs, multiplied with
+// mulmod_shoup; otherwise raw values (hbs, has unused), multiplied with the
+// Barrett mulmod.
+template <bool kShoup>
 __global__ void __launch_bounds__(1024)
 digit_relin_kernel(const uint32_t* __restrict__ c2c, const uint32_t* c0, const uint32_t* c1,
                    const uint32_t* __restrict__ hb, const uint32_t* __restrict__ hbs,
@@ -110,17 +125,69 @@ digit_relin_kernel(const uint32_t* __restrict__ c2c, const uint32_t* c0, const u
     const uint32_t* src1 = i == 0 ? in1 : out1;
     for (int s = threadIdx.x; s < n; s += blockDim.x) {
       const uint32_t v = buf[slot_ct[s]];
-      out0[s] = zq::add_mod(src0[s], zq::mulmod_shoup(v, hb[h + s], hbs[h + s], k.q), k.q);
-      out1[s] = zq::add_mod(src1[s], zq::mulmod_shoup(v, ha[h + s], has[h + s], k.q), k.q);
+      const uint32_t p0 = kShoup ? zq::mulmod_shoup(v, hb[h + s], hbs[h + s], k.q)
+                                 : zq::mulmod(v, hb[h + s], k);
+      const uint32_t p1 = kShoup ? zq::mulmod_shoup(v, ha[h + s], has[h + s], k.q)
+                                 : zq::mulmod(v, ha[h + s], k);
+      out0[s] = zq::add_mod(src0[s], p0, k.q);
+      out1[s] = zq::add_mod(src1[s], p1, k.q);
     }
     __syncthreads();  // buf is rewritten by the next digit
   }
 }
 
-void launch_shape(int log_n, dim3* block, size_t* smem) {
+// Kernel 4. One block per (extended limb t, ciphertext b); the dnum digit
+// groups j loop inside. Group j covers Garner digit rows [j*alpha,
+// min((j+1)*alpha, L)) of x[b]; its digit residue mod q_t is
+// sum_k x[b, k] * [pi_k]_{q_t} (Shoup constants ext[t]), which is
+// transformed and multiplied by hint row (j, t). The sums start from zero
+// (c0 and c1 join after the rescale by P) and live in the output buffer as
+// in digit_relin_kernel.
+template <bool kShoup>
+__global__ void __launch_bounds__(1024)
+hybrid_digit_relin_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ ext,
+                          const uint32_t* __restrict__ hb, const uint32_t* __restrict__ hbs,
+                          const uint32_t* __restrict__ ha, const uint32_t* __restrict__ has,
+                          uint32_t* out, const uint32_t* __restrict__ limbs,
+                          const uint32_t* __restrict__ fwd_tw, const int32_t* __restrict__ slot_ct,
+                          int L, int T, int dnum, int alpha, int log_n) {
+  extern __shared__ uint32_t buf[];
   const int n = 1 << log_n;
-  *block = dim3(n / 2 < 1024 ? n / 2 : 1024);
-  *smem = static_cast<size_t>(n) * sizeof(uint32_t);
+  const int t = blockIdx.x;
+  const size_t b = blockIdx.y;
+  const size_t bt = gridDim.y;
+  const zq::Limb k = zq::load_limb(limbs + kLimbWords * t);
+  const uint32_t* xb = x + b * L * n;
+  const uint32_t* w = ext + 2 * static_cast<size_t>(t) * L;  // [pi_k]_{q_t}, then companions
+  uint32_t* out0 = out + (b * T + t) * n;
+  uint32_t* out1 = out + ((bt + b) * T + t) * n;
+  const uint32_t* tw = fwd_tw + 2 * static_cast<size_t>(t) * n;
+
+  for (int j = 0; j < dnum; ++j) {
+    const int k0 = j * alpha;
+    const int k1 = k0 + alpha < L ? k0 + alpha : L;
+    for (int s = threadIdx.x; s < n; s += blockDim.x) {
+      uint32_t acc = 0;
+      for (int i = k0; i < k1; ++i) {
+        acc = zq::add_mod(acc, zq::mulmod_shoup(xb[static_cast<size_t>(i) * n + s], w[i],
+                                                w[L + i], k.q), k.q);
+      }
+      buf[s] = acc;
+    }
+    __syncthreads();
+    zq::ntt_forward(buf, log_n, tw, tw + n, k.q);
+    const size_t h = (static_cast<size_t>(j) * T + t) * n;
+    for (int s = threadIdx.x; s < n; s += blockDim.x) {
+      const uint32_t v = buf[slot_ct[s]];
+      const uint32_t p0 = kShoup ? zq::mulmod_shoup(v, hb[h + s], hbs[h + s], k.q)
+                                 : zq::mulmod(v, hb[h + s], k);
+      const uint32_t p1 = kShoup ? zq::mulmod_shoup(v, ha[h + s], has[h + s], k.q)
+                                 : zq::mulmod(v, ha[h + s], k);
+      out0[s] = j == 0 ? p0 : zq::add_mod(out0[s], p0, k.q);
+      out1[s] = j == 0 ? p1 : zq::add_mod(out1[s], p1, k.q);
+    }
+    __syncthreads();  // buf is rewritten by the next group
+  }
 }
 
 }  // namespace
@@ -135,41 +202,41 @@ const char* zq_error_string(int code) {
 int tensor_intt(const void* ct_a, const void* ct_b, void* c0, void* c1, void* c2c,
                 const void* limbs, const void* inv_tw, const void* slot_ct, int bt, int L,
                 int log_n, void* stream) {
-  dim3 block;
-  size_t smem;
-  launch_shape(log_n, &block, &smem);
-  cudaError_t e = cudaFuncSetAttribute(tensor_intt_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  tensor_intt_kernel<<<dim3(L, bt), block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(ct_a), static_cast<const uint32_t*>(ct_b),
-      static_cast<uint32_t*>(c0), static_cast<uint32_t*>(c1), static_cast<uint32_t*>(c2c),
-      static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(inv_tw),
-      static_cast<const int32_t*>(slot_ct), L, log_n);
-  return static_cast<int>(cudaGetLastError());
+  return zq::launch(tensor_intt_kernel, dim3(L, bt), log_n, stream,
+                    static_cast<const uint32_t*>(ct_a), static_cast<const uint32_t*>(ct_b),
+                    static_cast<uint32_t*>(c0), static_cast<uint32_t*>(c1),
+                    static_cast<uint32_t*>(c2c), static_cast<const uint32_t*>(limbs),
+                    static_cast<const uint32_t*>(inv_tw), static_cast<const int32_t*>(slot_ct),
+                    L, log_n);
 }
 
-// Kernel B (Shoup hint pairs). Returns a cudaError_t (0 on success).
+// Kernel B; hbs and has are ignored unless shoup != 0. Returns a cudaError_t.
 int digit_relin(const void* c2c, const void* c0, const void* c1, const void* hb,
                 const void* hbs, const void* ha, const void* has, void* out,
-                const void* limbs, const void* fwd_tw, const void* slot_ct, int bt, int L,
-                int log_n, void* stream) {
-  dim3 block;
-  size_t smem;
-  launch_shape(log_n, &block, &smem);
-  cudaError_t e = cudaFuncSetAttribute(digit_relin_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  digit_relin_kernel<<<dim3(L, bt), block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(c2c), static_cast<const uint32_t*>(c0),
-      static_cast<const uint32_t*>(c1), static_cast<const uint32_t*>(hb),
-      static_cast<const uint32_t*>(hbs), static_cast<const uint32_t*>(ha),
-      static_cast<const uint32_t*>(has), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(fwd_tw),
-      static_cast<const int32_t*>(slot_ct), L, log_n);
-  return static_cast<int>(cudaGetLastError());
+                const void* limbs, const void* fwd_tw, const void* slot_ct, int shoup, int bt,
+                int L, int log_n, void* stream) {
+  return zq::launch(shoup ? digit_relin_kernel<true> : digit_relin_kernel<false>, dim3(L, bt),
+                    log_n, stream, static_cast<const uint32_t*>(c2c),
+                    static_cast<const uint32_t*>(c0), static_cast<const uint32_t*>(c1),
+                    static_cast<const uint32_t*>(hb), static_cast<const uint32_t*>(hbs),
+                    static_cast<const uint32_t*>(ha), static_cast<const uint32_t*>(has),
+                    static_cast<uint32_t*>(out), static_cast<const uint32_t*>(limbs),
+                    static_cast<const uint32_t*>(fwd_tw), static_cast<const int32_t*>(slot_ct),
+                    L, log_n);
+}
+
+// Kernel 4; hbs and has are ignored unless shoup != 0. Returns a cudaError_t.
+int hybrid_digit_relin(const void* x, const void* ext, const void* hb, const void* hbs,
+                       const void* ha, const void* has, void* out, const void* limbs,
+                       const void* fwd_tw, const void* slot_ct, int shoup, int bt, int L, int T,
+                       int dnum, int alpha, int log_n, void* stream) {
+  return zq::launch(shoup ? hybrid_digit_relin_kernel<true> : hybrid_digit_relin_kernel<false>,
+                    dim3(T, bt), log_n, stream, static_cast<const uint32_t*>(x),
+                    static_cast<const uint32_t*>(ext), static_cast<const uint32_t*>(hb),
+                    static_cast<const uint32_t*>(hbs), static_cast<const uint32_t*>(ha),
+                    static_cast<const uint32_t*>(has), static_cast<uint32_t*>(out),
+                    static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(fwd_tw),
+                    static_cast<const int32_t*>(slot_ct), L, T, dnum, alpha, log_n);
 }
 
 }  // extern "C"

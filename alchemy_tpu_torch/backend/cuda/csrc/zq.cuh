@@ -8,6 +8,8 @@
 // native 32x32->64 product, so each of these is a few instructions.
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cstdint>
 
 namespace zq {
@@ -18,6 +20,7 @@ struct Limb {
   uint32_t q, n_inv, n_inv_s, one_s;
   uint64_t barrett;
 };
+constexpr int kLimbWords = 8;
 
 __device__ __forceinline__ Limb load_limb(const uint32_t* __restrict__ c) {
   Limb k;
@@ -105,6 +108,21 @@ __device__ __forceinline__ void ntt_inverse(uint32_t* a, int log_n,
     }
     __syncthreads();
   }
+}
+
+// Launches a kernel that keeps one limb in shared memory (n words, opted in
+// as dynamic shared memory; n/2 threads up to 1024, one butterfly each per
+// stage) on `stream`. Returns a cudaError_t (0 on success).
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), dim3 grid, int log_n, void* stream, Args... args) {
+  const int n = 1 << log_n;
+  const dim3 block(n / 2 < 1024 ? n / 2 : 1024);
+  const size_t smem = static_cast<size_t>(n) * sizeof(uint32_t);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace zq

@@ -1,5 +1,5 @@
-"""Kernels A and B of BGV multiply + relinearize: wrappers, plain versions
-and launch counters.
+"""Kernels A, B and 4 of BGV multiply + relinearize: wrappers, plain
+versions and launch counters.
 
 Kernel A, `tensor_intt` (replaces `alchemy_tpu/backend/pallas/
 mul_relin_pallas.py:232 _tensor_intt_kernel`): per limb, the Karatsuba
@@ -9,8 +9,16 @@ the inverse NTT of c2 to canonical coefficients c2c.
 Kernel B, `digit_relin` (replaces `mul_relin_pallas.py:439
 _digit_relin_ctmajor_kernel`): for every output limb l, the forward NTT of
 every gadget digit i (the residue c2c[i] mod q_i, reduced mod q_l) and
-out0 = c0 + Σ_i d_i·hb[i, l], out1 = c1 + Σ_i d_i·ha[i, l] with Shoup hint
-pairs.
+out0 = c0 + Σ_i d_i·hb[i, l], out1 = c1 + Σ_i d_i·ha[i, l], with raw hints
+or Shoup hint pairs. At n ≤ 2^15 it also covers `mul_relin_pallas.py:319
+_digit_relin_kernel`, the limb-major variant the TPU runs at 2^16.
+
+Kernel 4, `hybrid_digit_stage` (replaces `mul_relin_pallas.py:807
+_hybrid_digit_relin_kernel`, wrapper `hybrid_digit_stage_pallas` :932): for
+every limb t of the extended chain (T = L + K limbs), the base extension
+Σ_k x_k·[π_k]_{q_t} of each digit group's Garner digits, its forward NTT,
+and the sums t0 = Σ_j D_j·hb[j, t], t1 = Σ_j D_j·ha[j, t] from zero, with
+raw hints or Shoup pairs; c0 and c1 join after the rescale by P.
 
 On the H100 each kernel runs one block per (limb, ciphertext) with the
 limb's n words in shared memory (128 KB at n = 2^15, so n ≤ 2^15: at 2^16
@@ -34,7 +42,9 @@ import torch
 from alchemy_tpu_torch.backend.cuda import build
 from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
+    _garner_tables,
     _sub_mod,
+    extend_digits,
     mulmod,
     mulmod_shoup,
     narrow,
@@ -42,10 +52,10 @@ from alchemy_tpu_torch.backend.modarith import (
     shoup_const,
     widen,
 )
-from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3_bcast, psi_powers
+from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3, ntt3_bcast, psi_powers
 
 #: launches of each kernel since the last `reset_launches()`
-LAUNCHES = {"tensor_intt": 0, "digit_relin": 0}
+LAUNCHES = {"tensor_intt": 0, "digit_relin": 0, "hybrid_digit_relin": 0}
 
 #: shared memory one block may use on sm_90 (bytes)
 MAX_SHARED_BYTES = 232448
@@ -146,6 +156,37 @@ def digit_relin_plain(n: int, qs: tuple[int, ...], c0, c1, c2c, hint_b, hint_a):
     return narrow(torch.stack([out0, out1], dim=1))
 
 
+@lru_cache(maxsize=None)
+def hybrid_ext_consts(groups: tuple[tuple[int, ...], ...],
+                      targets: tuple[int, ...]) -> np.ndarray:
+    """[T, 2, L] uint32: [π_k]_{q_t} for the L Garner digit rows (group-major,
+    π_k the product of the limbs before k in its group) and the Shoup
+    companions (`_hybrid_ext_consts`, mul_relin_pallas.py:914)."""
+    pis = [pi for grp in groups for pi in _garner_tables(grp)[0]]
+    return np.stack([_with_shoup(np.array([p % q for p in pis]), q) for q in targets])
+
+
+def hybrid_digit_stage_plain(n: int, ext_qs: tuple[int, ...], groups, x, hint_b, hint_a):
+    """Plain kernel 4: → [2, Bt, T, n] int32 (see `hybrid_digit_stage`)."""
+    q = qcol(ext_qs, x.device)
+    xw = widen(x)
+    shoup = isinstance(hint_b, (tuple, list))
+    k0 = 0
+    for j, grp in enumerate(groups):
+        dig = extend_digits([xw[:, k] for k in range(k0, k0 + len(grp))], grp, ext_qs)
+        k0 += len(grp)
+        d = ntt3(dig, n, ext_qs)
+        if shoup:
+            pb = mulmod_shoup(d, widen(hint_b[0][j]), widen(hint_b[1][j]), q)
+            pa = mulmod_shoup(d, widen(hint_a[0][j]), widen(hint_a[1][j]), q)
+        else:
+            pb = mulmod(d, widen(hint_b[j]), ext_qs)
+            pa = mulmod(d, widen(hint_a[j]), ext_qs)
+        t0 = pb if j == 0 else _add_mod(t0, pb, q)
+        t1 = pa if j == 0 else _add_mod(t1, pa, q)
+    return narrow(torch.stack([t0, t1]))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -191,32 +232,82 @@ def tensor_intt(n: int, qs: tuple[int, ...], ct_a: torch.Tensor,
     return c0, c1, c2c
 
 
+def _hint_list(hint_b, hint_a, shape: tuple, device: torch.device) -> tuple[bool, list]:
+    """(shoup, [hb, hbs, ha, has]) with None for the companions of raw
+    hints, each checked against `shape`."""
+    shoup = isinstance(hint_b, (tuple, list))
+    hints = [*hint_b, *hint_a] if shoup else [hint_b, None, hint_a, None]
+    for h in hints:
+        if h is not None:
+            _check("hint", h, shape, device)
+    return shoup, hints
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def digit_relin(n: int, qs: tuple[int, ...], c0: torch.Tensor, c1: torch.Tensor,
                 c2c: torch.Tensor, hint_b, hint_a) -> torch.Tensor:
-    """Kernel B: kernel A's (c0, c1, c2c) and the relinearization hints →
-    [Bt, 2, L, n]. On CUDA the hints must be Shoup pairs."""
+    """Kernel B: kernel A's (c0, c1, c2c) and the relinearization hints
+    (raw [L, L, n] or Shoup pairs) → [Bt, 2, L, n]."""
     qs = tuple(qs)
     Bt, L, dev = c2c.shape[0], len(qs), c2c.device
     for name, t in (("c0", c0), ("c1", c1), ("c2c", c2c)):
         _check(name, t, (Bt, L, n), dev)
-    shoup = isinstance(hint_b, (tuple, list))
-    hints = [*hint_b, *hint_a] if shoup else [hint_b, hint_a]
-    for h in hints:
-        _check("hint", h, (L, L, n), dev)
+    shoup, hints = _hint_list(hint_b, hint_a, (L, L, n), dev)
     if dev.type == "cpu":
         return digit_relin_plain(n, qs, c0, c1, c2c, hint_b, hint_a)
     _kernel_device(n, dev)
-    if not shoup:
-        raise NotImplementedError(
-            "kernel B takes Shoup hint pairs: relin_hint(..., shoup=True)")
     t = _device_tables(n, qs, str(dev))
     out = torch.empty((Bt, 2, L, n), dtype=torch.int32, device=dev)
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(lib.digit_relin(
-        c2c.data_ptr(), c0.data_ptr(), c1.data_ptr(),
-        *(h.data_ptr() for h in hints), out.data_ptr(),
+        c2c.data_ptr(), c0.data_ptr(), c1.data_ptr(), *map(_ptr, hints), out.data_ptr(),
         t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_ct"].data_ptr(),
-        Bt, L, n.bit_length() - 1, stream), "digit_relin")
+        int(shoup), Bt, L, n.bit_length() - 1, stream), "digit_relin")
     LAUNCHES["digit_relin"] += 1
+    return out
+
+
+def _group_width(groups, ext_qs: tuple[int, ...]) -> int:
+    """α of hybrid digit groups that split the base chain (the first limbs of
+    ext_qs) in order into runs of α limbs, the last one possibly shorter."""
+    alpha = len(groups[0]) if groups else 0
+    if (not groups or tuple(q for g in groups for q in g) != ext_qs[:sum(map(len, groups))]
+            or any(len(g) != alpha for g in groups[:-1]) or not 0 < len(groups[-1]) <= alpha):
+        raise ValueError(f"digit groups {groups}: want runs of α limbs of the chain in order")
+    return alpha
+
+
+@lru_cache(maxsize=None)
+def _device_ext(groups, ext_qs: tuple[int, ...], device: str) -> torch.Tensor:
+    return torch.from_numpy(hybrid_ext_consts(groups, ext_qs).view(np.int32)).to(device)
+
+
+def hybrid_digit_stage(n: int, ext_qs: tuple[int, ...], groups, x: torch.Tensor,
+                       hint_b, hint_a) -> torch.Tensor:
+    """Kernel 4: the Garner digits x [Bt, L, n] of c2c (natural order; rows
+    group-major, as `she.hybrid.garner_pack` makes them) and the hybrid hints
+    over ext_qs (raw [dnum, T, n] or Shoup pairs) → [2, Bt, T, n], the
+    accumulator (t0, t1) before the rescale by P."""
+    ext_qs, groups = tuple(ext_qs), tuple(map(tuple, groups))
+    alpha = _group_width(groups, ext_qs)
+    L, T, dnum = sum(map(len, groups)), len(ext_qs), len(groups)
+    Bt, dev = x.shape[0], x.device
+    _check("x", x, (Bt, L, n), dev)
+    shoup, hints = _hint_list(hint_b, hint_a, (dnum, T, n), dev)
+    if dev.type == "cpu":
+        return hybrid_digit_stage_plain(n, ext_qs, groups, x, hint_b, hint_a)
+    _kernel_device(n, dev)
+    t = _device_tables(n, ext_qs, str(dev))
+    out = torch.empty((2, Bt, T, n), dtype=torch.int32, device=dev)
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(lib.hybrid_digit_relin(
+        x.data_ptr(), _device_ext(groups, ext_qs, str(dev)).data_ptr(), *map(_ptr, hints),
+        out.data_ptr(), t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_ct"].data_ptr(),
+        int(shoup), Bt, L, T, dnum, alpha, n.bit_length() - 1, stream), "hybrid_digit_relin")
+    LAUNCHES["hybrid_digit_relin"] += 1
     return out

@@ -9,12 +9,17 @@ sums are masked to 32 bits as the uint32 lanes wrap).
 
 Residues are stored as int32 tensors (their uint32 bit pattern): `widen`
 and `narrow` convert between that storage and the int64 working form.
+
+Also the exact mixed-radix (Garner) lifting and base extension of hybrid
+key-switching (`alchemy_tpu/she/hybrid.py:78-125`), shared by `she/hybrid.py`
+and the plain versions of kernels 4 and 7.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 _M16 = 0xFFFF
@@ -95,3 +100,50 @@ def _sub_mod(a, b, q):
 
 def _neg_mod(a, q):
     return torch.where(a == 0, a, (q - a) & _M32)
+
+
+@lru_cache(maxsize=None)
+def _garner_tables(chain: tuple[int, ...]):
+    """pi[k] = ∏_{j<k} chain[j] (exact ints) and inv[k] = pi[k]⁻¹ mod
+    chain[k] (hybrid.py:79)."""
+    pi = [1]
+    for g in chain[:-1]:
+        pi.append(pi[-1] * g)
+    inv = [1] + [pow(pi[k] % chain[k], -1, chain[k]) for k in range(1, len(chain))]
+    return tuple(pi), tuple(inv)
+
+
+def garner_digits(res, chain: tuple[int, ...]) -> list:
+    """Mixed-radix digits x_k of the value V ∈ [0, ∏chain) whose residue mod
+    chain[k] is res[..., k, :]: V = Σ_k x_k·π_k with 0 ≤ x_k < chain[k]
+    (hybrid.py:89). int64 in and out, exact and integer-only."""
+    pi, inv = _garner_tables(tuple(chain))
+    xs = [res[..., 0, :]]
+    for k in range(1, len(chain)):
+        g = chain[k]
+        acc = xs[0] % g                          # V_{k-1} mod g_k
+        for j in range(1, k):
+            acc = (acc + xs[j] * (pi[j] % g)) % g
+        xs.append(_sub_mod(res[..., k, :], acc, g) * inv[k] % g)
+    return xs
+
+
+@lru_cache(maxsize=None)
+def _extend_consts(chain: tuple[int, ...], targets: tuple[int, ...]):
+    """[K, T] int64 numpy: [π_k]_{q_t} (hybrid.py:106; exact int64 products
+    need no Shoup companions)."""
+    pi, _ = _garner_tables(chain)
+    return np.array([[p % q for q in targets] for p in pi], dtype=np.int64)
+
+
+def extend_digits(xs, chain: tuple[int, ...], targets: tuple[int, ...]):
+    """Residues of V = Σ_k x_k·π_k modulo every target limb: K digit
+    tensors [..., n] (int64, any uint32) → [..., T, n] (hybrid.py:117)."""
+    dev = xs[0].device
+    w = torch.from_numpy(_extend_consts(tuple(chain), tuple(targets))).to(dev)
+    q = qcol(targets, dev)
+    out = None
+    for k, x in enumerate(xs):
+        term = x[..., None, :] * w[k][:, None] % q
+        out = term if out is None else _add_mod(out, term, q)
+    return out

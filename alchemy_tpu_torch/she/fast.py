@@ -6,8 +6,8 @@ Shoup companions are carried as their int32 bit pattern. Sampling stays
 host numpy from the caller's `np.random.Generator`, in the same order as
 the JAX package, so one seed gives bit-identical keys, hints and
 ciphertexts. Every function takes an explicit device or follows the
-device of its tensors. The standalone transforms are the plain `ntt3` /
-`intt3` (as in the JAX package, where they run outside any Pallas kernel);
+device of its tensors. The standalone transforms `_ntt_p` / `_intt_p` run
+CUDA kernels 6 and 5 on the card and the plain `ntt3` / `intt3` on the CPU;
 `mul_relin` runs through CUDA kernels A and B on the card.
 """
 
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from alchemy_tpu_torch.backend.cuda.mul_relin import digit_relin, tensor_intt
+from alchemy_tpu_torch.backend.cuda.rescale import intt3_grid, ntt3_grid
 from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
     _sub_mod,
@@ -27,7 +28,6 @@ from alchemy_tpu_torch.backend.modarith import (
     qcol,
     widen,
 )
-from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
 from alchemy_tpu_torch.nt.primes import find_ntt_prime
 from alchemy_tpu_torch.she.keys import gaussian_coeffs, uniform_residues
 
@@ -51,15 +51,32 @@ class FastParams:
 
 
 def _residues(x: np.ndarray, qs, device) -> torch.Tensor:
-    """Signed int64 coefficients [n] → int64 residues [L, n] on device."""
-    return torch.from_numpy(np.stack([x % q for q in qs])).to(device)
+    """Signed int64 coefficients [n] → int32 residues [L, n] on device."""
+    return torch.from_numpy(np.stack([x % q for q in qs]).astype(np.int32)).to(device)
+
+
+def _uniform(rng: np.random.Generator, qs, n: int, device) -> torch.Tensor:
+    return torch.from_numpy(uniform_residues(rng, qs, n).astype(np.int32)).to(device)
+
+
+def _ntt_p(p: FastParams, x: torch.Tensor) -> torch.Tensor:
+    """Forward NTT of int32 rows [..., L, n] → int32 slot order (fast.py:82):
+    kernel 6 for CUDA tensors, the plain `ntt3` for CPU ones."""
+    g = x.reshape(-1, len(p.qs), p.n).contiguous()
+    return ntt3_grid(p.n, p.qs, g).reshape(x.shape)
+
+
+def _intt_p(p: FastParams, x: torch.Tensor) -> torch.Tensor:
+    """Inverse of `_ntt_p` (fast.py:103): kernel 5 for CUDA tensors."""
+    g = x.reshape(-1, len(p.qs), p.n).contiguous()
+    return intt3_grid(p.n, p.qs, g).reshape(x.shape)
 
 
 def keygen(p: FastParams, rng: np.random.Generator, variance: float = 1.0,
            device="cpu") -> torch.Tensor:
     """Secret key in the NTT domain: [L, n] (fast.py:146)."""
     s = gaussian_coeffs(rng, variance, p.n)
-    return narrow(ntt3(_residues(s, p.qs, device), p.n, p.qs))
+    return _ntt_p(p, _residues(s, p.qs, device))
 
 
 def shoup_precompute(arr: torch.Tensor, qs: tuple[int, ...]) -> tuple:
@@ -85,9 +102,9 @@ def relin_hint(p: FastParams, s_ntt: torch.Tensor, rng: np.random.Generator,
     for qi in qs:
         Qi = Q // qi
         g = Qi * pow(Qi % qi, -1, qi) % Q
-        a_ntt = ntt3(torch.from_numpy(uniform_residues(rng, qs, n)).to(dev), n, qs)
+        a_ntt = widen(_ntt_p(p, _uniform(rng, qs, n, dev)))
         e = gaussian_coeffs(rng, variance, n)
-        e_ntt = ntt3(_residues(e * p.zp, qs, dev), n, qs)
+        e_ntt = widen(_ntt_p(p, _residues(e * p.zp, qs, dev)))
         g_col = torch.tensor([g % qj for qj in qs], dtype=torch.int64, device=dev)[:, None]
         gs2 = s2 * g_col % q
         Bs.append(_sub_mod(_add_mod(gs2, e_ntt, q), mulmod(a_ntt, s, qs), q))
@@ -106,10 +123,10 @@ def encrypt(p: FastParams, s_ntt: torch.Tensor, msg_coeffs: np.ndarray,
     q = qcol(qs, dev)
     lift = np.asarray(msg_coeffs, dtype=np.int64) % p.zp
     lift = np.where(lift > p.zp // 2, lift - p.zp, lift)
-    mu_ntt = ntt3(_residues(lift, qs, dev), n, qs)
-    a_ntt = ntt3(torch.from_numpy(uniform_residues(rng, qs, n)).to(dev), n, qs)
+    mu_ntt = widen(_ntt_p(p, _residues(lift, qs, dev)))
+    a_ntt = widen(_ntt_p(p, _uniform(rng, qs, n, dev)))
     e = gaussian_coeffs(rng, variance, n)
-    pe_ntt = ntt3(_residues(e * p.zp, qs, dev), n, qs)
+    pe_ntt = widen(_ntt_p(p, _residues(e * p.zp, qs, dev)))
     c0 = _sub_mod(_add_mod(mu_ntt, pe_ntt, q), mulmod(a_ntt, widen(s_ntt), qs), q)
     return narrow(torch.stack([c0, a_ntt]))
 
@@ -168,7 +185,7 @@ def decrypt(p: FastParams, s_ntt: torch.Tensor, ct: torch.Tensor) -> np.ndarray:
     for k in range(1, ct.shape[0]):
         spow = s if spow is None else mulmod(spow, s, p.qs)
         acc = _add_mod(acc, mulmod(widen(ct[k]), spow, p.qs), q)
-    coeff = intt3(acc, p.n, p.qs).cpu().numpy()
+    coeff = widen(_intt_p(p, narrow(acc))).cpu().numpy()
     return _garner_centered_mod(np.moveaxis(coeff, 0, -2), p.qs, p.zp)
 
 
@@ -176,7 +193,7 @@ def mul_relin(p: FastParams, ct_a: torch.Tensor, ct_b: torch.Tensor,
               hint_b, hint_a) -> torch.Tensor:
     """BGV multiply + relinearize, [..., 2, L, n] × [..., 2, L, n] →
     [..., 2, L, n] (fast.py:310): kernel A then kernel B. Hints are raw
-    [L, L, n] (CPU only) or Shoup pairs from relin_hint(shoup=True)."""
+    [L, L, n] or Shoup pairs from relin_hint(shoup=True)."""
     lead = ct_a.shape[:-3]
     shape = (-1, 2, len(p.qs), p.n)
     c0, c1, c2c = tensor_intt(p.n, p.qs, ct_a.reshape(shape).contiguous(),
@@ -188,12 +205,12 @@ def mul_relin(p: FastParams, ct_a: torch.Tensor, ct_b: torch.Tensor,
 def rescale(p: FastParams, ct: torch.Tensor, k_drop: int = 1) -> torch.Tensor:
     """Exact BGV rescale dropping the last k_drop limbs, NTT domain in and
     out (fast.py:389); plaintext-scale bookkeeping is the caller's."""
-    out = widen(ct)
+    out = ct
     qs = tuple(p.qs)
     pz = p.zp
     mask = pz - 1
     for _ in range(k_drop):
-        coeff = intt3(out, p.n, qs)
+        coeff = widen(_intt_p(FastParams(n=p.n, qs=qs, zp=pz), out))
         qk = qs[-1]
         qs = qs[:-1]
         r = coeff[..., -1, :]
@@ -212,5 +229,5 @@ def rescale(p: FastParams, ct: torch.Tensor, k_drop: int = 1) -> torch.Tensor:
             delta = (rc + tc * qk_mod % qj) % qj
             diff = (coeff[..., j, :] - delta) % qj
             rows.append(diff * pow(qk, -1, qj) % qj)
-        out = ntt3(torch.stack(rows, dim=-2), p.n, qs)
-    return narrow(out)
+        out = _ntt_p(FastParams(n=p.n, qs=qs, zp=pz), narrow(torch.stack(rows, dim=-2)))
+    return out

@@ -1,13 +1,25 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (alchemy_tpu_torch) on one GPU.
 
-Builds CUDA kernels A (tensor_intt) and B (digit_relin) from the sources in
-the checkout, holds each against its plain PyTorch version on the card, and
-drives BGV multiply + relinearize at the headline configuration (n = 2^15,
-L = 8 limbs of ~30 bits, zp = 2, Shoup hint pairs, batches of 16
-ciphertexts) through them: keygen, relin_hint, encrypt, mul_relin, decrypt
-and rescale. Every check is exact equality. Any failure exits non-zero; the
-last line of a passing run is one JSON object naming the device.
+Builds the CUDA kernels from the sources in the checkout and holds each
+against its plain PyTorch version on the card: A (tensor_intt), B
+(digit_relin, Shoup and raw hints), 4 (hybrid_digit_relin, raw and Shoup),
+5 (intt_grid), 6 (ntt_grid) and 7 (rescale_fwd). Then it drives three paths
+through them, each with the launch counters set to 0 just before it:
+
+  [main]    BGV multiply + relinearize with the CRT gadget at the headline
+            configuration (n = 2^15, L = 8 limbs of ~30 bits, zp = 2, Shoup
+            hint pairs, 16 ciphertexts): keygen, relin_hint, encrypt,
+            mul_relin, decrypt, rescale;
+  [hybrid]  hybrid key-switching at the deep configuration (n = 2^15,
+            L = 16, dnum = 4, K = 4, raw hints, 16 ciphertexts):
+            hybrid_keygen_hint, encrypt, mul_relin_hybrid, decrypt; then
+            Shoup hints, and TrivGad mul_relin at the same L for comparison;
+  [deep]    the depth-16 squaring chain at n = 2^15 (18 limbs) with hybrid
+            key-switching per level, decrypted against the Frobenius chain.
+
+Every check is exact equality. Any failure exits non-zero; the last line of
+a passing run is one JSON object naming the device.
 
     python3 chip_smoke.py        # from the root of a checkout, one GPU
 """
@@ -22,8 +34,13 @@ import time
 SEED = 0
 HEADLINE = (15, 8, 16)            # log2 n, limbs, ciphertexts per batch
 SMALL = (14, 4, 4)
-TPU_KERNEL_FILE = "alchemy_tpu/backend/pallas/mul_relin_pallas.py"
-KERNEL_SOURCE = "alchemy_tpu_torch/backend/cuda/csrc/mul_relin.cu"
+DEEP = (15, 16, 16)               # hybrid: dnum = 4, K = 4, T = 20
+SMALL_HYBRID = (14, 5, 2)         # uneven digit groups (3, 2), K = 3
+DEEP_DEPTH = 16
+MUL_RELIN_TPU = "alchemy_tpu/backend/pallas/mul_relin_pallas.py"
+RESCALE_TPU = "alchemy_tpu/backend/pallas/rescale_pallas.py"
+MUL_RELIN_CU = "alchemy_tpu_torch/backend/cuda/csrc/mul_relin.cu"
+RESCALE_CU = "alchemy_tpu_torch/backend/cuda/csrc/rescale.cu"
 
 
 def check(ok: bool, what: str) -> None:
@@ -47,6 +64,45 @@ def device_ms(fn, reps: int) -> float:
 
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item())
+
+
+def reset_launches() -> None:
+    from alchemy_tpu_torch.backend.cuda import mul_relin as mr
+    from alchemy_tpu_torch.backend.cuda import rescale as rk
+
+    mr.reset_launches()
+    rk.reset_launches()
+
+
+def launches() -> dict:
+    from alchemy_tpu_torch.backend.cuda import mul_relin as mr
+    from alchemy_tpu_torch.backend.cuda import rescale as rk
+
+    return {**mr.LAUNCHES, **rk.LAUNCHES}
+
+
+def host_ms(fn):
+    """(fn(), its host-clock ms ended by a synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rate(step, Bt: int, iters: int) -> tuple[float, float]:
+    """(host-clock ops/s, device µs per ciphertext) of step() on Bt ciphertexts."""
+    import torch
+
+    dev_ms = device_ms(step, iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    return Bt * iters / (time.perf_counter() - t0), dev_ms / Bt * 1000
 
 
 def negacyclic_mod2(m1, m2):
@@ -90,7 +146,10 @@ def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
     torch.cuda.synchronize()
     pb = mr.digit_relin_plain(n, qs, *ka, *hints)
     torch.cuda.synchronize()
-    err_b = max_abs_err(kb, pb)
+    raw = [h[0] for h in hints]
+    kr = mr.digit_relin(n, qs, *ka, *raw)
+    torch.cuda.synchronize()
+    err_b = max(max_abs_err(kb, pb), max_abs_err(kr, mr.digit_relin_plain(n, qs, *ka, *raw)))
     check(err_b == 0, f"kernel B != plain at n=2^{log_n} L={L} Bt={Bt} (max abs err {err_b})")
     res = {"err_a": err_a, "err_b": err_b}
     if timed:
@@ -98,9 +157,67 @@ def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
         res["plain_ms_a"] = device_ms(lambda: mr.tensor_intt_plain(n, qs, ct_a, ct_b), 3)
         res["ms_b"] = device_ms(lambda: mr.digit_relin(n, qs, *ka, *hints), 20)
         res["plain_ms_b"] = device_ms(lambda: mr.digit_relin_plain(n, qs, *ka, *hints), 3)
-    print(f"[kernels] n=2^{log_n} L={L} Bt={Bt}: A and B bit-identical to plain "
+        res["ms_b_raw"] = device_ms(lambda: mr.digit_relin(n, qs, *ka, *raw), 20)
+    print(f"[kernels] n=2^{log_n} L={L} Bt={Bt}: A and B (Shoup and raw hints) bit-identical to plain "
           + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in res.items()), flush=True)
+    return res
+
+
+def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
+    """Kernels 4 (raw and Shoup hints), 5, 6 and 7 against their plain
+    versions on the card at the shapes of the hybrid path; returns the
+    errors and device times."""
+    import torch
+
+    from alchemy_tpu_torch.backend.cuda import mul_relin as mr
+    from alchemy_tpu_torch.backend.cuda import rescale as rk
+    from alchemy_tpu_torch.backend.modarith import garner_digits, narrow, widen
+    from alchemy_tpu_torch.she import fast, hybrid
+
+    hk = hybrid.HybridKS.make(fast.FastParams.make(log_n, L))
+    pe, n, K = hk.pe, 1 << log_n, len(hk.ps)
+    T, keep, drop = len(pe.qs), hk.p.qs, hk.ps
+    x = hybrid.garner_pack(hk, random_residues(rng, hk.p.qs, (Bt, L, n)).cuda())
+    raw = [random_residues(rng, pe.qs, (hk.dnum, T, n)).cuda() for _ in range(2)]
+    shoup = [fast.shoup_precompute(h, pe.qs) for h in raw]
+    # kernel 5 on any uint32, kernel 6 at the chain's rescale shape [2, L, n]
+    rows5 = torch.from_numpy(rng.integers(0, 1 << 32, (2 * Bt, T, n), dtype="uint64")
+                             .astype("uint32").view("int32")).cuda()
+    rows6 = torch.from_numpy(rng.integers(0, 1 << 32, (2, L, n), dtype="uint64")
+                             .astype("uint32").view("int32")).cuda()
+    # kernel 7 inputs as rescale_joint makes them from canonical coefficients
+    coeff = random_residues(rng, pe.qs, (2 * Bt, T, n)).cuda()
+    xs = garner_digits(widen(coeff[:, L:]), drop)
+    is_neg, t, t_neg = hybrid._sign_terms(xs, drop, pe.zp)
+    args7 = (n, keep, drop, pe.zp, coeff, narrow(torch.stack(xs, dim=1)),
+             is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32))
+    calls = {
+        "hybrid_digit_relin": (lambda: mr.hybrid_digit_stage(n, pe.qs, hk.groups, x, *raw),
+                               lambda: mr.hybrid_digit_stage_plain(n, pe.qs, hk.groups, x, *raw)),
+        "hybrid_digit_relin_shoup": (
+            lambda: mr.hybrid_digit_stage(n, pe.qs, hk.groups, x, *shoup),
+            lambda: mr.hybrid_digit_stage_plain(n, pe.qs, hk.groups, x, *shoup)),
+        "intt_grid": (lambda: rk.intt3_grid(n, pe.qs, rows5),
+                      lambda: rk.intt3_grid_plain(n, pe.qs, rows5)),
+        "ntt_grid": (lambda: rk.ntt3_grid(n, keep, rows6),
+                     lambda: rk.ntt3_grid_plain(n, keep, rows6)),
+        "rescale_fwd": (lambda: rk.rescale_fwd(*args7), lambda: rk.rescale_fwd_plain(*args7)),
+    }
+    res = {}
+    for name, (kern, plain) in calls.items():
+        got = kern()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain())
+        check(err == 0, f"{name} != plain at n=2^{log_n} L={L} Bt={Bt} (max abs err {err})")
+        res[name] = {"err": err}
+        if timed:
+            res[name].update(ms=device_ms(kern, 20), plain_ms=device_ms(plain, 3))
+    print(f"[kernels] n=2^{log_n} L={L} dnum={hk.dnum} K={K} T={T} Bt={Bt}: kernels 4 "
+          f"(raw, Shoup), 5, 6, 7 bit-identical to plain "
+          + " ".join(f"{k}:" + ",".join(f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
+                                        for a, b in v.items()) for k, v in res.items()),
+          flush=True)
     return res
 
 
@@ -113,53 +230,143 @@ def main_path(rng, card: str) -> dict:
     from alchemy_tpu_torch.she import fast
 
     log_n, L, Bt = HEADLINE
-    t0 = time.perf_counter()
     p = fast.FastParams.make(log_n, L, zp=2)
-    s = fast.keygen(p, rng, device="cuda")
-    hb, ha = fast.relin_hint(p, s, rng, shoup=True)
+    setup = {}
+    s, setup["keygen"] = host_ms(lambda: fast.keygen(p, rng, device="cuda"))
+    (hb, ha), setup["relin_hint"] = host_ms(lambda: fast.relin_hint(p, s, rng, shoup=True))
     m1 = rng.integers(0, p.zp, (Bt, p.n))
     m2 = rng.integers(0, p.zp, (Bt, p.n))
-    ct_a = torch.stack([fast.encrypt(p, s, m, rng) for m in m1])
-    ct_b = torch.stack([fast.encrypt(p, s, m, rng) for m in m2])
-    torch.cuda.synchronize()
-    print(f"[setup] keygen + relin_hint + {2 * Bt} encrypts: "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    cts, ms = host_ms(lambda: [fast.encrypt(p, s, m, rng) for m in [*m1, *m2]])
+    setup["encrypt_per_ct"] = ms / (2 * Bt)
+    ct_a, ct_b = torch.stack(cts[:Bt]), torch.stack(cts[Bt:])
+    print(f"[setup] n=2^{log_n} L={L} host ms: "
+          + " ".join(f"{k}={v:.3f}" for k, v in setup.items()), flush=True)
 
-    mr.reset_launches()
+    reset_launches()
     out = fast.mul_relin(p, ct_a, ct_b, hb, ha)
     torch.cuda.synchronize()
-    launches = dict(mr.LAUNCHES)
-    check(all(v > 0 for v in launches.values()), f"kernel launches on the main path: {launches}")
+    seen = launches()
+    check(seen["tensor_intt"] > 0 and seen["digit_relin"] > 0,
+          f"kernel launches on the main path: {seen}")
     check(tuple(out.shape) == (Bt, 2, L, p.n), f"mul_relin shape {tuple(out.shape)}")
     ref = mr.digit_relin_plain(p.n, p.qs, *mr.tensor_intt_plain(p.n, p.qs, ct_a, ct_b), hb, ha)
     check(torch.equal(out, ref), "mul_relin through the kernels != plain path")
-    print(f"[main] mul_relin Bt={Bt}: launches {launches}, bit-identical to the plain path",
+    print(f"[main] mul_relin Bt={Bt}: launches {seen}, bit-identical to the plain path",
           flush=True)
 
     want = [negacyclic_mod2(a, b) for a, b in zip(m1, m2)]
+    dec, dec_ms = host_ms(lambda: [fast.decrypt(p, s, out[i]) for i in range(Bt)])
+    dec_ms /= Bt
     for i in range(Bt):
-        check(np.array_equal(fast.decrypt(p, s, out[i]), want[i]), f"decrypt of product {i}")
-    down = fast.rescale(p, out, 1)
+        check(np.array_equal(dec[i], want[i]), f"decrypt of product {i}")
+    down, resc_ms = host_ms(lambda: fast.rescale(p, out, 1))
     p7 = fast.FastParams(n=p.n, qs=p.qs[:-1], zp=p.zp)
     for i in range(Bt):
         check(np.array_equal(fast.decrypt(p7, s[:-1], down[i]), want[i]),
               f"decrypt of rescaled product {i}")
     print(f"[main] {Bt} products decrypt to the negacyclic products mod 2; "
-          f"rescale to L={L - 1} decrypts the same", flush=True)
+          f"rescale to L={L - 1} decrypts the same; host ms: decrypt_per_ct={dec_ms:.3f} "
+          f"rescale_{Bt}ct={resc_ms:.3f}", flush=True)
 
-    iters = 50
-    step = lambda: fast.mul_relin(p, ct_a, ct_b, hb, ha)
-    dev_ms = device_ms(step, iters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        step()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    ops = Bt * iters / wall
+    ops, us = rate(lambda: fast.mul_relin(p, ct_a, ct_b, hb, ha), Bt, 50)
     print(f"[perf] mul_relin n=2^{log_n} L={L} Bt={Bt}: {ops:.1f} ops/s (host clock), "
-          f"device {dev_ms / Bt * 1000:.2f} us/ct ({dev_ms:.4f} ms/batch) on {card}", flush=True)
-    return {"launches": launches, "ops_per_s": ops, "device_us_per_ct": dev_ms / Bt * 1000}
+          f"device {us:.2f} us/ct ({us * Bt / 1000:.4f} ms/batch) on {card}", flush=True)
+    return {"launches": seen, "ops_per_s": ops, "device_us_per_ct": us}
+
+
+def hybrid_path(rng, card: str) -> dict:
+    """Hybrid key-switching at the deep configuration, raw hints (as
+    bench.py runs it) then Shoup pairs, and TrivGad at the same L."""
+    import numpy as np
+    import torch
+
+    from alchemy_tpu_torch.backend.cuda import mul_relin as mr
+    from alchemy_tpu_torch.she import fast, hybrid
+
+    log_n, L, Bt = DEEP
+    hk = hybrid.HybridKS.make(fast.FastParams.make(log_n, L, zp=2))
+    p, pe = hk.p, hk.pe
+    setup = {}
+    (s, (hb, ha)), setup["hybrid_keygen_hint"] = host_ms(
+        lambda: hybrid.hybrid_keygen_hint(hk, rng, device="cuda"))
+    m1 = rng.integers(0, p.zp, (Bt, p.n))
+    m2 = rng.integers(0, p.zp, (Bt, p.n))
+    cts, ms = host_ms(lambda: [fast.encrypt(p, s, m, rng) for m in [*m1, *m2]])
+    setup["encrypt_per_ct"] = ms / (2 * Bt)
+    ct_a, ct_b = torch.stack(cts[:Bt]), torch.stack(cts[Bt:])
+    print(f"[setup] n=2^{log_n} L={L} dnum={hk.dnum} K={len(hk.ps)} host ms: "
+          + " ".join(f"{k}={v:.3f}" for k, v in setup.items()), flush=True)
+
+    reset_launches()
+    out = hybrid.mul_relin_hybrid(hk, ct_a, ct_b, hb, ha)
+    torch.cuda.synchronize()
+    seen = launches()
+    check(all(seen[k] > 0 for k in ("tensor_intt", "hybrid_digit_relin", "intt_grid",
+                                    "rescale_fwd")), f"kernel launches on the hybrid path: {seen}")
+    check(tuple(out.shape) == (Bt, 2, L, p.n), f"mul_relin_hybrid shape {tuple(out.shape)}")
+    check(torch.equal(out, hybrid.mul_relin_hybrid_plain(hk, ct_a, ct_b, hb, ha)),
+          "mul_relin_hybrid through the kernels != plain path (raw hints)")
+    want = [negacyclic_mod2(a, b) for a, b in zip(m1, m2)]
+    for i in range(Bt):
+        check(np.array_equal(fast.decrypt(p, s, out[i]), want[i]), f"decrypt of hybrid product {i}")
+    hs = [fast.shoup_precompute(h, pe.qs) for h in (hb, ha)]
+    out_s = hybrid.mul_relin_hybrid(hk, ct_a, ct_b, *hs)
+    check(torch.equal(out_s, out), "mul_relin_hybrid with Shoup hints != raw hints")
+    check(torch.equal(out_s, hybrid.mul_relin_hybrid_plain(hk, ct_a, ct_b, *hs)),
+          "mul_relin_hybrid through the kernels != plain path (Shoup hints)")
+    print(f"[hybrid] mul_relin_hybrid Bt={Bt}: launches {seen}, bit-identical to the plain "
+          f"path (raw and Shoup hints); {Bt} products decrypt to the negacyclic products mod 2",
+          flush=True)
+
+    res = {"launches": seen}
+    for name, hints in (("raw", (hb, ha)), ("shoup", hs)):
+        res[name] = rate(lambda: hybrid.mul_relin_hybrid(hk, ct_a, ct_b, *hints), Bt, 20)
+    # where the device time of one raw-hint call goes
+    c = mr.tensor_intt(p.n, p.qs, ct_a, ct_b)
+    x = hybrid.garner_pack(hk, c[2])
+    t01 = mr.hybrid_digit_stage(p.n, pe.qs, hk.groups, x, hb, ha)
+    stages = {
+        "tensor_intt": device_ms(lambda: mr.tensor_intt(p.n, p.qs, ct_a, ct_b), 10),
+        "garner_pack": device_ms(lambda: hybrid.garner_pack(hk, c[2]), 10),
+        "hybrid_digit_relin": device_ms(
+            lambda: mr.hybrid_digit_stage(p.n, pe.qs, hk.groups, x, hb, ha), 10),
+        "rescale_joint": device_ms(lambda: hybrid.rescale_joint(pe, t01, len(hk.ps)), 10),
+    }
+    (tb, ta), hint_ms = host_ms(lambda: fast.relin_hint(p, s, rng, shoup=True))
+    trivgad = fast.mul_relin(p, ct_a, ct_b, tb, ta)
+    check(np.array_equal(fast.decrypt(p, s, trivgad[0]), want[0]), "decrypt of TrivGad product")
+    res["trivgad"] = rate(lambda: fast.mul_relin(p, ct_a, ct_b, tb, ta), Bt, 20)
+    for name in ("raw", "shoup", "trivgad"):
+        ops, us = res[name]
+        print(f"[perf] {'mul_relin_hybrid ' + name if name != 'trivgad' else 'mul_relin TrivGad'}"
+              f" n=2^{log_n} L={L} Bt={Bt}: {ops:.1f} ops/s (host clock), device {us:.2f} us/ct"
+              f" on {card}", flush=True)
+    print("[perf] hybrid raw-hint call, device ms by stage: "
+          + " ".join(f"{k}={v:.4f}" for k, v in stages.items())
+          + f"; TrivGad relin_hint at L={L}: {hint_ms:.1f} ms host", flush=True)
+    return res
+
+
+def deep_path(card: str) -> dict:
+    """The depth-16 squaring chain at n = 2^15 (18 limbs) with hybrid
+    key-switching."""
+    from alchemy_tpu_torch.examples.deep_circuit import run
+
+    reset_launches()
+    t0 = time.perf_counter()
+    ok, ct, level_ms = run(log_n=DEEP[0], depth=DEEP_DEPTH, ks="hybrid", device="cuda",
+                           verbose=False)
+    wall = time.perf_counter() - t0
+    seen = launches()
+    check(ok, "deep circuit: decrypt != the squaring chain")
+    check(all(seen[k] > 0 for k in ("tensor_intt", "hybrid_digit_relin", "intt_grid",
+                                    "ntt_grid", "rescale_fwd")),
+          f"kernel launches on the deep circuit: {seen}")
+    print(f"[deep] n=2^{DEEP[0]} depth={DEEP_DEPTH} hybrid: PASS in {wall:.2f} s (host clock) on {card};"
+          f" launches {seen}; kernel 6 (ntt_grid) launched {seen['ntt_grid']} times", flush=True)
+    print("[deep] per-level ms (hint + mul_relin_hybrid + rescale): "
+          + " ".join(f"{v:.1f}" for v in level_ms), flush=True)
+    return {"launches": seen, "level_ms": level_ms, "wall_s": wall}
 
 
 def main() -> int:
@@ -183,21 +390,37 @@ def main() -> int:
     build.library()
     print(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s", flush=True)
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}", flush=True)
 
     rng = np.random.default_rng(SEED)
     head = kernel_phase(*HEADLINE, rng, timed=True)
-    kernel_phase(*SMALL, rng, timed=False)
+    small = kernel_phase(*SMALL, rng, timed=False)
+    deep_k = hybrid_kernel_phase(*DEEP, rng, timed=True)
+    small_k = hybrid_kernel_phase(*SMALL_HYBRID, rng, timed=False)
     mp = main_path(rng, card)
+    hy = hybrid_path(rng, card)
+    dp = deep_path(card)
+
+    def entry(name, source, replaces, launched, err, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    def hybrid_entry(name, tpu, line, source, launched):
+        errs = [r[k]["err"] for r in (deep_k, small_k) for k in r if k.startswith(name)]
+        return entry(name, source, f"{tpu}:{line}", launched, max(errs),
+                     deep_k[name]["ms"], deep_k[name]["plain_ms"])
 
     kernels = [
-        {"name": "tensor_intt", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": f"{TPU_KERNEL_FILE}:232", "launches": mp["launches"]["tensor_intt"],
-         "max_abs_err": head["err_a"], "ms": head["ms_a"], "plain_ms": head["plain_ms_a"]},
-        {"name": "digit_relin", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": f"{TPU_KERNEL_FILE}:439", "launches": mp["launches"]["digit_relin"],
-         "max_abs_err": head["err_b"], "ms": head["ms_b"], "plain_ms": head["plain_ms_b"]},
+        entry("tensor_intt", MUL_RELIN_CU, f"{MUL_RELIN_TPU}:232", mp["launches"]["tensor_intt"],
+              max(head["err_a"], small["err_a"]), head["ms_a"], head["plain_ms_a"]),
+        entry("digit_relin", MUL_RELIN_CU, f"{MUL_RELIN_TPU}:439", mp["launches"]["digit_relin"],
+              max(head["err_b"], small["err_b"]), head["ms_b"], head["plain_ms_b"]),
+        hybrid_entry("hybrid_digit_relin", MUL_RELIN_TPU, 807, MUL_RELIN_CU,
+                     hy["launches"]["hybrid_digit_relin"]),
+        hybrid_entry("intt_grid", RESCALE_TPU, 52, RESCALE_CU, hy["launches"]["intt_grid"]),
+        hybrid_entry("ntt_grid", RESCALE_TPU, 142, RESCALE_CU, dp["launches"]["ntt_grid"]),
+        hybrid_entry("rescale_fwd", RESCALE_TPU, 206, RESCALE_CU, hy["launches"]["rescale_fwd"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -148,8 +148,9 @@ def test_ntt3_matches_ntt_mxu3_full_size(log_n):
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
-        "import alchemy_tpu_torch.she.fast, alchemy_tpu_torch.convert\n"
-        "import alchemy_tpu_torch.backend.cuda.build\n"
+        "import alchemy_tpu_torch.she.fast, alchemy_tpu_torch.she.hybrid\n"
+        "import alchemy_tpu_torch.convert, alchemy_tpu_torch.examples.deep_circuit\n"
+        "import alchemy_tpu_torch.backend.cuda.build, alchemy_tpu_torch.backend.cuda.rescale\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alchemy_tpu'))\n"
         "assert not bad, bad\n"
     )

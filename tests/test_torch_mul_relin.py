@@ -170,9 +170,10 @@ def test_kernels_match_plain_on_the_card(log_n, L, Bt):
     assert all(torch.equal(x, y) for x, y in zip(c, mr.tensor_intt_plain(p.n, p.qs, ct_a, ct_b)))
     out = mr.digit_relin(p.n, p.qs, *c, hb, ha)
     assert torch.equal(out, mr.digit_relin_plain(p.n, p.qs, *c, hb, ha))
-    assert mr.LAUNCHES == {k: v + 1 for k, v in before.items()}
-    with pytest.raises(NotImplementedError):       # raw hints: plain version only
-        mr.digit_relin(p.n, p.qs, *c, hb[0], ha[0])
+    # raw hints: the Barrett branch of kernel B, the same residues
+    assert torch.equal(mr.digit_relin(p.n, p.qs, *c, hb[0], ha[0]), out)
+    assert mr.LAUNCHES == {**before, "tensor_intt": before["tensor_intt"] + 1,
+                           "digit_relin": before["digit_relin"] + 2}
 
 
 @pytest.mark.cuda

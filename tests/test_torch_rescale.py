@@ -1,0 +1,172 @@
+"""alchemy_tpu_torch kernels 5, 6 and 7 (backend/cuda/rescale.py), the
+standalone transforms `fast._ntt_p`/`_intt_p` and `hybrid.rescale_joint`:
+the plain versions against the JAX package's Pallas kernels in interpret
+mode and its jnp formulations (exact equality)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from alchemy_tpu.she import fast as jfast
+from alchemy_tpu.she import hybrid as jhyb
+from alchemy_tpu_torch.backend.cuda import build
+from alchemy_tpu_torch.backend.cuda import rescale as rk
+from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
+from alchemy_tpu_torch.convert import to_numpy, to_torch
+from alchemy_tpu_torch.she import fast as tfast
+from alchemy_tpu_torch.she import hybrid as thyb
+
+
+def _eq(jax_arr, port):
+    return np.array_equal(np.asarray(jax_arr), to_numpy(port))
+
+
+def _rows(p, G, seed, hi=None):
+    """[G, T, n] uint32 rows: residues mod each limb, or any uint32 below hi."""
+    rng = np.random.default_rng(seed)
+    if hi is not None:
+        return rng.integers(0, hi, (G, len(p.qs), p.n), dtype=np.uint64).astype(np.uint32)
+    return np.stack([rng.integers(0, q, (G, p.n)) for q in p.qs], axis=1).astype(np.uint32)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """Run the Pallas kernels in interpret mode, as tests/test_pallas.py does."""
+    from jax.experimental import pallas as pl
+
+    import alchemy_tpu.backend.pallas.rescale_pallas as rpk
+
+    orig = pl.pallas_call
+    monkeypatch.setattr(rpk.pl, "pallas_call", lambda *a, **k: orig(*a, **{"interpret": True, **k}))
+    return rpk
+
+
+@pytest.mark.parametrize("log_n,L", [(10, 3), (11, 4)])
+def test_plain_kernels_5_and_6_match_pallas_kernels_interpret(interpret, log_n, L):
+    p = jfast.FastParams.make(log_n, L, impl="pallas")
+    x = _rows(p, 2, seed=log_n)
+    y = interpret.ntt3_grid_pallas(p.n, p.qs, jnp.asarray(x))
+    assert _eq(y, rk.ntt3_grid(p.n, p.qs, to_torch(x)))
+    assert _eq(interpret.intt3_grid_pallas(p.n, p.qs, y), rk.intt3_grid(p.n, p.qs, to_torch(y)))
+    # the port's kernels reduce any uint32 input first, as ntt3/intt3 do
+    u = _rows(p, 2, seed=1, hi=1 << 32)
+    q = np.array(p.qs, dtype=np.uint64)[:, None]
+    for fn, plain in ((rk.ntt3_grid, ntt3), (rk.intt3_grid, intt3)):
+        want = plain(torch.from_numpy((u % q).astype(np.int64)), p.n, p.qs)
+        assert np.array_equal(to_numpy(fn(p.n, p.qs, to_torch(u))).astype(np.int64), want.numpy())
+
+
+@pytest.mark.parametrize("log_n,L,k_drop", [(10, 4, 1), (10, 6, 2), (11, 5, 3)])
+def test_rescale_joint_matches_pallas_interpret_and_jnp(interpret, log_n, L, k_drop):
+    """Kernels 5 → sign terms → 7 (plain versions here) against
+    `rescale_joint_pallas` (kernels C and D in interpret mode) and against
+    `_rescale_joint_jnp`."""
+    p = jfast.FastParams.make(log_n, L, zp=2, impl="pallas")
+    tp = tfast.FastParams(n=p.n, qs=p.qs, zp=2)
+    ct = _rows(p, 2, seed=L)
+    out = thyb.rescale_joint(tp, to_torch(ct), k_drop)
+    assert out.shape == (2, L - k_drop, p.n)
+    assert _eq(interpret.rescale_joint_pallas(p, jnp.asarray(ct), k_drop), out)
+    assert _eq(jhyb._rescale_joint_jnp(p, jnp.asarray(ct), k_drop), out)
+
+
+def test_kernel7_constants_match_pallas(interpret):
+    p = jfast.FastParams.make(10, 6)
+    keep, drop = p.qs[:4], p.qs[4:]
+    rsc, w, ws = interpret._rescale_consts(keep, drop)
+    ours = rk.rescale_consts(keep, drop)                       # [L, 4 + 2K]
+    assert np.array_equal(ours[:, :4], rsc)
+    assert np.array_equal(ours[:, 4:6], w) and np.array_equal(ours[:, 6:], ws)
+
+
+@pytest.mark.parametrize("k_drop", [1, 2])
+def test_rescale_joint_matches_jnp_and_fast_rescale(k_drop):
+    """On a fresh ciphertext and a batch with leading dims; at k_drop = 1
+    the joint rescale equals the port's limb-by-limb `fast.rescale`."""
+    jp = jfast.FastParams.make(10, 4, zp=2, impl="pallas")
+    tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=2)
+    rng = np.random.default_rng(k_drop)
+    s = tfast.keygen(tp, rng)
+    msgs = rng.integers(0, 2, (2, 3, tp.n))
+    ct = torch.stack([torch.stack([tfast.encrypt(tp, s, m, rng) for m in row]) for row in msgs])
+    out = thyb.rescale_joint(tp, ct, k_drop)
+    assert out.shape == (2, 3, 2, 4 - k_drop, tp.n)
+    assert _eq(jhyb._rescale_joint_jnp(jp, jnp.asarray(to_numpy(ct)), k_drop), out)
+    assert torch.equal(out, thyb._rescale_joint_plain(tp, ct, k_drop))
+    down = tfast.FastParams(n=tp.n, qs=tp.qs[:-k_drop], zp=2)
+    assert np.array_equal(tfast.decrypt(down, s[:-k_drop], out[1, 2]), msgs[1, 2])
+    if k_drop == 1:
+        assert torch.equal(out, tfast.rescale(tp, ct, 1))
+    with pytest.raises(ValueError):
+        thyb.rescale_joint(tfast.FastParams(n=tp.n, qs=tp.qs, zp=1 << 17), ct, k_drop)
+
+
+def test_ntt_p_intt_p_match_jax():
+    jp = jfast.FastParams.make(10, 3, impl="pallas")
+    tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=jp.zp)
+    x = _rows(jp, 4, seed=5).reshape(2, 2, 3, jp.n)            # leading dims fold through
+    y = tfast._ntt_p(tp, to_torch(x))
+    assert y.shape == x.shape and _eq(jfast._ntt_p(jp, jnp.asarray(x)), y)
+    assert _eq(jfast._intt_p(jp, jnp.asarray(to_numpy(y))), tfast._intt_p(tp, y))
+    assert np.array_equal(to_numpy(tfast._intt_p(tp, y)), x)
+
+
+def test_rescale_wrappers_stay_off_the_card_and_check_inputs(monkeypatch):
+    def no_library():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(build, "library", no_library)
+    p = tfast.FastParams.make(10, 4)
+    n, qs = p.n, p.qs
+    x = torch.zeros((2, 4, n), dtype=torch.int32)
+    assert rk.ntt3_grid(n, qs, x).shape == rk.intt3_grid(n, qs, x).shape == x.shape
+    f = torch.zeros((2, n), dtype=torch.int32)
+    xs = torch.zeros((2, 1, n), dtype=torch.int32)
+    assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, xs, f, f, f).shape == (2, 3, n)
+    s = tfast.keygen(p, np.random.default_rng(0))
+    ct = tfast.encrypt(p, s, np.zeros(n, dtype=np.int64), np.random.default_rng(1))
+    down = tfast.FastParams(n=n, qs=qs[:-1], zp=2)
+    assert not tfast.decrypt(down, s[:-1], tfast.rescale(p, ct, 1)).any()
+    with pytest.raises(ValueError):
+        rk.ntt3_grid(n, qs, x.long())
+    with pytest.raises(ValueError):
+        rk.intt3_grid(n, qs, x[:, :3])                         # not contiguous, wrong T
+    with pytest.raises(ValueError):
+        rk.intt3_grid(n, qs, x[0])
+    with pytest.raises(ValueError):
+        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x[:, :3].contiguous(), xs, f, f, f)
+    with pytest.raises(ValueError):
+        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, xs, f[:1], f, f)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n,L,G", [(14, 5, 3), (15, 20, 2)])
+def test_kernels_5_6_7_match_plain_on_the_card(log_n, L, G):
+    _need_card()
+    p = tfast.FastParams.make(log_n, L)
+    x = to_torch(_rows(p, G, seed=log_n, hi=1 << 32), "cuda")
+    before = dict(rk.LAUNCHES)
+    assert torch.equal(rk.ntt3_grid(p.n, p.qs, x), rk.ntt3_grid_plain(p.n, p.qs, x))
+    assert torch.equal(rk.intt3_grid(p.n, p.qs, x), rk.intt3_grid_plain(p.n, p.qs, x))
+    ct = to_torch(_rows(p, G, seed=1), "cuda")
+    for k_drop in (1, 4):
+        assert torch.equal(thyb.rescale_joint(p, ct, k_drop),
+                           thyb._rescale_joint_plain(p, ct, k_drop))
+    assert rk.LAUNCHES == {"intt_grid": before["intt_grid"] + 3,
+                           "ntt_grid": before["ntt_grid"] + 1,
+                           "rescale_fwd": before["rescale_fwd"] + 2}
+
+
+@pytest.mark.cuda
+def test_rescale_joint_on_the_card_matches_jax():
+    _need_card()
+    jp = jfast.FastParams.make(14, 6, zp=2, impl="pallas")
+    ct = _rows(jp, 2, seed=3)
+    out = thyb.rescale_joint(tfast.FastParams(n=jp.n, qs=jp.qs, zp=2), to_torch(ct, "cuda"), 2)
+    assert out.is_cuda and _eq(jhyb._rescale_joint_jnp(jp, jnp.asarray(ct), 2), out)
