@@ -68,7 +68,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's signature set."""
     lib = ctypes.CDLL(str(library_path()))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.tensor_intt.argtypes = [P] * 8 + [I, I, I, P]
+    lib.tensor_intt.argtypes = [P] * 8 + [I] * 3 + [P]
     lib.tensor_intt.restype = I
     lib.digit_relin.argtypes = [P] * 11 + [I] * 4 + [P]
     lib.digit_relin.restype = I

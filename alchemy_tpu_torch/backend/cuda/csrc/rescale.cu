@@ -18,12 +18,14 @@
 //               companion, [pi_k]_{q_j} x K, companions x K)
 //               -> [G, L, n] NTT domain over the L keep limbs
 //
-// What bounds them on the H100: as kernels A and B (mul_relin.cu), one
-// block per (limb, row) keeps the limb in shared memory (128 KB at n = 2^15,
-// one block per SM) and runs one radix-2 NTT of log2(n) barrier-separated
-// stages; each block reads and writes its n words once. The TPU kernels
-// batch rows into wide matmuls; here the rows are separate blocks, G*T of
-// them, so a call fills the card from G*T >= 132 on.
+// What bounds them on the H100: as kernels A and B (mul_relin.cu), kernels
+// 5 and 6 split each limb over two blocks, each with half of it in shared
+// memory (64 KB at n = 2^15, two blocks per SM; 128 KB at 2^16), so a call
+// has 2*G*T blocks; kernel 6 fuses its first forward stage into the load,
+// kernel 5 finishes its last inverse stage across a cluster of two through
+// distributed shared memory. Kernel 7 keeps one whole limb per block (n
+// words, n <= 2^15). Each block reads and writes its words once; the TPU
+// kernels batch rows into wide matmuls, here the rows are separate blocks.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -34,49 +36,53 @@ namespace {
 
 using zq::kLimbWords;
 
-// One block per (limb t, row g): scatter each slot to its bit-reversed
-// position, inverse NTT, scale by n^-1 (kernel A's tail without the tensor
-// product).
-__global__ void __launch_bounds__(1024)
+// A cluster of two blocks per (limb t, row g): block `part` gathers the
+// slots whose radix-2 index lies in its half (reduced), runs the inverse
+// stages inside it, and the pair finishes the last stage, scaled by n^-1.
+// Registers as in mul_relin.cu's tensor_intt_kernel.
+__global__ void __launch_bounds__(1024, 2)
 intt_grid_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                  const uint32_t* __restrict__ limbs, const uint32_t* __restrict__ inv_tw,
-                 const int32_t* __restrict__ slot_ct, int T, int log_n) {
+                 const int32_t* __restrict__ slot_inv, int T, int log_n) {
   extern __shared__ uint32_t buf[];
-  const int n = 1 << log_n;
-  const int t = blockIdx.x;
+  const int n = 1 << log_n, half = n >> 1;
+  const int t = blockIdx.x >> 1, part = blockIdx.x & 1;
   const size_t row = (static_cast<size_t>(blockIdx.y) * T + t) * n;
   const zq::Limb k = zq::load_limb(limbs + kLimbWords * t);
-  for (int s = threadIdx.x; s < n; s += blockDim.x) buf[slot_ct[s]] = zq::reduce(x[row + s], k);
+  const int32_t* own = slot_inv + part * half;
+  for (int j = threadIdx.x; j < half; j += blockDim.x) buf[j] = zq::reduce(x[row + own[j]], k);
   __syncthreads();
   const uint32_t* tw = inv_tw + 2 * static_cast<size_t>(t) * n;
-  zq::ntt_inverse(buf, log_n, tw, tw + n, k.q);
-  for (int s = threadIdx.x; s < n; s += blockDim.x) {
-    out[row + s] = zq::mulmod_shoup(buf[s], k.n_inv, k.n_inv_s, k.q);
-  }
+  zq::ntt_inverse(buf, log_n, tw, tw + n, k.q, 1, part);
+  zq::inverse_last_stage(buf, out + row, log_n, part, tw, tw + n, k);
 }
 
-// One block per (limb t, row g): reduce, forward NTT, gather to slot order.
-__global__ void __launch_bounds__(1024)
+// Two blocks per (limb t, row g): block `part` runs the first stage in its
+// load (reducing any uint32), the forward stages inside its half, and writes
+// the slots whose radix-2 index lies there.
+__global__ void __launch_bounds__(1024, 2)
 ntt_grid_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                 const uint32_t* __restrict__ limbs, const uint32_t* __restrict__ fwd_tw,
-                const int32_t* __restrict__ slot_ct, int T, int log_n) {
+                const int32_t* __restrict__ slot_inv, int T, int log_n) {
   extern __shared__ uint32_t buf[];
-  const int n = 1 << log_n;
-  const int t = blockIdx.x;
+  const int n = 1 << log_n, half = n >> 1;
+  const int t = blockIdx.x >> 1, part = blockIdx.x & 1;
   const size_t row = (static_cast<size_t>(blockIdx.y) * T + t) * n;
   const zq::Limb k = zq::load_limb(limbs + kLimbWords * t);
-  for (int s = threadIdx.x; s < n; s += blockDim.x) buf[s] = zq::reduce(x[row + s], k);
-  __syncthreads();
   const uint32_t* tw = fwd_tw + 2 * static_cast<size_t>(t) * n;
-  zq::ntt_forward(buf, log_n, tw, tw + n, k.q);
-  for (int s = threadIdx.x; s < n; s += blockDim.x) out[row + s] = buf[slot_ct[s]];
+  zq::forward_first_stage(buf, x + row, log_n, part, tw, tw + n, k);
+  __syncthreads();
+  zq::ntt_forward(buf, log_n, tw, tw + n, k.q, 1, part);
+  const int32_t* own = slot_inv + part * half;
+  for (int j = threadIdx.x; j < half; j += blockDim.x) out[row + own[j]] = buf[j];
 }
 
-// One block per (keep limb j, row g). Per slot, as she/hybrid.py
-// _rescale_joint_jnp:189-209 computes it: v = sum_k xs[k]*[pi_k]_{q_j} (the
-// dropped part V mod q_j), minus P if V is negative (is_neg); the centered
-// correction t (t_neg: t - zp); delta = v + t*P; out = (coeff - delta)*P^-1;
-// then the forward NTT, gathered to slot order.
+// One block per (keep limb j, row g), the whole limb in shared memory. Per
+// slot, as she/hybrid.py _rescale_joint_jnp:189-209 computes it: v =
+// sum_k xs[k]*[pi_k]_{q_j} (the dropped part V mod q_j), minus P if V is
+// negative (is_neg); the centered correction t (t_neg: t - zp); delta =
+// v + t*P; out = (coeff - delta)*P^-1; then the forward NTT, gathered to
+// slot order.
 __global__ void __launch_bounds__(1024)
 rescale_fwd_kernel(const uint32_t* __restrict__ coeff, const uint32_t* __restrict__ xs,
                    const uint32_t* __restrict__ is_neg, const uint32_t* __restrict__ tz,
@@ -120,20 +126,20 @@ extern "C" {
 
 // Kernel 5. Returns a cudaError_t (0 on success).
 int intt_grid(const void* x, void* out, const void* limbs, const void* inv_tw,
-              const void* slot_ct, int G, int T, int log_n, void* stream) {
-  return zq::launch(intt_grid_kernel, dim3(T, G), log_n, stream,
-                    static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-                    static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(inv_tw),
-                    static_cast<const int32_t*>(slot_ct), T, log_n);
+              const void* slot_inv, int G, int T, int log_n, void* stream) {
+  return zq::launch_split(intt_grid_kernel, dim3(2 * T, G), true, log_n, stream,
+                          static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+                          static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(inv_tw),
+                          static_cast<const int32_t*>(slot_inv), T, log_n);
 }
 
 // Kernel 6. Returns a cudaError_t (0 on success).
 int ntt_grid(const void* x, void* out, const void* limbs, const void* fwd_tw,
-             const void* slot_ct, int G, int T, int log_n, void* stream) {
-  return zq::launch(ntt_grid_kernel, dim3(T, G), log_n, stream,
-                    static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-                    static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(fwd_tw),
-                    static_cast<const int32_t*>(slot_ct), T, log_n);
+             const void* slot_inv, int G, int T, int log_n, void* stream) {
+  return zq::launch_split(ntt_grid_kernel, dim3(2 * T, G), false, log_n, stream,
+                          static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+                          static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(fwd_tw),
+                          static_cast<const int32_t*>(slot_inv), T, log_n);
 }
 
 // Kernel 7. Returns a cudaError_t (0 on success).

@@ -7,11 +7,11 @@ tensor product c0 = a0·b0, c2 = a1·b1, c1 = (a0+a1)(b0+b1) − c0 − c2, and
 the inverse NTT of c2 to canonical coefficients c2c.
 
 Kernel B, `digit_relin` (replaces `mul_relin_pallas.py:439
-_digit_relin_ctmajor_kernel`): for every output limb l, the forward NTT of
-every gadget digit i (the residue c2c[i] mod q_i, reduced mod q_l) and
-out0 = c0 + Σ_i d_i·hb[i, l], out1 = c1 + Σ_i d_i·ha[i, l], with raw hints
-or Shoup hint pairs. At n ≤ 2^15 it also covers `mul_relin_pallas.py:319
-_digit_relin_kernel`, the limb-major variant the TPU runs at 2^16.
+_digit_relin_ctmajor_kernel` and `:319 _digit_relin_kernel`, the
+limb-major variant the TPU runs at 2^16 and for raw hints): for every
+output limb l, the forward NTT of every gadget digit i (the residue c2c[i]
+mod q_i, reduced mod q_l) and out0 = c0 + Σ_i d_i·hb[i, l],
+out1 = c1 + Σ_i d_i·ha[i, l], with raw hints or Shoup hint pairs.
 
 Kernel 4, `hybrid_digit_stage` (replaces `mul_relin_pallas.py:807
 _hybrid_digit_relin_kernel`, wrapper `hybrid_digit_stage_pallas` :932): for
@@ -20,12 +20,15 @@ every limb t of the extended chain (T = L + K limbs), the base extension
 and the sums t0 = Σ_j D_j·hb[j, t], t1 = Σ_j D_j·ha[j, t] from zero, with
 raw hints or Shoup pairs; c0 and c1 join after the rescale by P.
 
-On the H100 each kernel runs one block per (limb, ciphertext) with the
-limb's n words in shared memory (128 KB at n = 2^15, so n ≤ 2^15: at 2^16
-one limb exceeds the 227 KB a block can have). The kernels work in the
-bit-reversed order of a radix-2 NTT; `kernel_tables` maps it to the
-3-factor slot order of `backend/ntt3.py`, which is the contract at their
-boundaries. See `csrc/mul_relin.cu` for what bounds them.
+On the H100 kernels A and B (and 5, 6 in `rescale.py`) run two blocks per
+(limb, ciphertext), each with half of the limb's n words in shared memory
+(64 KB at n = 2^15, 128 KB at 2^16, where a whole limb of 256 KB exceeds the
+227 KB a block can have); they take n ≤ 2^16. Kernel 4 keeps one block per
+limb with the whole limb (128 KB at 2^15) and raises at 2^16. The kernels
+work in the bit-reversed order of a radix-2 NTT;
+`kernel_tables` maps it to the 3-factor slot order of `backend/ntt3.py`,
+which is the contract at their boundaries. See `csrc/mul_relin.cu` for
+what bounds them.
 
 Each wrapper takes the plain PyTorch version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises. The plain versions compute in
@@ -86,6 +89,9 @@ def kernel_tables(n: int, qs: tuple[int, ...]) -> dict:
     - `slot_ct` [n] int32: slot s = k1·(B·r) + k3·B + k2 of the 3-factor
       order holds x(ψ^{2K+1}) with K = k1 + A·k3 + A·r·k2; a radix-2 NTT
       leaves that value at index bitrev(K), which is slot_ct[s];
+    - `slot_inv` [n] int32: its inverse, radix-2 index → slot; a block of
+      kernels A, B, 5 or 6 holding half h of a limb owns the slots
+      slot_inv[h·n/2 : (h+1)·n/2];
     - `fwd`, `inv` [L, 2, n] uint32: ψ^{±bitrev(k)} and Shoup companions;
     - `limbs` [L, 8] uint32: q, n⁻¹, its companion, ⌊2^32/q⌋ and the two
       words of ⌊2^64/q⌋ (zq.cuh `Limb`).
@@ -95,6 +101,8 @@ def kernel_tables(n: int, qs: tuple[int, ...]) -> dict:
     s = np.arange(n, dtype=np.int64)
     k1, k3, k2 = s // (B * r), (s % (B * r)) // B, s % B
     slot_ct = _bitrev(k1 + A * k3 + A * r * k2, log_n).astype(np.int32)
+    slot_inv = np.empty(n, dtype=np.int32)
+    slot_inv[slot_ct] = s
     br = _bitrev(s, log_n)
     L = len(qs)
     fwd = np.empty((L, 2, n), dtype=np.uint32)
@@ -108,7 +116,7 @@ def kernel_tables(n: int, qs: tuple[int, ...]) -> dict:
         barrett = (1 << 64) // q
         limbs[li, :6] = (q, n_inv, shoup_const(n_inv, q), (1 << 32) // q,
                          barrett & 0xFFFFFFFF, barrett >> 32)
-    return {"slot_ct": slot_ct, "fwd": fwd, "inv": inv, "limbs": limbs}
+    return {"slot_ct": slot_ct, "slot_inv": slot_inv, "fwd": fwd, "inv": inv, "limbs": limbs}
 
 
 @lru_cache(maxsize=None)
@@ -200,13 +208,22 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _kernel_device(n: int, device: torch.device) -> None:
+def _kernel_device(n: int, device: torch.device, split: bool = True) -> None:
+    """Raise unless a kernel runs at ring size n on `device`. Kernels A, B,
+    5 and 6 (split=True) keep half a limb per block in shared memory (2n
+    bytes: n ≤ 2^16); kernels 4 and 7 (split=False) a whole limb (4n bytes:
+    n ≤ 2^15)."""
     if device.type != "cuda":
         raise ValueError(f"tensors on {device}: want cpu or cuda")
-    if 4 * n > MAX_SHARED_BYTES:
+    if (2 if split else 4) * n <= MAX_SHARED_BYTES:
+        return
+    if split:
         raise NotImplementedError(
-            f"n={n}: one limb ({4 * n} bytes) does not fit a block's shared "
-            "memory; the kernels take n ≤ 2^15")
+            f"n={n}: half a limb ({2 * n} bytes) does not fit a block's shared "
+            "memory; the kernels take n ≤ 2^16")
+    raise NotImplementedError(
+        f"n={n}: one limb ({4 * n} bytes) does not fit a block's shared memory "
+        "and this kernel has no split form yet (ROADMAP Queue 1 item 5)")
 
 
 def tensor_intt(n: int, qs: tuple[int, ...], ct_a: torch.Tensor,
@@ -227,7 +244,7 @@ def tensor_intt(n: int, qs: tuple[int, ...], ct_a: torch.Tensor,
     build.check(lib.tensor_intt(
         ct_a.data_ptr(), ct_b.data_ptr(), c0.data_ptr(), c1.data_ptr(),
         c2c.data_ptr(), t["limbs"].data_ptr(), t["inv"].data_ptr(),
-        t["slot_ct"].data_ptr(), Bt, L, n.bit_length() - 1, stream), "tensor_intt")
+        t["slot_inv"].data_ptr(), Bt, L, n.bit_length() - 1, stream), "tensor_intt")
     LAUNCHES["tensor_intt"] += 1
     return c0, c1, c2c
 
@@ -265,8 +282,8 @@ def digit_relin(n: int, qs: tuple[int, ...], c0: torch.Tensor, c1: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(lib.digit_relin(
         c2c.data_ptr(), c0.data_ptr(), c1.data_ptr(), *map(_ptr, hints), out.data_ptr(),
-        t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_ct"].data_ptr(),
-        int(shoup), Bt, L, n.bit_length() - 1, stream), "digit_relin")
+        t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_inv"].data_ptr(), int(shoup), Bt,
+        L, n.bit_length() - 1, stream), "digit_relin")
     LAUNCHES["digit_relin"] += 1
     return out
 
@@ -300,7 +317,7 @@ def hybrid_digit_stage(n: int, ext_qs: tuple[int, ...], groups, x: torch.Tensor,
     shoup, hints = _hint_list(hint_b, hint_a, (dnum, T, n), dev)
     if dev.type == "cpu":
         return hybrid_digit_stage_plain(n, ext_qs, groups, x, hint_b, hint_a)
-    _kernel_device(n, dev)
+    _kernel_device(n, dev, split=False)
     t = _device_tables(n, ext_qs, str(dev))
     out = torch.empty((2, Bt, T, n), dtype=torch.int32, device=dev)
     lib = build.library()

@@ -15,10 +15,12 @@ every keep limb q_j, the base extension of the K dropped limbs' Garner
 digits, the centered correction δ, the exact division by P, and the
 forward NTT.
 
-Same structure and bounds as kernels A and B (`mul_relin.py`): one block per
-(limb, row), the limb in shared memory, n ≤ 2^15. Each wrapper takes the
-plain PyTorch version for CPU tensors only; for CUDA tensors it launches its
-kernel or raises.
+Same structure and bounds as kernels A, B and 4 (`mul_relin.py`): kernels 5
+and 6 split each limb over two blocks, each with half of it in shared
+memory (n ≤ 2^16); kernel 7 keeps one block per (limb, row) with the whole
+limb (n ≤ 2^15) and raises at 2^16. Each wrapper
+takes the plain PyTorch version for CPU tensors only; for CUDA tensors it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -122,7 +124,7 @@ def _grid(name: str, twiddles: str, n: int, qs: tuple[int, ...], x: torch.Tensor
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(getattr(build.library(), name)(
         x.data_ptr(), out.data_ptr(), t["limbs"].data_ptr(), t[twiddles].data_ptr(),
-        t["slot_ct"].data_ptr(), G, T, n.bit_length() - 1, stream), name)
+        t["slot_inv"].data_ptr(), G, T, n.bit_length() - 1, stream), name)
     LAUNCHES[name] += 1
     return out
 
@@ -160,7 +162,7 @@ def rescale_fwd(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: int,
         _check(name, f, (G, n), dev)
     if dev.type == "cpu":
         return rescale_fwd_plain(n, keep, drop, zp, coeff, xs, is_neg, t, t_neg)
-    _kernel_device(n, dev)
+    _kernel_device(n, dev, split=False)
     tab = _device_tables(n, keep, str(dev))
     out = torch.empty((G, L, n), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

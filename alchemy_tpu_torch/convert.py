@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 
-def to_torch(x, device="cpu"):
+def to_torch(x, device="cuda"):
     """uint32 array (or a tuple of them) → int32 tensor(s) on device."""
     if isinstance(x, (tuple, list)):
         return tuple(to_torch(v, device) for v in x)

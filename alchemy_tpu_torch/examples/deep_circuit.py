@@ -38,7 +38,7 @@ def expected_square_chain_mod2(msg: np.ndarray, n: int, depth: int) -> np.ndarra
 
 
 def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
-        ks: str = "trivgad", device="cpu"):
+        ks: str = "trivgad", device="cuda"):
     """Runs the chain (deep_circuit.py:52) and returns (ok, ct, level_ms): ok
     when the decryption equals the squaring chain, the final ciphertext, and
     the host-clock milliseconds of each level (hint, multiply, rescale).
@@ -86,7 +86,8 @@ if __name__ == "__main__":
     ap.add_argument("--log-n", type=int, default=13)
     ap.add_argument("--depth", type=int, default=16)
     ap.add_argument("--ks", default="trivgad", choices=("trivgad", "hybrid", "auto"))
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels), or cpu for the plain versions")
     args = ap.parse_args()
     ok, _, _ = run(log_n=args.log_n, depth=args.depth, ks=args.ks, device=args.device)
     sys.exit(0 if ok else 1)

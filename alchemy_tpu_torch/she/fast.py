@@ -73,8 +73,9 @@ def _intt_p(p: FastParams, x: torch.Tensor) -> torch.Tensor:
 
 
 def keygen(p: FastParams, rng: np.random.Generator, variance: float = 1.0,
-           device="cpu") -> torch.Tensor:
-    """Secret key in the NTT domain: [L, n] (fast.py:146)."""
+           device="cuda") -> torch.Tensor:
+    """Secret key in the NTT domain: [L, n] (fast.py:146), on `device`
+    (the card unless the caller asks for the CPU)."""
     s = gaussian_coeffs(rng, variance, p.n)
     return _ntt_p(p, _residues(s, p.qs, device))
 

@@ -170,7 +170,7 @@ class HybridKS:
 
 
 def hybrid_keygen_hint(hk: HybridKS, rng: np.random.Generator, variance: float = 1.0,
-                       hint_variance: float = 1.0, device="cpu"):
+                       hint_variance: float = 1.0, device="cuda"):
     """Secret key (NTT domain at the base chain, as `fast.keygen` makes it)
     and the hybrid relinearization hint (B, A), each [dnum, T, n] (hybrid.py:281)."""
     s = gaussian_coeffs(rng, variance, hk.p.n)
@@ -179,7 +179,7 @@ def hybrid_keygen_hint(hk: HybridKS, rng: np.random.Generator, variance: float =
 
 
 def hybrid_relin_hint(hk: HybridKS, s_coeffs: np.ndarray, rng: np.random.Generator,
-                      hint_variance: float = 1.0, device="cpu"):
+                      hint_variance: float = 1.0, device="cuda"):
     """Hybrid relinearization hint for a secret key given by its centered
     integer coefficients: (B, A), each [dnum, T, n] int32, NTT domain over
     the extended chain, B_j + A_j·s = P·ĝ_j·s² + zp·e_j (hybrid.py:292)."""

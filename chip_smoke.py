@@ -4,13 +4,17 @@
 Builds the CUDA kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card: A (tensor_intt), B
 (digit_relin, Shoup and raw hints), 4 (hybrid_digit_relin, raw and Shoup),
-5 (intt_grid), 6 (ntt_grid) and 7 (rescale_fwd). Then it drives three paths
-through them, each with the launch counters set to 0 just before it:
+5 (intt_grid), 6 (ntt_grid) and 7 (rescale_fwd) at n = 2^15, and A, B, 5
+and 6 again at n = 2^16, where a limb needs two blocks. Then it
+drives four paths through them, each with the launch counters set to 0
+just before it:
 
   [main]    BGV multiply + relinearize with the CRT gadget at the headline
             configuration (n = 2^15, L = 8 limbs of ~30 bits, zp = 2, Shoup
             hint pairs, 16 ciphertexts): keygen, relin_hint, encrypt,
             mul_relin, decrypt, rescale;
+  [n2e16]   the same at the top of bench.py's ring sweep, n = 2^16 (L = 8,
+            zp = 2, Shoup hints, 16 ciphertexts);
   [hybrid]  hybrid key-switching at the deep configuration (n = 2^15,
             L = 16, dnum = 4, K = 4, raw hints, 16 ciphertexts):
             hybrid_keygen_hint, encrypt, mul_relin_hybrid, decrypt; then
@@ -19,7 +23,11 @@ through them, each with the launch counters set to 0 just before it:
             key-switching per level, decrypted against the Frobenius chain.
 
 Every check is exact equality. Any failure exits non-zero; the last line of
-a passing run is one JSON object naming the device.
+a passing run is one JSON object naming the device. The line before the
+card's name lists every kernel with its launches on the paths, device and
+plain ms, and its bound: the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its 32-bit integer multiplies
+over 132 SMs x 64 per clock at the card's maximum SM clock.
 
     python3 chip_smoke.py        # from the root of a checkout, one GPU
 """
@@ -34,6 +42,8 @@ import time
 SEED = 0
 HEADLINE = (15, 8, 16)            # log2 n, limbs, ciphertexts per batch
 SMALL = (14, 4, 4)
+N2E16 = (16, 8, 16)               # bench.py's ring sweep at n = 2^16
+SMALL_N2E16 = (16, 3, 2)
 DEEP = (15, 16, 16)               # hybrid: dnum = 4, K = 4, T = 20
 SMALL_HYBRID = (14, 5, 2)         # uneven digit groups (3, 2), K = 3
 DEEP_DEPTH = 16
@@ -41,6 +51,26 @@ MUL_RELIN_TPU = "alchemy_tpu/backend/pallas/mul_relin_pallas.py"
 RESCALE_TPU = "alchemy_tpu/backend/pallas/rescale_pallas.py"
 MUL_RELIN_CU = "alchemy_tpu_torch/backend/cuda/csrc/mul_relin.cu"
 RESCALE_CU = "alchemy_tpu_torch/backend/cuda/csrc/rescale.cu"
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
+SMS, IMUL_PER_SM_CLOCK = 132, 64  # 32-bit integer multiplies per SM and clock, cc 9.0
+# The fewest 32-bit multiplies each modular operation needs, whatever the
+# kernels' own instructions: a product of two variable residues (the low and
+# high words of the product, the quotient estimate, the estimate times q), a
+# product by a constant with its Shoup companion, a reduction of any uint32
+# (the quotient estimate and the estimate times q).
+MUL_VAR, MUL_CONST, REDUCE = 4, 3, 2
+
+
+def ntt_muls(n: int) -> int:
+    """32-bit multiplies of one radix-2 NTT: one product by a constant twiddle
+    a butterfly."""
+    return MUL_CONST * (n // 2) * (n.bit_length() - 1)
+
+
+def bound(nbytes: float, muls: float, clock_hz: float) -> tuple[float, str]:
+    """(the least ms the card could take, what sets it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, muls / (SMS * IMUL_PER_SM_CLOCK * clock_hz)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check(ok: bool, what: str) -> None:
@@ -124,7 +154,8 @@ def random_residues(rng, qs, shape):
 
 def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
     """Kernels A and B against their plain versions on random canonical
-    inputs at one shape; returns the errors and device times."""
+    inputs at one shape; returns, per kernel, the error, device times and
+    the bytes and multiplies of its bound."""
     import torch
 
     from alchemy_tpu_torch.backend.cuda import mul_relin as mr
@@ -151,16 +182,75 @@ def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
     torch.cuda.synchronize()
     err_b = max(max_abs_err(kb, pb), max_abs_err(kr, mr.digit_relin_plain(n, qs, *ka, *raw)))
     check(err_b == 0, f"kernel B != plain at n=2^{log_n} L={L} Bt={Bt} (max abs err {err_b})")
-    res = {"err_a": err_a, "err_b": err_b}
+    tables = 4 * (2 * L * n + n)              # twiddles and companions, slot map
+    res = {
+        # three products of the tensor, the inverse NTT, its scale by n^-1
+        "tensor_intt": {"err": err_a, "bytes": 4 * 7 * Bt * L * n + tables,
+                        "muls": Bt * L * ((3 * MUL_VAR + MUL_CONST) * n + ntt_muls(n))},
+        "digit_relin": {"err": err_b},
+        "digit_relin_raw": {"err": err_b},
+    }
+    # per (ciphertext, limb, digit): the digit's reduction, its NTT, two hint products
+    for name, hint_words, hint_mul in (("digit_relin", 4, MUL_CONST),
+                                       ("digit_relin_raw", 2, MUL_VAR)):
+        res[name].update(bytes=4 * (5 * Bt * L * n + hint_words * L * L * n) + tables,
+                         muls=Bt * L * L * ((REDUCE + 2 * hint_mul) * n + ntt_muls(n)))
     if timed:
-        res["ms_a"] = device_ms(lambda: mr.tensor_intt(n, qs, ct_a, ct_b), 20)
-        res["plain_ms_a"] = device_ms(lambda: mr.tensor_intt_plain(n, qs, ct_a, ct_b), 3)
-        res["ms_b"] = device_ms(lambda: mr.digit_relin(n, qs, *ka, *hints), 20)
-        res["plain_ms_b"] = device_ms(lambda: mr.digit_relin_plain(n, qs, *ka, *hints), 3)
-        res["ms_b_raw"] = device_ms(lambda: mr.digit_relin(n, qs, *ka, *raw), 20)
+        res["tensor_intt"].update(ms=device_ms(lambda: mr.tensor_intt(n, qs, ct_a, ct_b), 20),
+                                  plain_ms=device_ms(lambda: mr.tensor_intt_plain(n, qs, ct_a, ct_b), 3))
+        res["digit_relin"].update(ms=device_ms(lambda: mr.digit_relin(n, qs, *ka, *hints), 20),
+                                  plain_ms=device_ms(lambda: mr.digit_relin_plain(n, qs, *ka, *hints), 3))
+        res["digit_relin_raw"].update(ms=device_ms(lambda: mr.digit_relin(n, qs, *ka, *raw), 20),
+                                      plain_ms=device_ms(lambda: mr.digit_relin_plain(n, qs, *ka, *raw), 3))
     print(f"[kernels] n=2^{log_n} L={L} Bt={Bt}: A and B (Shoup and raw hints) bit-identical to plain "
-          + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-                     for k, v in res.items()), flush=True)
+          + fmt(res), flush=True)
+    return res
+
+
+def fmt(res: dict) -> str:
+    return " ".join(f"{k}:" + ",".join(f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
+                                       for a, b in v.items()) for k, v in res.items())
+
+
+def grid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
+    """Kernels 5 and 6 against their plain versions on any uint32 rows at
+    every shape the TrivGad path gives them: kernel 5 on [2·Bt, L, n] (the
+    rescale of a batch) and [1, L, n] (decrypt), kernel 6 on [2·Bt, L − 1, n]
+    over the first L − 1 limbs (the rescale) and [1, L, n] (keygen, hints,
+    encrypt). Times and bound are taken at each kernel's largest call."""
+    import torch
+
+    from alchemy_tpu_torch.backend.cuda import rescale as rk
+    from alchemy_tpu_torch.she import fast
+
+    p = fast.FastParams.make(log_n, L)
+    n, qs = p.n, p.qs
+    u32 = lambda shape: torch.from_numpy(rng.integers(0, 1 << 32, shape, dtype="uint64")
+                                         .astype("uint32").view("int32")).cuda()
+    # name: (kernel, plain, multiplies per word besides the NTT, [(rows, limbs), ...] largest first)
+    calls = {"intt_grid": (rk.intt3_grid, rk.intt3_grid_plain, REDUCE + MUL_CONST,
+                           [(2 * Bt, qs), (1, qs)]),
+             "ntt_grid": (rk.ntt3_grid, rk.ntt3_grid_plain, REDUCE,
+                          [(2 * Bt, qs[:-1]), (1, qs)])}
+    res = {}
+    for name, (kern, plain, muls, shapes) in calls.items():
+        errs = []
+        for G, limbs in shapes:
+            x = u32((G, len(limbs), n))
+            got = kern(n, limbs, x)
+            torch.cuda.synchronize()
+            errs.append(max_abs_err(got, plain(n, limbs, x)))
+            check(errs[-1] == 0, f"{name} != plain at n=2^{log_n} on [{G}, {len(limbs)}, n] "
+                                 f"(max abs err {errs[-1]})")
+        G, limbs = shapes[0]
+        T, x = len(limbs), u32((G, len(limbs), n))
+        res[name] = {"err": max(errs), "bytes": 4 * (2 * G * T * n + 2 * T * n + n),
+                     "muls": G * T * (muls * n + ntt_muls(n))}
+        if timed:
+            res[name].update(ms=device_ms(lambda: kern(n, limbs, x), 20),
+                             plain_ms=device_ms(lambda: plain(n, limbs, x), 3))
+    print(f"[kernels] n=2^{log_n} L={L}: kernels 5 on [{2 * Bt}, {L}, n] and [1, {L}, n], 6 on "
+          f"[{2 * Bt}, {L - 1}, n] and [1, {L}, n] bit-identical to plain " + fmt(res), flush=True)
     return res
 
 
@@ -192,46 +282,62 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
     is_neg, t, t_neg = hybrid._sign_terms(xs, drop, pe.zp)
     args7 = (n, keep, drop, pe.zp, coeff, narrow(torch.stack(xs, dim=1)),
              is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32))
+    ntt = ntt_muls(n)
+
+    def k4_cost(hint_words, hint_mul):
+        return (4 * (Bt * L * n + 2 * T * L + hint_words * hk.dnum * T * n + 2 * T * n + n
+                     + 2 * Bt * T * n),
+                Bt * T * (MUL_CONST * L * n + hk.dnum * (ntt + 2 * hint_mul * n)))
+
+    G5, G7 = 2 * Bt, 2 * Bt
     calls = {
         "hybrid_digit_relin": (lambda: mr.hybrid_digit_stage(n, pe.qs, hk.groups, x, *raw),
-                               lambda: mr.hybrid_digit_stage_plain(n, pe.qs, hk.groups, x, *raw)),
+                               lambda: mr.hybrid_digit_stage_plain(n, pe.qs, hk.groups, x, *raw),
+                               k4_cost(2, MUL_VAR)),
         "hybrid_digit_relin_shoup": (
             lambda: mr.hybrid_digit_stage(n, pe.qs, hk.groups, x, *shoup),
-            lambda: mr.hybrid_digit_stage_plain(n, pe.qs, hk.groups, x, *shoup)),
+            lambda: mr.hybrid_digit_stage_plain(n, pe.qs, hk.groups, x, *shoup),
+            k4_cost(4, MUL_CONST)),
         "intt_grid": (lambda: rk.intt3_grid(n, pe.qs, rows5),
-                      lambda: rk.intt3_grid_plain(n, pe.qs, rows5)),
+                      lambda: rk.intt3_grid_plain(n, pe.qs, rows5),
+                      (4 * (2 * G5 * T * n + 2 * T * n + n),
+                       G5 * T * ((REDUCE + MUL_CONST) * n + ntt))),
         "ntt_grid": (lambda: rk.ntt3_grid(n, keep, rows6),
-                     lambda: rk.ntt3_grid_plain(n, keep, rows6)),
-        "rescale_fwd": (lambda: rk.rescale_fwd(*args7), lambda: rk.rescale_fwd_plain(*args7)),
+                     lambda: rk.ntt3_grid_plain(n, keep, rows6),
+                     (4 * (4 * L * n + 2 * L * n + n), 2 * L * (REDUCE * n + ntt))),
+        "rescale_fwd": (lambda: rk.rescale_fwd(*args7), lambda: rk.rescale_fwd_plain(*args7),
+                        (4 * (G7 * (2 * L + K + 3) * n + 2 * L * n + n + L * (4 + 2 * K)),
+                         G7 * L * (MUL_CONST * (K + 2) * n + ntt))),
     }
     res = {}
-    for name, (kern, plain) in calls.items():
+    for name, (kern, plain, (nbytes, muls)) in calls.items():
         got = kern()
         torch.cuda.synchronize()
         err = max_abs_err(got, plain())
         check(err == 0, f"{name} != plain at n=2^{log_n} L={L} Bt={Bt} (max abs err {err})")
-        res[name] = {"err": err}
+        res[name] = {"err": err, "bytes": nbytes, "muls": muls}
         if timed:
             res[name].update(ms=device_ms(kern, 20), plain_ms=device_ms(plain, 3))
     print(f"[kernels] n=2^{log_n} L={L} dnum={hk.dnum} K={K} T={T} Bt={Bt}: kernels 4 "
-          f"(raw, Shoup), 5, 6, 7 bit-identical to plain "
-          + " ".join(f"{k}:" + ",".join(f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
-                                        for a, b in v.items()) for k, v in res.items()),
-          flush=True)
+          f"(raw, Shoup), 5, 6, 7 bit-identical to plain " + fmt(res), flush=True)
     return res
 
 
-def main_path(rng, card: str) -> dict:
-    """The port's main path at the headline configuration."""
+def main_path(rng, card: str, config: tuple[int, int, int], tag: str) -> dict:
+    """The port's main path, TrivGad multiply + relinearize with Shoup hints,
+    at one configuration (log2 n, L, Bt): keygen, relin_hint, encrypt,
+    mul_relin, decrypt, rescale, with the launch counters set to 0 before
+    keygen and read after the rescale."""
     import numpy as np
     import torch
 
     from alchemy_tpu_torch.backend.cuda import mul_relin as mr
     from alchemy_tpu_torch.she import fast
 
-    log_n, L, Bt = HEADLINE
+    log_n, L, Bt = config
     p = fast.FastParams.make(log_n, L, zp=2)
     setup = {}
+    reset_launches()
     s, setup["keygen"] = host_ms(lambda: fast.keygen(p, rng, device="cuda"))
     (hb, ha), setup["relin_hint"] = host_ms(lambda: fast.relin_hint(p, s, rng, shoup=True))
     m1 = rng.integers(0, p.zp, (Bt, p.n))
@@ -242,16 +348,12 @@ def main_path(rng, card: str) -> dict:
     print(f"[setup] n=2^{log_n} L={L} host ms: "
           + " ".join(f"{k}={v:.3f}" for k, v in setup.items()), flush=True)
 
-    reset_launches()
     out = fast.mul_relin(p, ct_a, ct_b, hb, ha)
     torch.cuda.synchronize()
-    seen = launches()
-    check(seen["tensor_intt"] > 0 and seen["digit_relin"] > 0,
-          f"kernel launches on the main path: {seen}")
     check(tuple(out.shape) == (Bt, 2, L, p.n), f"mul_relin shape {tuple(out.shape)}")
     ref = mr.digit_relin_plain(p.n, p.qs, *mr.tensor_intt_plain(p.n, p.qs, ct_a, ct_b), hb, ha)
     check(torch.equal(out, ref), "mul_relin through the kernels != plain path")
-    print(f"[main] mul_relin Bt={Bt}: launches {seen}, bit-identical to the plain path",
+    print(f"[{tag}] mul_relin n=2^{log_n} L={L} Bt={Bt}: bit-identical to the plain path",
           flush=True)
 
     want = [negacyclic_mod2(a, b) for a, b in zip(m1, m2)]
@@ -264,9 +366,13 @@ def main_path(rng, card: str) -> dict:
     for i in range(Bt):
         check(np.array_equal(fast.decrypt(p7, s[:-1], down[i]), want[i]),
               f"decrypt of rescaled product {i}")
-    print(f"[main] {Bt} products decrypt to the negacyclic products mod 2; "
+    torch.cuda.synchronize()
+    seen = launches()
+    check(all(seen[k] > 0 for k in ("tensor_intt", "digit_relin", "intt_grid", "ntt_grid")),
+          f"kernel launches on the {tag} path: {seen}")
+    print(f"[{tag}] {Bt} products decrypt to the negacyclic products mod 2; "
           f"rescale to L={L - 1} decrypts the same; host ms: decrypt_per_ct={dec_ms:.3f} "
-          f"rescale_{Bt}ct={resc_ms:.3f}", flush=True)
+          f"rescale_{Bt}ct={resc_ms:.3f}; launches {seen}", flush=True)
 
     ops, us = rate(lambda: fast.mul_relin(p, ct_a, ct_b, hb, ha), Bt, 50)
     print(f"[perf] mul_relin n=2^{log_n} L={L} Bt={Bt}: {ops:.1f} ops/s (host clock), "
@@ -384,7 +490,13 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     card = torch.cuda.get_device_name(0)
-    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} device {card}", flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    clock_hz = clock_mhz * 1e6
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} device {card}; "
+          f"bounds at {clock_mhz:.0f} MHz (max SM clock), {HBM_BYTES_PER_S / 1e12} TB/s",
+          flush=True)
     t0 = time.perf_counter()
     so = build.library_path()
     build.library()
@@ -398,29 +510,47 @@ def main() -> int:
     small = kernel_phase(*SMALL, rng, timed=False)
     deep_k = hybrid_kernel_phase(*DEEP, rng, timed=True)
     small_k = hybrid_kernel_phase(*SMALL_HYBRID, rng, timed=False)
-    mp = main_path(rng, card)
+    big = {**kernel_phase(*N2E16, rng, timed=True), **grid_kernel_phase(*N2E16, rng, timed=True)}
+    big_small = {**kernel_phase(*SMALL_N2E16, rng, timed=False),
+                 **grid_kernel_phase(*SMALL_N2E16, rng, timed=False)}
+    mp = main_path(rng, card, HEADLINE, "main")
+    mp16 = main_path(rng, card, N2E16, "n2e16")
     hy = hybrid_path(rng, card)
     dp = deep_path(card)
 
-    def entry(name, source, replaces, launched, err, ms, plain_ms):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    def entry(name, n, replaces, source, launched, timed, *checked):
+        """One kernel's line: times and bound from the timed phase's dict,
+        the largest error over every phase that checked it."""
+        ms_bound, by = bound(timed["bytes"], timed["muls"], clock_hz)
+        errs = [r[k]["err"] for r in checked for k in r if k.startswith(name)]
+        return {"name": name, "n": n, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launched, "max_abs_err": max(errs), "ms": timed["ms"],
+                "plain_ms": timed["plain_ms"], "bound_ms": ms_bound, "bound_by": by,
+                "library_ms": None}
 
-    def hybrid_entry(name, tpu, line, source, launched):
-        errs = [r[k]["err"] for r in (deep_k, small_k) for k in r if k.startswith(name)]
-        return entry(name, source, f"{tpu}:{line}", launched, max(errs),
-                     deep_k[name]["ms"], deep_k[name]["plain_ms"])
-
+    n15, n16 = 1 << HEADLINE[0], 1 << N2E16[0]
+    mr_tpu, rs_tpu = MUL_RELIN_TPU + ":", RESCALE_TPU + ":"
     kernels = [
-        entry("tensor_intt", MUL_RELIN_CU, f"{MUL_RELIN_TPU}:232", mp["launches"]["tensor_intt"],
-              max(head["err_a"], small["err_a"]), head["ms_a"], head["plain_ms_a"]),
-        entry("digit_relin", MUL_RELIN_CU, f"{MUL_RELIN_TPU}:439", mp["launches"]["digit_relin"],
-              max(head["err_b"], small["err_b"]), head["ms_b"], head["plain_ms_b"]),
-        hybrid_entry("hybrid_digit_relin", MUL_RELIN_TPU, 807, MUL_RELIN_CU,
-                     hy["launches"]["hybrid_digit_relin"]),
-        hybrid_entry("intt_grid", RESCALE_TPU, 52, RESCALE_CU, hy["launches"]["intt_grid"]),
-        hybrid_entry("ntt_grid", RESCALE_TPU, 142, RESCALE_CU, dp["launches"]["ntt_grid"]),
-        hybrid_entry("rescale_fwd", RESCALE_TPU, 206, RESCALE_CU, hy["launches"]["rescale_fwd"]),
+        entry("tensor_intt", n15, mr_tpu + "232", MUL_RELIN_CU, mp["launches"]["tensor_intt"],
+              head["tensor_intt"], head, small),
+        entry("digit_relin", n15, mr_tpu + "439", MUL_RELIN_CU, mp["launches"]["digit_relin"],
+              head["digit_relin"], head, small),
+        entry("hybrid_digit_relin", n15, mr_tpu + "807", MUL_RELIN_CU,
+              hy["launches"]["hybrid_digit_relin"], deep_k["hybrid_digit_relin"], deep_k, small_k),
+        entry("intt_grid", n15, rs_tpu + "52", RESCALE_CU, hy["launches"]["intt_grid"],
+              deep_k["intt_grid"], deep_k, small_k),
+        entry("ntt_grid", n15, rs_tpu + "142", RESCALE_CU, dp["launches"]["ntt_grid"],
+              deep_k["ntt_grid"], deep_k, small_k),
+        entry("rescale_fwd", n15, rs_tpu + "206", RESCALE_CU, hy["launches"]["rescale_fwd"],
+              deep_k["rescale_fwd"], deep_k, small_k),
+        entry("tensor_intt", n16, mr_tpu + "232", MUL_RELIN_CU, mp16["launches"]["tensor_intt"],
+              big["tensor_intt"], big, big_small),
+        entry("digit_relin", n16, mr_tpu + "319", MUL_RELIN_CU, mp16["launches"]["digit_relin"],
+              big["digit_relin"], big, big_small),
+        entry("intt_grid", n16, rs_tpu + "52", RESCALE_CU, mp16["launches"]["intt_grid"],
+              big["intt_grid"], big, big_small),
+        entry("ntt_grid", n16, rs_tpu + "142", RESCALE_CU, mp16["launches"]["ntt_grid"],
+              big["ntt_grid"], big, big_small),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -42,7 +42,7 @@ def _jax_chain(log_n, depth, ks, seed=0):
 
 @pytest.mark.parametrize("ks", ["hybrid", "trivgad"])
 def test_deep_circuit_passes_and_matches_jax(ks):
-    ok, ct, level_ms = tdeep.run(log_n=5, depth=4, verbose=False, ks=ks)
+    ok, ct, level_ms = tdeep.run(log_n=5, depth=4, verbose=False, ks=ks, device="cpu")
     assert ok and len(level_ms) == 4 and ct.shape == (2, 2, 32)
     assert np.array_equal(to_numpy(ct), np.asarray(_jax_chain(5, 4, ks)))
 

@@ -33,7 +33,7 @@ def _eq(jax_arr, port):
 def test_keygen_hints_encrypt_match_jax(log_n, L):
     jp, tp = _params(log_n, L)
     rj, rt = np.random.default_rng(21), np.random.default_rng(21)
-    sj, st = jfast.keygen(jp, rj), tfast.keygen(tp, rt)
+    sj, st = jfast.keygen(jp, rj), tfast.keygen(tp, rt, device="cpu")
     assert st.dtype == torch.int32 and _eq(sj, st)
     for shoup in (False, True):
         hj = jfast.relin_hint(jp, sj, rj, shoup=shoup)
@@ -48,12 +48,39 @@ def test_keygen_hints_encrypt_match_jax(log_n, L):
     assert _eq(jfast.encrypt(jp, sj, msg, rj), tfast.encrypt(tp, st, msg, rt))
 
 
+def test_entry_points_default_to_the_card():
+    """Without device="cpu" the port's entry points put their tensors on the
+    card; with no card they raise torch's CUDA error instead of running on
+    the CPU."""
+    from alchemy_tpu_torch.convert import to_torch as convert
+    from alchemy_tpu_torch.examples import deep_circuit
+    from alchemy_tpu_torch.she import hybrid as thyb
+
+    tp = tfast.FastParams.make(10, 3)
+    thk = thyb.HybridKS.make(tp)
+    # each call → one tensor it made
+    calls = (lambda: tfast.keygen(tp, np.random.default_rng(0)),
+             lambda: thyb.hybrid_keygen_hint(thk, np.random.default_rng(0))[0],
+             lambda: thyb.hybrid_relin_hint(thk, np.zeros(tp.n, dtype=np.int64),
+                                            np.random.default_rng(0))[0],
+             lambda: deep_circuit.run(log_n=5, depth=1, verbose=False)[1],
+             lambda: convert(np.zeros(4, dtype=np.uint32)))
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            # CPU-only torch: "Torch not compiled with CUDA enabled"; a CUDA
+            # build with no card names CUDA or NVIDIA in its error
+            with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
+                call()
+
+
 def test_shoup_precompute_matches_jax():
     jp, tp = _params(10, 3)
     rng = np.random.default_rng(4)
     x = np.stack([rng.integers(0, q, (3, jp.n)) for q in jp.qs], axis=1).astype(np.uint32)
     vj, cj = jfast.shoup_precompute(jnp.asarray(x), jp.qs)
-    vt, ct = tfast.shoup_precompute(to_torch(x), tp.qs)
+    vt, ct = tfast.shoup_precompute(to_torch(x, "cpu"), tp.qs)
     assert _eq(vj, vt) and _eq(cj, ct)
 
 
@@ -62,7 +89,8 @@ def test_rescale_matches_jax(log_n, L, k_drop):
     jp, tp = _params(log_n, L)
     rng = np.random.default_rng(log_n)
     ct = np.stack([[rng.integers(0, q, jp.n) for q in jp.qs] for _ in range(2)]).astype(np.uint32)
-    assert _eq(jfast.rescale(jp, jnp.asarray(ct), k_drop), tfast.rescale(tp, to_torch(ct), k_drop))
+    assert _eq(jfast.rescale(jp, jnp.asarray(ct), k_drop),
+               tfast.rescale(tp, to_torch(ct, "cpu"), k_drop))
 
 
 def test_mul_relin_from_converted_jax_state_matches_jax():
@@ -75,8 +103,8 @@ def test_mul_relin_from_converted_jax_state_matches_jax():
     ct_a = jnp.stack([jfast.encrypt(jp, s, rng.integers(0, 2, jp.n), rng) for _ in range(2)])
     ct_b = jnp.stack([jfast.encrypt(jp, s, rng.integers(0, 2, jp.n), rng) for _ in range(2)])
     ref = jfast._mul_relin_jnp(jp, ct_a, ct_b, hb, ha)
-    hb_t, ha_t = to_torch(tuple(map(np.asarray, hb))), to_torch(tuple(map(np.asarray, ha)))
-    out = tfast.mul_relin(tp, to_torch(ct_a), to_torch(ct_b), hb_t, ha_t)
+    hb_t, ha_t = (to_torch(tuple(map(np.asarray, h)), "cpu") for h in (hb, ha))
+    out = tfast.mul_relin(tp, to_torch(ct_a, "cpu"), to_torch(ct_b, "cpu"), hb_t, ha_t)
     assert _eq(ref, out)
     # the converter carries the port's state back unchanged
     assert np.array_equal(to_numpy(hb_t)[1], np.asarray(hb[1]))
@@ -86,7 +114,7 @@ def test_mul_relin_from_converted_jax_state_matches_jax():
 def test_mul_relin_decrypts_to_negacyclic_product(shoup):
     tp = tfast.FastParams.make(10, 3, zp=2)
     rng = np.random.default_rng(30)
-    s = tfast.keygen(tp, rng)
+    s = tfast.keygen(tp, rng, device="cpu")
     hb, ha = tfast.relin_hint(tp, s, rng, shoup=shoup)
     m1 = rng.integers(0, 2, (2, 3, tp.n))
     m2 = rng.integers(0, 2, (2, 3, tp.n))
@@ -106,7 +134,7 @@ def test_decrypt_after_rescale_gives_the_message():
     """The oracle of tests/test_fast.py:75-94 on the port."""
     tp = tfast.FastParams.make(10, 3, zp=2)
     rng = np.random.default_rng(4)
-    s = tfast.keygen(tp, rng)
+    s = tfast.keygen(tp, rng, device="cpu")
     msg = rng.integers(0, 2, tp.n)
     ct = tfast.encrypt(tp, s, msg, rng)
     assert np.array_equal(tfast.decrypt(tp, s, ct), msg)

@@ -30,7 +30,7 @@ def _setup(log_n, L, seed, bits=24):
     jhk, thk = jhyb.HybridKS.make(jp, bits=bits), thyb.HybridKS.make(tp, bits=bits)
     rj, rt = np.random.default_rng(seed), np.random.default_rng(seed)
     sj, hj = jhyb.hybrid_keygen_hint(jhk, rj)
-    st, ht = thyb.hybrid_keygen_hint(thk, rt)
+    st, ht = thyb.hybrid_keygen_hint(thk, rt, device="cpu")
     return jhk, thk, rj, rt, sj, st, hj, ht
 
 
@@ -83,16 +83,16 @@ def test_hybrid_keygen_and_hint_match_jax():
     assert ht[0].shape == (2, 8, 1 << 10)          # [dnum, T, n]: groups 3 + 2, K = 3
     assert _eq(hj[0], ht[0]) and _eq(hj[1], ht[1])
     # convert.py carries hybrid hints across, raw [dnum, T, n] and Shoup pairs
-    assert all(torch.equal(to_torch(a), b) for a, b in zip(hj, ht))
+    assert all(torch.equal(to_torch(a, "cpu"), b) for a, b in zip(hj, ht))
     for a, b in zip(hj, ht):
-        pair_j = to_torch(tuple(map(np.asarray, jfast.shoup_precompute(a, jhk.pe.qs))))
+        pair_j = to_torch(tuple(map(np.asarray, jfast.shoup_precompute(a, jhk.pe.qs))), "cpu")
         pair_t = tfast.shoup_precompute(b, thk.pe.qs)
         assert all(torch.equal(x, y) for x, y in zip(pair_j, pair_t))
     # a second hint for the same key, from the generators as they are now
     s_int = np.asarray(rj.integers(-1, 2, 1 << 10))
     rt.integers(-1, 2, 1 << 10)
     assert all(_eq(a, b) for a, b in zip(jhyb.hybrid_relin_hint(jhk, s_int, rj),
-                                         thyb.hybrid_relin_hint(thk, s_int, rt)))
+                                         thyb.hybrid_relin_hint(thk, s_int, rt, device="cpu")))
 
 
 def _negacyclic_mod2(m1, m2):
@@ -112,13 +112,14 @@ def test_mul_relin_hybrid_matches_jax(L, Bt, shoup):
     ref = jhyb.mul_relin_hybrid(jhk, cts[0], cts[1], *hj)
     if shoup:
         ht = tuple(tfast.shoup_precompute(h, thk.pe.qs) for h in ht)
-    out = thyb.mul_relin_hybrid(thk, to_torch(cts[0]), to_torch(cts[1]), *ht)
+    out = thyb.mul_relin_hybrid(thk, to_torch(cts[0], "cpu"), to_torch(cts[1], "cpu"), *ht)
     assert out.shape == (Bt, 2, L, 1 << 10) and _eq(ref, out)
-    assert torch.equal(out, thyb.mul_relin_hybrid_plain(thk, to_torch(cts[0]), to_torch(cts[1]), *ht))
+    assert torch.equal(out, thyb.mul_relin_hybrid_plain(thk, to_torch(cts[0], "cpu"),
+                                                        to_torch(cts[1], "cpu"), *ht))
     for i in range(Bt):
         assert np.array_equal(tfast.decrypt(thk.p, st, out[i]),
                               _negacyclic_mod2(msgs[0, i], msgs[1, i]))
-    one = thyb.mul_relin_hybrid(thk, to_torch(cts[0][0]), to_torch(cts[1][0]), *ht)
+    one = thyb.mul_relin_hybrid(thk, to_torch(cts[0][0], "cpu"), to_torch(cts[1][0], "cpu"), *ht)
     assert torch.equal(one, out[0])                 # a single ciphertext, no batch axis
 
 
@@ -147,12 +148,13 @@ def test_plain_kernel4_matches_pallas_kernel_interpret(monkeypatch, L):
     n, Bt = 1 << 10, 2
     rng = np.random.default_rng(L)
     c2c = np.stack([rng.integers(0, q, (Bt, n)) for q in thk.p.qs], axis=1)
-    x = to_numpy(thyb.garner_pack(thk, to_torch(c2c)))
+    x = to_numpy(thyb.garner_pack(thk, to_torch(c2c, "cpu")))
     hs = tuple(jfast.shoup_precompute(h, jhk.pe.qs) for h in hj)
-    for hints_j, hints_t in ((hj, ht), (hs, to_torch(tuple(tuple(map(np.asarray, h)) for h in hs)))):
+    hs_t = to_torch(tuple(tuple(map(np.asarray, h)) for h in hs), "cpu")
+    for hints_j, hints_t in ((hj, ht), (hs, hs_t)):
         ref = mrk.hybrid_digit_stage_pallas(n, jhk.pe.qs, jhk.groups,
                                             jnp.asarray(_x_pack(x, n)), *hints_j)
-        out = mr.hybrid_digit_stage(n, thk.pe.qs, thk.groups, to_torch(x), *hints_t)
+        out = mr.hybrid_digit_stage(n, thk.pe.qs, thk.groups, to_torch(x, "cpu"), *hints_t)
         assert out.shape == (2, Bt, len(thk.pe.qs), n) and _eq(ref, out)
 
 
@@ -171,7 +173,7 @@ def test_hybrid_wrappers_stay_off_the_card_and_check_inputs(monkeypatch):
 
     monkeypatch.setattr(build, "library", no_library)
     thk = thyb.HybridKS.make(tfast.FastParams.make(10, 5, bits=24), bits=24)
-    _, (hb, ha) = thyb.hybrid_keygen_hint(thk, np.random.default_rng(3))
+    _, (hb, ha) = thyb.hybrid_keygen_hint(thk, np.random.default_rng(3), device="cpu")
     n, T, qs = 1 << 10, len(thk.pe.qs), thk.pe.qs
     x = torch.zeros((2, 5, n), dtype=torch.int32)
     assert mr.hybrid_digit_stage(n, qs, thk.groups, x, hb, ha).shape == (2, 2, T, n)

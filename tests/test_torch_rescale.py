@@ -47,14 +47,28 @@ def test_plain_kernels_5_and_6_match_pallas_kernels_interpret(interpret, log_n, 
     p = jfast.FastParams.make(log_n, L, impl="pallas")
     x = _rows(p, 2, seed=log_n)
     y = interpret.ntt3_grid_pallas(p.n, p.qs, jnp.asarray(x))
-    assert _eq(y, rk.ntt3_grid(p.n, p.qs, to_torch(x)))
-    assert _eq(interpret.intt3_grid_pallas(p.n, p.qs, y), rk.intt3_grid(p.n, p.qs, to_torch(y)))
+    assert _eq(y, rk.ntt3_grid(p.n, p.qs, to_torch(x, "cpu")))
+    assert _eq(interpret.intt3_grid_pallas(p.n, p.qs, y),
+               rk.intt3_grid(p.n, p.qs, to_torch(y, "cpu")))
     # the port's kernels reduce any uint32 input first, as ntt3/intt3 do
     u = _rows(p, 2, seed=1, hi=1 << 32)
     q = np.array(p.qs, dtype=np.uint64)[:, None]
     for fn, plain in ((rk.ntt3_grid, ntt3), (rk.intt3_grid, intt3)):
         want = plain(torch.from_numpy((u % q).astype(np.int64)), p.n, p.qs)
-        assert np.array_equal(to_numpy(fn(p.n, p.qs, to_torch(u))).astype(np.int64), want.numpy())
+        got = to_numpy(fn(p.n, p.qs, to_torch(u, "cpu"))).astype(np.int64)
+        assert np.array_equal(got, want.numpy())
+
+
+def test_kernels_5_and_6_match_pallas_kernels_interpret_at_2e16(interpret):
+    """n = 2^16 (the radix-4 slot order, and the size where the CUDA
+    kernels split each limb over two blocks): the wrappers (plain versions
+    here) against the Pallas kernels in interpret mode."""
+    p = jfast.FastParams.make(16, 2, impl="pallas")
+    x = _rows(p, 1, seed=16)
+    y = interpret.ntt3_grid_pallas(p.n, p.qs, jnp.asarray(x))
+    assert _eq(y, rk.ntt3_grid(p.n, p.qs, to_torch(x, "cpu")))
+    assert _eq(interpret.intt3_grid_pallas(p.n, p.qs, y),
+               rk.intt3_grid(p.n, p.qs, to_torch(np.asarray(y), "cpu")))
 
 
 @pytest.mark.parametrize("log_n,L,k_drop", [(10, 4, 1), (10, 6, 2), (11, 5, 3)])
@@ -65,7 +79,7 @@ def test_rescale_joint_matches_pallas_interpret_and_jnp(interpret, log_n, L, k_d
     p = jfast.FastParams.make(log_n, L, zp=2, impl="pallas")
     tp = tfast.FastParams(n=p.n, qs=p.qs, zp=2)
     ct = _rows(p, 2, seed=L)
-    out = thyb.rescale_joint(tp, to_torch(ct), k_drop)
+    out = thyb.rescale_joint(tp, to_torch(ct, "cpu"), k_drop)
     assert out.shape == (2, L - k_drop, p.n)
     assert _eq(interpret.rescale_joint_pallas(p, jnp.asarray(ct), k_drop), out)
     assert _eq(jhyb._rescale_joint_jnp(p, jnp.asarray(ct), k_drop), out)
@@ -87,7 +101,7 @@ def test_rescale_joint_matches_jnp_and_fast_rescale(k_drop):
     jp = jfast.FastParams.make(10, 4, zp=2, impl="pallas")
     tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=2)
     rng = np.random.default_rng(k_drop)
-    s = tfast.keygen(tp, rng)
+    s = tfast.keygen(tp, rng, device="cpu")
     msgs = rng.integers(0, 2, (2, 3, tp.n))
     ct = torch.stack([torch.stack([tfast.encrypt(tp, s, m, rng) for m in row]) for row in msgs])
     out = thyb.rescale_joint(tp, ct, k_drop)
@@ -106,7 +120,7 @@ def test_ntt_p_intt_p_match_jax():
     jp = jfast.FastParams.make(10, 3, impl="pallas")
     tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=jp.zp)
     x = _rows(jp, 4, seed=5).reshape(2, 2, 3, jp.n)            # leading dims fold through
-    y = tfast._ntt_p(tp, to_torch(x))
+    y = tfast._ntt_p(tp, to_torch(x, "cpu"))
     assert y.shape == x.shape and _eq(jfast._ntt_p(jp, jnp.asarray(x)), y)
     assert _eq(jfast._intt_p(jp, jnp.asarray(to_numpy(y))), tfast._intt_p(tp, y))
     assert np.array_equal(to_numpy(tfast._intt_p(tp, y)), x)
@@ -124,7 +138,7 @@ def test_rescale_wrappers_stay_off_the_card_and_check_inputs(monkeypatch):
     f = torch.zeros((2, n), dtype=torch.int32)
     xs = torch.zeros((2, 1, n), dtype=torch.int32)
     assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, xs, f, f, f).shape == (2, 3, n)
-    s = tfast.keygen(p, np.random.default_rng(0))
+    s = tfast.keygen(p, np.random.default_rng(0), device="cpu")
     ct = tfast.encrypt(p, s, np.zeros(n, dtype=np.int64), np.random.default_rng(1))
     down = tfast.FastParams(n=n, qs=qs[:-1], zp=2)
     assert not tfast.decrypt(down, s[:-1], tfast.rescale(p, ct, 1)).any()
@@ -161,6 +175,19 @@ def test_kernels_5_6_7_match_plain_on_the_card(log_n, L, G):
     assert rk.LAUNCHES == {"intt_grid": before["intt_grid"] + 3,
                            "ntt_grid": before["ntt_grid"] + 1,
                            "rescale_fwd": before["rescale_fwd"] + 2}
+
+
+@pytest.mark.cuda
+def test_kernels_5_6_match_plain_on_the_card_at_2e16():
+    """The split form: two blocks per limb, kernel 5 across a cluster."""
+    _need_card()
+    p = tfast.FastParams.make(16, 3)
+    x = to_torch(_rows(p, 2, seed=16, hi=1 << 32), "cuda")
+    before = dict(rk.LAUNCHES)
+    assert torch.equal(rk.ntt3_grid(p.n, p.qs, x), rk.ntt3_grid_plain(p.n, p.qs, x))
+    assert torch.equal(rk.intt3_grid(p.n, p.qs, x), rk.intt3_grid_plain(p.n, p.qs, x))
+    assert rk.LAUNCHES == {**before, "intt_grid": before["intt_grid"] + 1,
+                           "ntt_grid": before["ntt_grid"] + 1}
 
 
 @pytest.mark.cuda
