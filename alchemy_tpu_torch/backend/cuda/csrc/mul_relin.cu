@@ -8,8 +8,9 @@
 // TPU runs at n = 2^16). Kernel 4, hybrid_digit_relin (hybrid
 // key-switching), replaces :807 _hybrid_digit_relin_kernel.
 //
-// Layouts (uint32 residues, canonical, the 3-factor NTT slot order of
-// backend/ntt3.py at the boundaries):
+// Layouts (uint32 residues, canonical, at the boundaries in the slot order
+// of the slot_inv table the host passes: the 3-factor order of
+// backend/ntt3.py or the 2-factor order of backend/ntt2.py):
 //   ct_a, ct_b  [Bt, 2, L, n]   NTT domain
 //   c0, c1      [Bt, L, n]      NTT domain
 //   c2c         [Bt, L, n]      coefficients of c2 (natural order)
@@ -26,10 +27,10 @@
 // replaced by a radix-2 NTT with native 64-bit products and Shoup twiddles,
 // run in shared memory, its log2(n) butterfly stages separated by block
 // barriers. Inside a kernel the NTT works in bit-reversed evaluation order;
-// the host tables slot_ct[s] = bitrev(K(s)) and its inverse slot_inv map
-// each slot s of the 3-factor order to it and back.
+// the host table slot_inv maps each radix-2 index to its slot (any
+// permutation: the kernels are the same for both slot orders).
 //
-// Kernels A and B split each limb over two blocks (a limb of 2^16 words,
+// All three kernels split each limb over two blocks (a limb of 2^16 words,
 // 256 KB, exceeds the 227 KB of shared memory a block can have): each block
 // holds half of it (64 KB at n = 2^15, so two blocks share an SM; 128 KB at
 // 2^16) and owns the slots whose radix-2 index lies in its half
@@ -37,18 +38,19 @@
 // B's forward NTTs fuse it, their first, into the load (both blocks read the
 // whole digit row, the second time from L2); A's inverse NTT finishes it,
 // its last, across a thread block cluster of two through distributed shared
-// memory. Measured on the H100 (PERF.md), B at n = 2^15 takes 34% less time
-// this way than with one block per whole limb.
+// memory. Measured on the H100 (PERF.md), at n = 2^15 B takes 34% less time
+// this way than with one block per whole limb, and kernel 4 21% less,
+// though its forward NTTs fuse the first stage into a load that computes
+// the base extension, so each block of a pair computes it for the whole row.
 //
 // Kernel B streams every hint row once per ciphertext (Bt*4*L^2*n words,
 // L2-resident when the hints fit the 50 MB L2) and keeps its running sums in
 // the output buffer, since two accumulators per slot do not fit the
 // registers. Its unique bytes would take ~1/30 of its time at full
 // bandwidth: the serial chain of L*log2(n) barrier-separated stages of each
-// block bounds it (PERF.md). Kernel 4 still keeps one whole limb per block
-// (n words, one block per SM at 2^15, none at 2^16) and runs dnum transforms
-// per block over T blocks per ciphertext; its base extension (alpha Shoup
-// products per slot and group) is built in shared memory, never in device
+// block bounds it (PERF.md). Kernel 4 runs dnum transforms per block over
+// 2*T blocks per ciphertext; its base extension (alpha Shoup products per
+// coefficient and group) goes straight into shared memory, never to device
 // memory.
 #include <cuda_runtime.h>
 
@@ -155,24 +157,27 @@ digit_relin_kernel(const uint32_t* __restrict__ c2c, const uint32_t* c0,
   }
 }
 
-// Kernel 4. One block per (extended limb t, ciphertext b); the dnum digit
+// Kernel 4. Two blocks per (extended limb t, ciphertext b); the dnum digit
 // groups j loop inside. Group j covers Garner digit rows [j*alpha,
-// min((j+1)*alpha, L)) of x[b]; its digit residue mod q_t is
-// sum_k x[b, k] * [pi_k]_{q_t} (Shoup constants ext[t]), which is
-// transformed and multiplied by hint row (j, t). The sums start from zero
-// (c0 and c1 join after the rescale by P) and live in the output buffer as
-// in digit_relin_kernel. One block holds the whole limb (n <= 2^15).
+// min((j+1)*alpha, L)) of x[b]; its digit residue mod q_t at coefficient i
+// is sum_k x[b, k, i] * [pi_k]_{q_t} (Shoup constants ext[t]), computed in
+// the load of the first forward stage, then transformed; block `part`
+// multiplies the slots whose radix-2 index lies in its half by hint row
+// (j, t). The sums start from zero (c0 and c1 join after the rescale by P)
+// and live in the output buffer as in digit_relin_kernel: each thread owns
+// the same slots at every group, so it reads back only what it wrote.
+// Registers as in tensor_intt_kernel.
 template <bool kShoup>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(1024, 2)
 hybrid_digit_relin_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ ext,
                           const uint32_t* __restrict__ hb, const uint32_t* __restrict__ hbs,
                           const uint32_t* __restrict__ ha, const uint32_t* __restrict__ has,
                           uint32_t* out, const uint32_t* __restrict__ limbs,
-                          const uint32_t* __restrict__ fwd_tw, const int32_t* __restrict__ slot_ct,
+                          const uint32_t* __restrict__ fwd_tw, const int32_t* __restrict__ slot_inv,
                           int L, int T, int dnum, int alpha, int log_n) {
   extern __shared__ uint32_t buf[];
-  const int n = 1 << log_n;
-  const int t = blockIdx.x;
+  const int n = 1 << log_n, half = n >> 1;
+  const int t = blockIdx.x >> 1, part = blockIdx.x & 1;
   const size_t b = blockIdx.y;
   const size_t bt = gridDim.y;
   const zq::Limb k = zq::load_limb(limbs + kLimbWords * t);
@@ -181,23 +186,26 @@ hybrid_digit_relin_kernel(const uint32_t* __restrict__ x, const uint32_t* __rest
   uint32_t* out0 = out + (b * T + t) * n;
   uint32_t* out1 = out + ((bt + b) * T + t) * n;
   const uint32_t* tw = fwd_tw + 2 * static_cast<size_t>(t) * n;
+  const int32_t* own = slot_inv + part * half;
 
   for (int j = 0; j < dnum; ++j) {
     const int k0 = j * alpha;
     const int k1 = k0 + alpha < L ? k0 + alpha : L;
-    for (int s = threadIdx.x; s < n; s += blockDim.x) {
+    auto digit = [&](int i) {
       uint32_t acc = 0;
-      for (int i = k0; i < k1; ++i) {
-        acc = zq::add_mod(acc, zq::mulmod_shoup(xb[static_cast<size_t>(i) * n + s], w[i],
-                                                w[L + i], k.q), k.q);
+      for (int r = k0; r < k1; ++r) {
+        acc = zq::add_mod(acc, zq::mulmod_shoup(__ldg(xb + static_cast<size_t>(r) * n + i),
+                                                __ldg(w + r), __ldg(w + L + r), k.q), k.q);
       }
-      buf[s] = acc;
-    }
+      return acc;
+    };
+    zq::forward_first_stage(buf, digit, log_n, part, tw, tw + n, k);
     __syncthreads();
-    zq::ntt_forward(buf, log_n, tw, tw + n, k.q);
+    zq::ntt_forward(buf, log_n, tw, tw + n, k.q, 1, part);
     const size_t h = (static_cast<size_t>(j) * T + t) * n;
-    for (int s = threadIdx.x; s < n; s += blockDim.x) {
-      const uint32_t v = buf[slot_ct[s]];
+    for (int e = threadIdx.x; e < half; e += blockDim.x) {
+      const int s = own[e];
+      const uint32_t v = buf[e];
       const uint32_t p0 = kShoup ? zq::mulmod_shoup(v, hb[h + s], hbs[h + s], k.q)
                                  : zq::mulmod(v, hb[h + s], k);
       const uint32_t p1 = kShoup ? zq::mulmod_shoup(v, ha[h + s], has[h + s], k.q)
@@ -247,15 +255,16 @@ int digit_relin(const void* c2c, const void* c0, const void* c1, const void* hb,
 // Kernel 4; hbs and has are ignored unless shoup != 0. Returns a cudaError_t.
 int hybrid_digit_relin(const void* x, const void* ext, const void* hb, const void* hbs,
                        const void* ha, const void* has, void* out, const void* limbs,
-                       const void* fwd_tw, const void* slot_ct, int shoup, int bt, int L, int T,
+                       const void* fwd_tw, const void* slot_inv, int shoup, int bt, int L, int T,
                        int dnum, int alpha, int log_n, void* stream) {
-  return zq::launch(shoup ? hybrid_digit_relin_kernel<true> : hybrid_digit_relin_kernel<false>,
-                    dim3(T, bt), log_n, stream, static_cast<const uint32_t*>(x),
-                    static_cast<const uint32_t*>(ext), static_cast<const uint32_t*>(hb),
-                    static_cast<const uint32_t*>(hbs), static_cast<const uint32_t*>(ha),
-                    static_cast<const uint32_t*>(has), static_cast<uint32_t*>(out),
-                    static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(fwd_tw),
-                    static_cast<const int32_t*>(slot_ct), L, T, dnum, alpha, log_n);
+  return zq::launch_split(
+      shoup ? hybrid_digit_relin_kernel<true> : hybrid_digit_relin_kernel<false>, dim3(2 * T, bt),
+      false, log_n, stream, static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(ext),
+      static_cast<const uint32_t*>(hb), static_cast<const uint32_t*>(hbs),
+      static_cast<const uint32_t*>(ha), static_cast<const uint32_t*>(has),
+      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(limbs),
+      static_cast<const uint32_t*>(fwd_tw), static_cast<const int32_t*>(slot_inv), L, T, dnum,
+      alpha, log_n);
 }
 
 }  // extern "C"

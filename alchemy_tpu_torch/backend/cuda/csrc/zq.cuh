@@ -71,11 +71,12 @@ __device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b, const Limb& k
 // psi^bitrev(k) and its Shoup companions. Every thread of the block calls
 // this; the caller synchronises before it, and it returns synchronised.
 //
-// split = 1: the limb is split over two blocks (kernels A, B, 5, 6), and a
-// holds only its half `part` (a[x] is index part*n/2 + x of the whole). Only the first
-// stage (m = 1) pairs j with j + n/2; the caller fuses it into its load
-// (forward_first_stage), and this runs the log2(n) - 1 stages that stay
-// inside the half, with the whole transform's twiddles m + part*m/2 + i.
+// split = 1: the limb is split over two blocks (every kernel of this
+// directory), and a holds only its half `part` (a[x] is index part*n/2 + x
+// of the whole). Only the first stage (m = 1) pairs j with j + n/2; the
+// caller fuses it into its load (forward_first_stage), and this runs the
+// log2(n) - 1 stages that stay inside the half, with the whole transform's
+// twiddles m + part*m/2 + i.
 __device__ __forceinline__ void ntt_forward(uint32_t* a, int log_n,
                                             const uint32_t* __restrict__ tw,
                                             const uint32_t* __restrict__ tws,
@@ -122,24 +123,34 @@ __device__ __forceinline__ void ntt_inverse(uint32_t* a, int log_n,
 }
 
 // The first stage of ntt_forward for a limb split over two blocks, fused
-// into the load from device memory: block `part` keeps x[j] + w*x[j + n/2]
-// (part 0) or x[j] - w*x[j + n/2] (part 1) in a[j], j < n/2, with w the
-// stage's one twiddle; x may hold any uint32. Both blocks read all of x (the
-// second read comes from L2), so no block needs the other's shared memory.
-// The caller synchronises after it.
-__device__ __forceinline__ void forward_first_stage(uint32_t* a, const uint32_t* __restrict__ x,
-                                                    int log_n, int part,
+// into the load from device memory: block `part` keeps x_j + w*x_{j + n/2}
+// (part 0) or x_j - w*x_{j + n/2} (part 1) in a[j], j < n/2, with w the
+// stage's one twiddle and x_i = elem(load, i), any uint32. load is the row
+// in device memory (kernels B, 6, 8) or a callable that returns the
+// kernel's prologue for coefficient i (kernel 4's base extension, kernel
+// 7's correction and division by P), which each block then computes for the
+// whole row. Both blocks read all of the row (the second read comes from
+// L2), so no block needs the other's shared memory. The caller synchronises
+// after it. (A plain pointer keeps B's register count: read through a
+// callable, B spilled under its 32-register cap.)
+__device__ __forceinline__ uint32_t elem(const uint32_t* __restrict__ x, int i) { return x[i]; }
+template <typename F>
+__device__ __forceinline__ uint32_t elem(const F& f, int i) { return f(i); }
+
+template <typename Load>
+__device__ __forceinline__ void forward_first_stage(uint32_t* a, Load load, int log_n, int part,
                                                     const uint32_t* __restrict__ tw,
                                                     const uint32_t* __restrict__ tws,
                                                     const Limb& k) {
   const int half = 1 << (log_n - 1);
   const uint32_t w = __ldg(tw + 1), ws = __ldg(tws + 1);
   for (int j = threadIdx.x; j < half; j += blockDim.x) {
-    const uint32_t u = reduce(x[j], k);
-    const uint32_t v = mulmod_shoup(x[j + half], w, ws, k.q);
+    const uint32_t u = reduce(elem(load, j), k);
+    const uint32_t v = mulmod_shoup(elem(load, j + half), w, ws, k.q);
     a[j] = part ? sub_mod(u, v, k.q) : add_mod(u, v, k.q);
   }
 }
+
 
 // The last stage of ntt_inverse for a limb split over a thread block cluster
 // of two (block `part` of the pair holds half `part`, after ntt_inverse with
@@ -167,25 +178,10 @@ __device__ __forceinline__ void inverse_last_stage(uint32_t* a, uint32_t* __rest
   cluster.sync();
 }
 
-// Launches a kernel that keeps one limb in shared memory (n words, opted in
-// as dynamic shared memory; n/2 threads up to 1024, one butterfly each per
-// stage) on `stream`: kernels 4 and 7. Returns a cudaError_t (0 on success).
-template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), dim3 grid, int log_n, void* stream, Args... args) {
-  const int n = 1 << log_n;
-  const dim3 block(n / 2 < 1024 ? n / 2 : 1024);
-  const size_t smem = static_cast<size_t>(n) * sizeof(uint32_t);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Launches a kernel that keeps half of one limb in shared memory, two blocks
 // per limb along x (n/2 words opted in as dynamic shared memory; n/4
-// threads up to 1024, one butterfly each per stage), on `stream`: kernels
-// A, B, 5 and 6 at every n. With cluster, each pair of blocks along x is a
+// threads up to 1024, one butterfly each per stage), on `stream`: every
+// kernel, at every n. With cluster, each pair of blocks along x is a
 // thread block cluster of two, for the kernels whose last stage crosses the
 // halves. Returns a cudaError_t (0 on success): a refused launch or cluster
 // shape is an error, never a fallback.

@@ -20,14 +20,14 @@ every limb t of the extended chain (T = L + K limbs), the base extension
 and the sums t0 = Σ_j D_j·hb[j, t], t1 = Σ_j D_j·ha[j, t] from zero, with
 raw hints or Shoup pairs; c0 and c1 join after the rescale by P.
 
-On the H100 kernels A and B (and 5, 6 in `rescale.py`) run two blocks per
-(limb, ciphertext), each with half of the limb's n words in shared memory
-(64 KB at n = 2^15, 128 KB at 2^16, where a whole limb of 256 KB exceeds the
-227 KB a block can have); they take n ≤ 2^16. Kernel 4 keeps one block per
-limb with the whole limb (128 KB at 2^15) and raises at 2^16. The kernels
-work in the bit-reversed order of a radix-2 NTT;
-`kernel_tables` maps it to the 3-factor slot order of `backend/ntt3.py`,
-which is the contract at their boundaries. See `csrc/mul_relin.cu` for
+On the H100 every kernel (and 5–9 in `rescale.py`) runs two blocks per
+(limb, row), each with half of the limb's n words in shared memory (64 KB
+at n = 2^15, 128 KB at 2^16, where a whole limb of 256 KB exceeds the
+227 KB a block can have); they take n ≤ 2^16. The kernels work in the
+bit-reversed order of a radix-2 NTT; `kernel_tables` maps it to the slot
+order at their boundaries, which is the `order` argument of every wrapper:
+"pallas", the 3-factor order of `backend/ntt3.py`, or "mxu", the 2-factor
+order of `backend/ntt2.py` (`FastParams.impl`). See `csrc/mul_relin.cu` for
 what bounds them.
 
 Each wrapper takes the plain PyTorch version for CPU tensors only; for CUDA
@@ -55,6 +55,7 @@ from alchemy_tpu_torch.backend.modarith import (
     shoup_const,
     widen,
 )
+from alchemy_tpu_torch.backend.ntt2 import _pick_split, intt2, ntt2, ntt2_bcast
 from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3, ntt3_bcast, psi_powers
 
 #: launches of each kernel since the last `reset_launches()`
@@ -82,28 +83,51 @@ def _with_shoup(w: np.ndarray, q: int) -> np.ndarray:
     return np.stack([w, (w << np.uint64(32)) // np.uint64(q)]).astype(np.uint32)
 
 
-@lru_cache(maxsize=None)
-def kernel_tables(n: int, qs: tuple[int, ...]) -> dict:
-    """Host tables of both kernels (numpy):
+#: the slot orders the kernels take at their boundaries, with the plain
+#: transforms of each: (forward, inverse, forward of each row under every limb)
+ORDERS = {"pallas": (ntt3, intt3, ntt3_bcast), "mxu": (ntt2, intt2, ntt2_bcast)}
 
-    - `slot_ct` [n] int32: slot s = k1·(B·r) + k3·B + k2 of the 3-factor
-      order holds x(ψ^{2K+1}) with K = k1 + A·k3 + A·r·k2; a radix-2 NTT
-      leaves that value at index bitrev(K), which is slot_ct[s];
-    - `slot_inv` [n] int32: its inverse, radix-2 index → slot; a block of
-      kernels A, B, 5 or 6 holding half h of a limb owns the slots
-      slot_inv[h·n/2 : (h+1)·n/2];
+
+def plain_transforms(order: str):
+    """(ntt, intt, ntt_bcast) of a slot order, "pallas" or "mxu"."""
+    if order not in ORDERS:
+        raise ValueError(f"slot order {order!r}: want one of {sorted(ORDERS)}")
+    return ORDERS[order]
+
+
+@lru_cache(maxsize=None)
+def slot_tables(n: int, order: str) -> tuple[np.ndarray, np.ndarray]:
+    """(slot_ct, slot_inv), [n] int32 each. Slot s holds x(ψ^{2K+1}) with
+    K = k1 + A·k3 + A·r·k2 for s = k1·(B·r) + k3·B + k2 in the 3-factor
+    order ("pallas"), K = k1 + n1·k2 for s = k1·n2 + k2 in the 2-factor
+    order ("mxu"); a radix-2 NTT leaves that value at index bitrev(K), which
+    is slot_ct[s]. slot_inv is its inverse, radix-2 index → slot: a block
+    holding half h of a limb owns the slots slot_inv[h·n/2 : (h+1)·n/2]."""
+    plain_transforms(order)
+    s = np.arange(n, dtype=np.int64)
+    if order == "pallas":
+        A, B, r = _split3(n)
+        K = s // (B * r) + A * ((s % (B * r)) // B) + A * r * (s % B)
+    else:
+        n1, n2 = _pick_split(n)
+        K = s // n2 + n1 * (s % n2)
+    slot_ct = _bitrev(K, n.bit_length() - 1).astype(np.int32)
+    slot_inv = np.empty(n, dtype=np.int32)
+    slot_inv[slot_ct] = s
+    return slot_ct, slot_inv
+
+
+@lru_cache(maxsize=None)
+def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
+    """Host tables of the kernels (numpy):
+
+    - `slot_ct`, `slot_inv` [n] int32: `slot_tables(n, order)`;
     - `fwd`, `inv` [L, 2, n] uint32: ψ^{±bitrev(k)} and Shoup companions;
     - `limbs` [L, 8] uint32: q, n⁻¹, its companion, ⌊2^32/q⌋ and the two
       words of ⌊2^64/q⌋ (zq.cuh `Limb`).
     """
-    A, B, r = _split3(n)
-    log_n = n.bit_length() - 1
-    s = np.arange(n, dtype=np.int64)
-    k1, k3, k2 = s // (B * r), (s % (B * r)) // B, s % B
-    slot_ct = _bitrev(k1 + A * k3 + A * r * k2, log_n).astype(np.int32)
-    slot_inv = np.empty(n, dtype=np.int32)
-    slot_inv[slot_ct] = s
-    br = _bitrev(s, log_n)
+    slot_ct, slot_inv = slot_tables(n, order)
+    br = _bitrev(np.arange(n, dtype=np.int64), n.bit_length() - 1)
     L = len(qs)
     fwd = np.empty((L, 2, n), dtype=np.uint32)
     inv = np.empty((L, 2, n), dtype=np.uint32)
@@ -120,9 +144,10 @@ def kernel_tables(n: int, qs: tuple[int, ...]) -> dict:
 
 
 @lru_cache(maxsize=None)
-def _device_tables(n: int, qs: tuple[int, ...], device: str) -> dict:
+def _device_tables(n: int, qs: tuple[int, ...], order: str, device: str) -> dict:
+    """The tables the kernels read (`limbs`, `fwd`, `inv`, `slot_inv`) on `device`."""
     return {k: torch.from_numpy(v.view(np.int32)).to(device)
-            for k, v in kernel_tables(n, qs).items()}
+            for k, v in kernel_tables(n, qs, order).items() if k != "slot_ct"}
 
 
 # ---------------------------------------------------------------------------
@@ -131,9 +156,10 @@ def _device_tables(n: int, qs: tuple[int, ...], device: str) -> dict:
 
 
 def tensor_intt_plain(n: int, qs: tuple[int, ...], ct_a: torch.Tensor,
-                      ct_b: torch.Tensor):
+                      ct_b: torch.Tensor, order: str = "pallas"):
     """Plain kernel A: [Bt, 2, L, n] × [Bt, 2, L, n] → (c0, c1, c2c), each
     [Bt, L, n] int32 (c0, c1 in slot order, c2c natural coefficients)."""
+    intt = plain_transforms(order)[1]
     a, b = widen(ct_a), widen(ct_b)
     q = qcol(qs, a.device)
     a0, a1, b0, b1 = a[:, 0], a[:, 1], b[:, 0], b[:, 1]
@@ -141,14 +167,15 @@ def tensor_intt_plain(n: int, qs: tuple[int, ...], ct_a: torch.Tensor,
     c2 = mulmod(a1, b1, qs)
     cross = mulmod(_add_mod(a0, a1, q), _add_mod(b0, b1, q), qs)
     c1 = _sub_mod(cross, _add_mod(c0, c2, q), q)
-    return narrow(c0), narrow(c1), narrow(intt3(c2, n, qs))
+    return narrow(c0), narrow(c1), narrow(intt(c2, n, qs))
 
 
-def digit_relin_plain(n: int, qs: tuple[int, ...], c0, c1, c2c, hint_b, hint_a):
+def digit_relin_plain(n: int, qs: tuple[int, ...], c0, c1, c2c, hint_b, hint_a,
+                      order: str = "pallas"):
     """Plain kernel B: → [Bt, 2, L, n] int32. Hints are raw [L, L, n] or
     (values, companions) Shoup pairs."""
     q = qcol(qs, c2c.device)
-    dig = ntt3_bcast(widen(c2c), n, qs)          # [Bt, digit, limb, n]
+    dig = plain_transforms(order)[2](widen(c2c), n, qs)          # [Bt, digit, limb, n]
     out0, out1 = widen(c0), widen(c1)
     shoup = isinstance(hint_b, (tuple, list))
     for i in range(len(qs)):
@@ -174,8 +201,10 @@ def hybrid_ext_consts(groups: tuple[tuple[int, ...], ...],
     return np.stack([_with_shoup(np.array([p % q for p in pis]), q) for q in targets])
 
 
-def hybrid_digit_stage_plain(n: int, ext_qs: tuple[int, ...], groups, x, hint_b, hint_a):
+def hybrid_digit_stage_plain(n: int, ext_qs: tuple[int, ...], groups, x, hint_b, hint_a,
+                             order: str = "pallas"):
     """Plain kernel 4: → [2, Bt, T, n] int32 (see `hybrid_digit_stage`)."""
+    ntt = plain_transforms(order)[0]
     q = qcol(ext_qs, x.device)
     xw = widen(x)
     shoup = isinstance(hint_b, (tuple, list))
@@ -183,7 +212,7 @@ def hybrid_digit_stage_plain(n: int, ext_qs: tuple[int, ...], groups, x, hint_b,
     for j, grp in enumerate(groups):
         dig = extend_digits([xw[:, k] for k in range(k0, k0 + len(grp))], grp, ext_qs)
         k0 += len(grp)
-        d = ntt3(dig, n, ext_qs)
+        d = ntt(dig, n, ext_qs)
         if shoup:
             pb = mulmod_shoup(d, widen(hint_b[0][j]), widen(hint_b[1][j]), q)
             pa = mulmod_shoup(d, widen(hint_a[0][j]), widen(hint_a[1][j]), q)
@@ -208,35 +237,29 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _kernel_device(n: int, device: torch.device, split: bool = True) -> None:
-    """Raise unless a kernel runs at ring size n on `device`. Kernels A, B,
-    5 and 6 (split=True) keep half a limb per block in shared memory (2n
-    bytes: n ≤ 2^16); kernels 4 and 7 (split=False) a whole limb (4n bytes:
-    n ≤ 2^15)."""
+def _kernel_device(n: int, device: torch.device) -> None:
+    """Raise unless the kernels run at ring size n on `device`: each block
+    keeps half a limb in shared memory (2n bytes: n ≤ 2^16)."""
     if device.type != "cuda":
         raise ValueError(f"tensors on {device}: want cpu or cuda")
-    if (2 if split else 4) * n <= MAX_SHARED_BYTES:
-        return
-    if split:
+    if 2 * n > MAX_SHARED_BYTES:
         raise NotImplementedError(
             f"n={n}: half a limb ({2 * n} bytes) does not fit a block's shared "
             "memory; the kernels take n ≤ 2^16")
-    raise NotImplementedError(
-        f"n={n}: one limb ({4 * n} bytes) does not fit a block's shared memory "
-        "and this kernel has no split form yet (ROADMAP Queue 1 item 5)")
 
 
 def tensor_intt(n: int, qs: tuple[int, ...], ct_a: torch.Tensor,
-                ct_b: torch.Tensor):
-    """Kernel A on canonical ciphertexts [Bt, 2, L, n] (int32 storage)."""
+                ct_b: torch.Tensor, order: str = "pallas"):
+    """Kernel A on canonical ciphertexts [Bt, 2, L, n] (int32 storage, slot
+    `order`)."""
     qs = tuple(qs)
     Bt, L, dev = ct_a.shape[0], len(qs), ct_a.device
     _check("ct_a", ct_a, (Bt, 2, L, n), dev)
     _check("ct_b", ct_b, (Bt, 2, L, n), dev)
     if dev.type == "cpu":
-        return tensor_intt_plain(n, qs, ct_a, ct_b)
+        return tensor_intt_plain(n, qs, ct_a, ct_b, order)
     _kernel_device(n, dev)
-    t = _device_tables(n, qs, str(dev))
+    t = _device_tables(n, qs, order, str(dev))
     c0, c1, c2c = (torch.empty((Bt, L, n), dtype=torch.int32, device=dev)
                    for _ in range(3))
     lib = build.library()
@@ -265,18 +288,18 @@ def _ptr(t):
 
 
 def digit_relin(n: int, qs: tuple[int, ...], c0: torch.Tensor, c1: torch.Tensor,
-                c2c: torch.Tensor, hint_b, hint_a) -> torch.Tensor:
+                c2c: torch.Tensor, hint_b, hint_a, order: str = "pallas") -> torch.Tensor:
     """Kernel B: kernel A's (c0, c1, c2c) and the relinearization hints
-    (raw [L, L, n] or Shoup pairs) → [Bt, 2, L, n]."""
+    (raw [L, L, n] or Shoup pairs) → [Bt, 2, L, n], slot `order`."""
     qs = tuple(qs)
     Bt, L, dev = c2c.shape[0], len(qs), c2c.device
     for name, t in (("c0", c0), ("c1", c1), ("c2c", c2c)):
         _check(name, t, (Bt, L, n), dev)
     shoup, hints = _hint_list(hint_b, hint_a, (L, L, n), dev)
     if dev.type == "cpu":
-        return digit_relin_plain(n, qs, c0, c1, c2c, hint_b, hint_a)
+        return digit_relin_plain(n, qs, c0, c1, c2c, hint_b, hint_a, order)
     _kernel_device(n, dev)
-    t = _device_tables(n, qs, str(dev))
+    t = _device_tables(n, qs, order, str(dev))
     out = torch.empty((Bt, 2, L, n), dtype=torch.int32, device=dev)
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -304,11 +327,11 @@ def _device_ext(groups, ext_qs: tuple[int, ...], device: str) -> torch.Tensor:
 
 
 def hybrid_digit_stage(n: int, ext_qs: tuple[int, ...], groups, x: torch.Tensor,
-                       hint_b, hint_a) -> torch.Tensor:
+                       hint_b, hint_a, order: str = "pallas") -> torch.Tensor:
     """Kernel 4: the Garner digits x [Bt, L, n] of c2c (natural order; rows
     group-major, as `she.hybrid.garner_pack` makes them) and the hybrid hints
-    over ext_qs (raw [dnum, T, n] or Shoup pairs) → [2, Bt, T, n], the
-    accumulator (t0, t1) before the rescale by P."""
+    over ext_qs (raw [dnum, T, n] or Shoup pairs, slot `order`) →
+    [2, Bt, T, n], the accumulator (t0, t1) before the rescale by P."""
     ext_qs, groups = tuple(ext_qs), tuple(map(tuple, groups))
     alpha = _group_width(groups, ext_qs)
     L, T, dnum = sum(map(len, groups)), len(ext_qs), len(groups)
@@ -316,15 +339,15 @@ def hybrid_digit_stage(n: int, ext_qs: tuple[int, ...], groups, x: torch.Tensor,
     _check("x", x, (Bt, L, n), dev)
     shoup, hints = _hint_list(hint_b, hint_a, (dnum, T, n), dev)
     if dev.type == "cpu":
-        return hybrid_digit_stage_plain(n, ext_qs, groups, x, hint_b, hint_a)
-    _kernel_device(n, dev, split=False)
-    t = _device_tables(n, ext_qs, str(dev))
+        return hybrid_digit_stage_plain(n, ext_qs, groups, x, hint_b, hint_a, order)
+    _kernel_device(n, dev)
+    t = _device_tables(n, ext_qs, order, str(dev))
     out = torch.empty((2, Bt, T, n), dtype=torch.int32, device=dev)
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(lib.hybrid_digit_relin(
         x.data_ptr(), _device_ext(groups, ext_qs, str(dev)).data_ptr(), *map(_ptr, hints),
-        out.data_ptr(), t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_ct"].data_ptr(),
+        out.data_ptr(), t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_inv"].data_ptr(),
         int(shoup), Bt, L, T, dnum, alpha, n.bit_length() - 1, stream), "hybrid_digit_relin")
     LAUNCHES["hybrid_digit_relin"] += 1
     return out

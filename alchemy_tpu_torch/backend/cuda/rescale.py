@@ -1,5 +1,6 @@
-"""Kernels 5, 6 and 7: the standalone per-limb NTTs and the forward half of
-the joint rescale by P — wrappers, plain versions and launch counters.
+"""Kernels 5–9: the standalone per-limb NTTs in both slot orders and the
+forward half of the joint rescale by P — wrappers, plain versions and launch
+counters.
 
 Kernel 5, `intt3_grid` (replaces `alchemy_tpu/backend/pallas/
 rescale_pallas.py:52 _intt_grid_kernel`, "kernel C", wrapper
@@ -13,14 +14,20 @@ Kernel 7, `rescale_fwd` (replaces `rescale_pallas.py:206
 _rescale_fwd_kernel`, "kernel D", wrapper `rescale_joint_pallas` :306): for
 every keep limb q_j, the base extension of the K dropped limbs' Garner
 digits, the centered correction δ, the exact division by P, and the
-forward NTT.
+forward NTT, in either slot order.
 
-Same structure and bounds as kernels A, B and 4 (`mul_relin.py`): kernels 5
-and 6 split each limb over two blocks, each with half of it in shared
-memory (n ≤ 2^16); kernel 7 keeps one block per (limb, row) with the whole
-limb (n ≤ 2^15) and raises at 2^16. Each wrapper
-takes the plain PyTorch version for CPU tensors only; for CUDA tensors it
-launches its kernel or raises.
+Kernels 8 and 9, `ntt2_grid` and `intt2_grid` (replace `alchemy_tpu/backend/
+pallas/ntt_pallas.py:211 _fwd_kernel` and `:232 _inv_kernel`, wrappers
+`ntt_pallas` :289 and `intt_pallas` :314): kernels 6 and 5 in the 2-factor
+slot order of `backend/ntt2.py` (`FastParams(impl="mxu")`). The TPU computes
+them as a 4-step NTT of bf16 digit-plane matmuls on its matrix unit; here
+they are the split radix-2 NTT of kernels 5 and 6 run with the 2-factor
+slot table: the same values x(ψ^{2K+1}), in the same slots.
+
+Same structure and bounds as kernels A, B and 4 (`mul_relin.py`): two blocks
+per (limb, row), each with half of the limb in shared memory (n ≤ 2^16).
+Each wrapper takes the plain PyTorch version for CPU tensors only; for CUDA
+tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from alchemy_tpu_torch.backend.cuda.mul_relin import (
     _device_tables,
     _kernel_device,
     _with_shoup,
+    plain_transforms,
 )
 from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
@@ -47,10 +55,11 @@ from alchemy_tpu_torch.backend.modarith import (
     qcol,
     widen,
 )
+from alchemy_tpu_torch.backend.ntt2 import intt2, ntt2
 from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
 
 #: launches of each kernel since the last `reset_launches()`
-LAUNCHES = {"intt_grid": 0, "ntt_grid": 0, "rescale_fwd": 0}
+LAUNCHES = {"intt_grid": 0, "ntt_grid": 0, "rescale_fwd": 0, "intt2_grid": 0, "ntt2_grid": 0}
 
 
 def reset_launches() -> None:
@@ -73,6 +82,16 @@ def ntt3_grid_plain(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tenso
     return narrow(ntt3(widen(x), n, qs))
 
 
+def intt2_grid_plain(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
+    """Plain kernel 9: [G, T, n] int32 → [G, T, n] int32."""
+    return narrow(intt2(widen(x), n, qs))
+
+
+def ntt2_grid_plain(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
+    """Plain kernel 8: [G, T, n] int32 → [G, T, n] int32."""
+    return narrow(ntt2(widen(x), n, qs))
+
+
 @lru_cache(maxsize=None)
 def rescale_consts(keep: tuple[int, ...], drop: tuple[int, ...]) -> np.ndarray:
     """[L, 4 + 2K] uint32 per keep limb q_j: P mod q_j, its Shoup companion,
@@ -90,8 +109,9 @@ def rescale_consts(keep: tuple[int, ...], drop: tuple[int, ...]) -> np.ndarray:
 
 
 def rescale_fwd_plain(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: int,
-                      coeff, xs, is_neg, t, t_neg) -> torch.Tensor:
+                      coeff, xs, is_neg, t, t_neg, order: str = "pallas") -> torch.Tensor:
     """Plain kernel 7: → [G, L, n] int32 (see `rescale_fwd`)."""
+    ntt = plain_transforms(order)[0]
     dev, L, P = coeff.device, len(keep), math.prod(drop)
     q = qcol(keep, dev)
     p_mod = torch.tensor([P % qj for qj in keep], device=dev)[:, None]
@@ -103,7 +123,7 @@ def rescale_fwd_plain(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: 
     tc = torch.where(t_neg[:, None, :] != 0, q - (zp - tw), tw)
     delta = _add_mod(v, tc * p_mod % q, q)
     diff = _sub_mod(widen(coeff[:, :L]), delta, q)
-    return narrow(ntt3(diff * p_inv % q, n, keep))
+    return narrow(ntt(diff * p_inv % q, n, keep))
 
 
 # ---------------------------------------------------------------------------
@@ -111,19 +131,22 @@ def rescale_fwd_plain(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: 
 # ---------------------------------------------------------------------------
 
 
-def _grid(name: str, twiddles: str, n: int, qs: tuple[int, ...], x: torch.Tensor,
+def _grid(name: str, entry: str, order: str, n: int, qs: tuple[int, ...], x: torch.Tensor,
           plain) -> torch.Tensor:
+    """Launch C entry point `entry` ("intt_grid" or "ntt_grid") with the
+    slot table of `order`, counted as kernel `name`."""
     qs = tuple(qs)
     G, T, dev = x.shape[0], len(qs), x.device
     _check("x", x, (G, T, n), dev)
     if dev.type == "cpu":
         return plain(n, qs, x)
     _kernel_device(n, dev)
-    t = _device_tables(n, qs, str(dev))
+    t = _device_tables(n, qs, order, str(dev))
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(getattr(build.library(), name)(
-        x.data_ptr(), out.data_ptr(), t["limbs"].data_ptr(), t[twiddles].data_ptr(),
+    twiddles = t["inv"] if entry == "intt_grid" else t["fwd"]
+    build.check(getattr(build.library(), entry)(
+        x.data_ptr(), out.data_ptr(), t["limbs"].data_ptr(), twiddles.data_ptr(),
         t["slot_inv"].data_ptr(), G, T, n.bit_length() - 1, stream), name)
     LAUNCHES[name] += 1
     return out
@@ -132,13 +155,34 @@ def _grid(name: str, twiddles: str, n: int, qs: tuple[int, ...], x: torch.Tensor
 def intt3_grid(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
     """Kernel 5: rows x [G, T, n] (int32, slot order, any uint32) → natural-
     order coefficients [G, T, n], canonical."""
-    return _grid("intt_grid", "inv", n, qs, x, intt3_grid_plain)
+    return _grid("intt_grid", "intt_grid", "pallas", n, qs, x, intt3_grid_plain)
 
 
 def ntt3_grid(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
     """Kernel 6: coefficient rows x [G, T, n] (int32, any uint32) → the
     3-factor slot order [G, T, n], canonical."""
-    return _grid("ntt_grid", "fwd", n, qs, x, ntt3_grid_plain)
+    return _grid("ntt_grid", "ntt_grid", "pallas", n, qs, x, ntt3_grid_plain)
+
+
+def intt2_grid(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
+    """Kernel 9: rows x [G, T, n] (int32, 2-factor slot order, any uint32) →
+    natural-order coefficients [G, T, n], canonical."""
+    return _grid("intt2_grid", "intt_grid", "mxu", n, qs, x, intt2_grid_plain)
+
+
+def ntt2_grid(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
+    """Kernel 8: coefficient rows x [G, T, n] (int32, any uint32) → the
+    2-factor slot order [G, T, n], canonical."""
+    return _grid("ntt2_grid", "ntt_grid", "mxu", n, qs, x, ntt2_grid_plain)
+
+
+def grid_transforms(order: str, plain: bool = False):
+    """(forward, inverse) standalone transforms of a slot order: kernels 6
+    and 5 ("pallas") or 8 and 9 ("mxu"), or their plain versions."""
+    plain_transforms(order)
+    if order == "mxu":
+        return (ntt2_grid_plain, intt2_grid_plain) if plain else (ntt2_grid, intt2_grid)
+    return (ntt3_grid_plain, intt3_grid_plain) if plain else (ntt3_grid, intt3_grid)
 
 
 @lru_cache(maxsize=None)
@@ -148,11 +192,12 @@ def _device_consts(keep: tuple[int, ...], drop: tuple[int, ...], device: str) ->
 
 def rescale_fwd(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: int,
                 coeff: torch.Tensor, xs: torch.Tensor, is_neg: torch.Tensor,
-                t: torch.Tensor, t_neg: torch.Tensor) -> torch.Tensor:
+                t: torch.Tensor, t_neg: torch.Tensor, order: str = "pallas") -> torch.Tensor:
     """Kernel 7: coefficients coeff [G, L + K, n] over keep + drop (rows
     j < L are read), the Garner digits xs [G, K, n] of the K dropped rows
     and the sign terms is_neg, t, t_neg [G, n] of `she.hybrid.rescale_joint`
-    (all int32) → the rescaled rows [G, L, n] over keep, NTT domain."""
+    (all int32) → the rescaled rows [G, L, n] over keep, NTT domain in slot
+    `order`."""
     keep, drop = tuple(keep), tuple(drop)
     L, K = len(keep), len(drop)
     G, dev = coeff.shape[0], coeff.device
@@ -161,15 +206,15 @@ def rescale_fwd(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: int,
     for name, f in (("is_neg", is_neg), ("t", t), ("t_neg", t_neg)):
         _check(name, f, (G, n), dev)
     if dev.type == "cpu":
-        return rescale_fwd_plain(n, keep, drop, zp, coeff, xs, is_neg, t, t_neg)
-    _kernel_device(n, dev, split=False)
-    tab = _device_tables(n, keep, str(dev))
+        return rescale_fwd_plain(n, keep, drop, zp, coeff, xs, is_neg, t, t_neg, order)
+    _kernel_device(n, dev)
+    tab = _device_tables(n, keep, order, str(dev))
     out = torch.empty((G, L, n), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.library().rescale_fwd(
         coeff.data_ptr(), xs.data_ptr(), is_neg.data_ptr(), t.data_ptr(), t_neg.data_ptr(),
         _device_consts(keep, drop, str(dev)).data_ptr(), out.data_ptr(),
-        tab["limbs"].data_ptr(), tab["fwd"].data_ptr(), tab["slot_ct"].data_ptr(),
+        tab["limbs"].data_ptr(), tab["fwd"].data_ptr(), tab["slot_inv"].data_ptr(),
         G, L, K, zp, n.bit_length() - 1, stream), "rescale_fwd")
     LAUNCHES["rescale_fwd"] += 1
     return out

@@ -9,6 +9,8 @@ hint for the current chain (TrivGad or hybrid key-switching) and rescales
 by one ~30-bit limb, so a depth-D chain starts with D + 2 limbs.
 
     python -m alchemy_tpu_torch.examples.deep_circuit --log-n 15 --depth 16 --ks hybrid --device cuda
+
+--impl picks the NTT slot order ("mxu", the default, or "pallas").
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -38,12 +41,13 @@ def expected_square_chain_mod2(msg: np.ndarray, n: int, depth: int) -> np.ndarra
 
 
 def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
-        ks: str = "trivgad", device="cuda"):
+        impl: str | None = None, ks: str = "trivgad", device="cuda"):
     """Runs the chain (deep_circuit.py:52) and returns (ok, ct, level_ms): ok
     when the decryption equals the squaring chain, the final ciphertext, and
     the host-clock milliseconds of each level (hint, multiply, rescale).
-    ks is "trivgad", "hybrid" or "auto" (hybrid from 12 limbs on)."""
-    p = FastParams.make(log_n, depth + 2, zp=2)
+    impl is the NTT slot order (None: the `FastParams` default); ks is
+    "trivgad", "hybrid" or "auto" (hybrid from 12 limbs on)."""
+    p = FastParams.make(log_n, depth + 2, zp=2, impl=impl or fast.DEFAULT_NTT_IMPL)
     if ks == "auto":
         ks = "hybrid" if len(p.qs) >= 12 else "trivgad"
     if ks not in ("trivgad", "hybrid"):
@@ -68,7 +72,7 @@ def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
             hb, ha = fast.relin_hint(cur_p, key_at(cur_p), rng, shoup=True)
             ct = fast.mul_relin(cur_p, ct, ct, hb, ha)
         ct = fast.rescale(cur_p, ct, 1)
-        cur_p = FastParams(n=cur_p.n, qs=cur_p.qs[:-1], zp=cur_p.zp)
+        cur_p = replace(cur_p, qs=cur_p.qs[:-1])
         if ct.is_cuda:
             torch.cuda.synchronize(ct.device)
         level_ms.append((time.perf_counter() - t0) * 1e3)
@@ -86,8 +90,11 @@ if __name__ == "__main__":
     ap.add_argument("--log-n", type=int, default=13)
     ap.add_argument("--depth", type=int, default=16)
     ap.add_argument("--ks", default="trivgad", choices=("trivgad", "hybrid", "auto"))
+    ap.add_argument("--impl", default=None, choices=("mxu", "pallas"),
+                    help="NTT slot order (default: the FastParams default, mxu)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels), or cpu for the plain versions")
     args = ap.parse_args()
-    ok, _, _ = run(log_n=args.log_n, depth=args.depth, ks=args.ks, device=args.device)
+    ok, _, _ = run(log_n=args.log_n, depth=args.depth, impl=args.impl, ks=args.ks,
+                   device=args.device)
     sys.exit(0 if ok else 1)

@@ -1,25 +1,28 @@
 """BGV on power-of-two rings, NTT-domain ciphertexts [..., 2, L, n] — port
-of `alchemy_tpu/she/fast.py` at `impl="pallas"` (the 3-factor slot order).
+of `alchemy_tpu/she/fast.py` at `impl="mxu"` (the 2-factor slot order of
+`backend/ntt2.py`, the JAX package's default) and `impl="pallas"` (the
+3-factor slot order of `backend/ntt3.py`).
 
 Residues are int32 tensors holding canonical uint32 values (< q < 2^31);
 Shoup companions are carried as their int32 bit pattern. Sampling stays
 host numpy from the caller's `np.random.Generator`, in the same order as
 the JAX package, so one seed gives bit-identical keys, hints and
-ciphertexts. Every function takes an explicit device or follows the
-device of its tensors. The standalone transforms `_ntt_p` / `_intt_p` run
-CUDA kernels 6 and 5 on the card and the plain `ntt3` / `intt3` on the CPU;
-`mul_relin` runs through CUDA kernels A and B on the card.
+ciphertexts at either impl. Every function takes an explicit device or
+follows the device of its tensors. The standalone transforms `_ntt_p` /
+`_intt_p` run CUDA kernels 8 and 9 ("mxu") or 6 and 5 ("pallas") on the
+card and their plain versions on the CPU; `mul_relin` runs through CUDA
+kernels A and B, in the slot order of `impl`, on the card.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from alchemy_tpu_torch.backend.cuda.mul_relin import digit_relin, tensor_intt
-from alchemy_tpu_torch.backend.cuda.rescale import intt3_grid, ntt3_grid
+from alchemy_tpu_torch.backend.cuda.mul_relin import ORDERS, digit_relin, tensor_intt
+from alchemy_tpu_torch.backend.cuda.rescale import grid_transforms
 from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
     _sub_mod,
@@ -31,23 +34,33 @@ from alchemy_tpu_torch.backend.modarith import (
 from alchemy_tpu_torch.nt.primes import find_ntt_prime
 from alchemy_tpu_torch.she.keys import gaussian_coeffs, uniform_residues
 
+#: the NTT slot order of `FastParams`, as in the JAX package (fast.py:35)
+DEFAULT_NTT_IMPL = "mxu"
+
 
 @dataclass(frozen=True)
 class FastParams:
-    """Ring size n (a power of two), RNS chain qs (all ≡ 1 mod 2n) and the
-    plaintext modulus zp (fast.py:47)."""
+    """Ring size n (a power of two), RNS chain qs (all ≡ 1 mod 2n), the
+    plaintext modulus zp and the NTT slot order impl (fast.py:47): "mxu"
+    (2-factor, `backend/ntt2.py`) or "pallas" (3-factor, `backend/ntt3.py`)."""
 
     n: int
     qs: tuple[int, ...]
     zp: int = 2
+    impl: str = DEFAULT_NTT_IMPL
+
+    def __post_init__(self):
+        if self.impl not in ORDERS:
+            raise ValueError(f"impl={self.impl!r}: the port has {sorted(ORDERS)}")
 
     @staticmethod
-    def make(log_n: int, nlimb: int, zp: int = 2, bits: int = 30) -> "FastParams":
+    def make(log_n: int, nlimb: int, zp: int = 2, bits: int = 30,
+             impl: str = DEFAULT_NTT_IMPL) -> "FastParams":
         n = 1 << log_n
         qs: list[int] = []
         while len(qs) < nlimb:
             qs.append(find_ntt_prime(2 * n, bits, avoid=tuple(qs)))
-        return FastParams(n=n, qs=tuple(qs), zp=zp)
+        return FastParams(n=n, qs=tuple(qs), zp=zp, impl=impl)
 
 
 def _residues(x: np.ndarray, qs, device) -> torch.Tensor:
@@ -60,16 +73,17 @@ def _uniform(rng: np.random.Generator, qs, n: int, device) -> torch.Tensor:
 
 
 def _ntt_p(p: FastParams, x: torch.Tensor) -> torch.Tensor:
-    """Forward NTT of int32 rows [..., L, n] → int32 slot order (fast.py:82):
-    kernel 6 for CUDA tensors, the plain `ntt3` for CPU ones."""
+    """Forward NTT of int32 rows [..., L, n] → int32 slot order of p.impl
+    (fast.py:82): kernel 8 ("mxu") or 6 ("pallas") for CUDA tensors, its
+    plain version (`ntt2` / `ntt3`) for CPU ones."""
     g = x.reshape(-1, len(p.qs), p.n).contiguous()
-    return ntt3_grid(p.n, p.qs, g).reshape(x.shape)
+    return grid_transforms(p.impl)[0](p.n, p.qs, g).reshape(x.shape)
 
 
 def _intt_p(p: FastParams, x: torch.Tensor) -> torch.Tensor:
-    """Inverse of `_ntt_p` (fast.py:103): kernel 5 for CUDA tensors."""
+    """Inverse of `_ntt_p` (fast.py:103): kernel 9 or 5 for CUDA tensors."""
     g = x.reshape(-1, len(p.qs), p.n).contiguous()
-    return intt3_grid(p.n, p.qs, g).reshape(x.shape)
+    return grid_transforms(p.impl)[1](p.n, p.qs, g).reshape(x.shape)
 
 
 def keygen(p: FastParams, rng: np.random.Generator, variance: float = 1.0,
@@ -193,13 +207,14 @@ def decrypt(p: FastParams, s_ntt: torch.Tensor, ct: torch.Tensor) -> np.ndarray:
 def mul_relin(p: FastParams, ct_a: torch.Tensor, ct_b: torch.Tensor,
               hint_b, hint_a) -> torch.Tensor:
     """BGV multiply + relinearize, [..., 2, L, n] × [..., 2, L, n] →
-    [..., 2, L, n] (fast.py:310): kernel A then kernel B. Hints are raw
-    [L, L, n] or Shoup pairs from relin_hint(shoup=True)."""
+    [..., 2, L, n] (fast.py:310): kernel A then kernel B, in the slot order
+    of p.impl. Hints are raw [L, L, n] or Shoup pairs from
+    relin_hint(shoup=True)."""
     lead = ct_a.shape[:-3]
     shape = (-1, 2, len(p.qs), p.n)
     c0, c1, c2c = tensor_intt(p.n, p.qs, ct_a.reshape(shape).contiguous(),
-                              ct_b.reshape(shape).contiguous())
-    out = digit_relin(p.n, p.qs, c0, c1, c2c, hint_b, hint_a)
+                              ct_b.reshape(shape).contiguous(), p.impl)
+    out = digit_relin(p.n, p.qs, c0, c1, c2c, hint_b, hint_a, p.impl)
     return out.reshape(*lead, *out.shape[1:])
 
 
@@ -211,7 +226,7 @@ def rescale(p: FastParams, ct: torch.Tensor, k_drop: int = 1) -> torch.Tensor:
     pz = p.zp
     mask = pz - 1
     for _ in range(k_drop):
-        coeff = widen(_intt_p(FastParams(n=p.n, qs=qs, zp=pz), out))
+        coeff = widen(_intt_p(replace(p, qs=qs), out))
         qk = qs[-1]
         qs = qs[:-1]
         r = coeff[..., -1, :]
@@ -230,5 +245,5 @@ def rescale(p: FastParams, ct: torch.Tensor, k_drop: int = 1) -> torch.Tensor:
             delta = (rc + tc * qk_mod % qj) % qj
             diff = (coeff[..., j, :] - delta) % qj
             rows.append(diff * pow(qk, -1, qj) % qj)
-        out = _ntt_p(FastParams(n=p.n, qs=qs, zp=pz), narrow(torch.stack(rows, dim=-2)))
+        out = _ntt_p(replace(p, qs=qs), narrow(torch.stack(rows, dim=-2)))
     return out

@@ -12,8 +12,9 @@ relinearization runs over the extended chain Q·P of T = L + K limbs:
 
 On the card `mul_relin_hybrid` runs kernel A (tensor product + inverse NTT
 of c2), the Garner digits in plain torch, kernel 4 (base extension, digit
-NTTs, hint products) and `rescale_joint`: kernel 5, the Garner digits and
-sign terms of the dropped limbs in plain torch, kernel 7. On CPU tensors
+NTTs, hint products) and `rescale_joint`: kernel 9 ("mxu") or 5 ("pallas"),
+the Garner digits and sign terms of the dropped limbs in plain torch,
+kernel 7; every kernel in the slot order of `FastParams.impl`. On CPU tensors
 every kernel wrapper runs its plain version; `mul_relin_hybrid_plain` and
 `_rescale_joint_plain` run the plain versions on any device, the reference
 the kernel path is held against on the card. Sampling follows the JAX
@@ -26,7 +27,7 @@ kernels 4 and 7 share them.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -38,8 +39,7 @@ from alchemy_tpu_torch.backend.cuda.mul_relin import (
     tensor_intt_plain,
 )
 from alchemy_tpu_torch.backend.cuda.rescale import (
-    intt3_grid,
-    intt3_grid_plain,
+    grid_transforms,
     rescale_fwd,
     rescale_fwd_plain,
 )
@@ -87,10 +87,12 @@ def _sign_terms(xs: list, drop: tuple[int, ...], zp: int):
     return gt, t, t > zp // 2
 
 
-def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, intt, fwd) -> torch.Tensor:
+def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, plain: bool) -> torch.Tensor:
     if p.zp & (p.zp - 1) or p.zp > (1 << 16):
         # the mod-zp sums of `_sign_terms` multiply two values < zp
         raise ValueError("rescale_joint requires a power-of-two zp <= 2^16")
+    intt = grid_transforms(p.impl, plain)[1]
+    fwd = rescale_fwd_plain if plain else rescale_fwd
     qs = tuple(p.qs)
     keep, drop = qs[:-k_drop], qs[-k_drop:]
     lead = ct.shape[:-2]
@@ -98,23 +100,23 @@ def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, intt, fwd) -> t
     xs = garner_digits(widen(coeff[:, len(keep):]), drop)
     is_neg, t, t_neg = _sign_terms(xs, drop, p.zp)
     out = fwd(p.n, keep, drop, p.zp, coeff, narrow(torch.stack(xs, dim=1)),
-              is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32))
+              is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32), p.impl)
     return out.reshape(*lead, len(keep), p.n)
 
 
 def rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int) -> torch.Tensor:
     """Exact BGV rescale by P = ∏ of the last k_drop limbs, in one inverse/
     forward NTT round trip (hybrid.py:134): ct [..., T, n] int32, NTT
-    domain → [..., T − k_drop, n]. zp must be a power of two ≤ 2^16. Kernel 5,
-    then the Garner digits and sign terms of the dropped rows, then kernel 7.
-    At k_drop = 1 it equals `fast.rescale`."""
-    return _rescale_joint(p, ct, k_drop, intt3_grid, rescale_fwd)
+    domain → [..., T − k_drop, n]. zp must be a power of two ≤ 2^16. Kernel 9
+    ("mxu") or 5 ("pallas"), then the Garner digits and sign terms of the
+    dropped rows, then kernel 7. At k_drop = 1 it equals `fast.rescale`."""
+    return _rescale_joint(p, ct, k_drop, plain=False)
 
 
 def _rescale_joint_plain(p: FastParams, ct: torch.Tensor, k_drop: int) -> torch.Tensor:
-    """`rescale_joint` through the plain versions of kernels 5 and 7, on any
+    """`rescale_joint` through the plain versions of its kernels, on any
     device (the counterpart of `_rescale_joint_jnp`, hybrid.py:160)."""
-    return _rescale_joint(p, ct, k_drop, intt3_grid_plain, rescale_fwd_plain)
+    return _rescale_joint(p, ct, k_drop, plain=True)
 
 
 # ---------------------------------------------------------------------------
@@ -159,8 +161,8 @@ class HybridKS:
 
     @property
     def pe(self) -> FastParams:
-        """The extended chain Q·P (T = L + K limbs)."""
-        return FastParams(n=self.p.n, qs=self.p.qs + self.ps, zp=self.p.zp)
+        """The extended chain Q·P (T = L + K limbs), in the slot order of p."""
+        return replace(self.p, qs=self.p.qs + self.ps)
 
     @property
     def groups(self) -> tuple[tuple[int, ...], ...]:
@@ -222,8 +224,8 @@ def _mul_relin_hybrid(hk: HybridKS, ct_a, ct_b, hint_b, hint_a, tensor, digit_st
     lead = ct_a.shape[:-3]
     shape = (-1, 2, L, n)
     c0, c1, c2c = tensor(n, p.qs, ct_a.reshape(shape).contiguous(),
-                         ct_b.reshape(shape).contiguous())
-    t01 = digit_stage(n, pe.qs, hk.groups, garner_pack(hk, c2c), hint_b, hint_a)
+                         ct_b.reshape(shape).contiguous(), p.impl)
+    t01 = digit_stage(n, pe.qs, hk.groups, garner_pack(hk, c2c), hint_b, hint_a, p.impl)
     r01 = widen(rescale(pe, t01, len(hk.ps)))            # [2, Bt, L, n]
     q = qcol(p.qs, c0.device)
     out = torch.stack([_add_mod(widen(c0), r01[0], q), _add_mod(widen(c1), r01[1], q)], dim=1)
@@ -235,7 +237,8 @@ def mul_relin_hybrid(hk: HybridKS, ct_a: torch.Tensor, ct_b: torch.Tensor,
     """BGV multiply + hybrid relinearization (hybrid.py:334): [..., 2, L, n]
     NTT-domain ciphertexts at the base chain → the same. Hints are raw
     [dnum, T, n] or Shoup pairs (`fast.shoup_precompute` over hk.pe.qs).
-    Kernel A → Garner digits → kernel 4 → `rescale_joint` → + (c0, c1)."""
+    Kernel A → Garner digits → kernel 4 → `rescale_joint` → + (c0, c1), in
+    the slot order of hk.p.impl."""
     return _mul_relin_hybrid(hk, ct_a, ct_b, hint_b, hint_a, tensor_intt,
                              hybrid_digit_stage, rescale_joint)
 

@@ -4,9 +4,11 @@
 Builds the CUDA kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card: A (tensor_intt), B
 (digit_relin, Shoup and raw hints), 4 (hybrid_digit_relin, raw and Shoup),
-5 (intt_grid), 6 (ntt_grid) and 7 (rescale_fwd) at n = 2^15, and A, B, 5
-and 6 again at n = 2^16, where a limb needs two blocks. Then it
-drives four paths through them, each with the launch counters set to 0
+5 (intt_grid), 6 (ntt_grid) and 7 (rescale_fwd) at n = 2^15; 8 (ntt2_grid)
+and 9 (intt2_grid), the standalone transforms of the 2-factor slot order
+(impl="mxu"), at n = 2^15 and 2^16, with 4 and 7 in that order; A, B, 4, 5,
+6 and 7 again at n = 2^16. Every kernel splits a limb over two blocks. Then
+it drives six paths through them, each with the launch counters set to 0
 just before it:
 
   [main]    BGV multiply + relinearize with the CRT gadget at the headline
@@ -20,7 +22,13 @@ just before it:
             hybrid_keygen_hint, encrypt, mul_relin_hybrid, decrypt; then
             Shoup hints, and TrivGad mul_relin at the same L for comparison;
   [deep]    the depth-16 squaring chain at n = 2^15 (18 limbs) with hybrid
-            key-switching per level, decrypted against the Frobenius chain.
+            key-switching per level, decrypted against the Frobenius chain;
+  [mxu]     [main] in the JAX package's default slot order, impl="mxu"
+            (kernels A, B, 8, 9), then [deep] in that order (A, 4, 7, 8, 9);
+  [hybrid16] [hybrid] at n = 2^16 (L = 16, dnum = 4, K = 4, raw then Shoup
+            hints, 16 ciphertexts).
+
+The first four run at impl="pallas", the 3-factor slot order.
 
 Every check is exact equality. Any failure exits non-zero; the last line of
 a passing run is one JSON object naming the device. The line before the
@@ -46,9 +54,12 @@ N2E16 = (16, 8, 16)               # bench.py's ring sweep at n = 2^16
 SMALL_N2E16 = (16, 3, 2)
 DEEP = (15, 16, 16)               # hybrid: dnum = 4, K = 4, T = 20
 SMALL_HYBRID = (14, 5, 2)         # uneven digit groups (3, 2), K = 3
+HYBRID16 = (16, 16, 16)           # hybrid at n = 2^16: dnum = 4, K = 4, T = 20
+SMALL_HYBRID16 = (16, 5, 2)
 DEEP_DEPTH = 16
 MUL_RELIN_TPU = "alchemy_tpu/backend/pallas/mul_relin_pallas.py"
 RESCALE_TPU = "alchemy_tpu/backend/pallas/rescale_pallas.py"
+NTT_TPU = "alchemy_tpu/backend/pallas/ntt_pallas.py"
 MUL_RELIN_CU = "alchemy_tpu_torch/backend/cuda/csrc/mul_relin.cu"
 RESCALE_CU = "alchemy_tpu_torch/backend/cuda/csrc/rescale.cu"
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
@@ -212,12 +223,20 @@ def fmt(res: dict) -> str:
                                        for a, b in v.items()) for k, v in res.items())
 
 
-def grid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
-    """Kernels 5 and 6 against their plain versions on any uint32 rows at
-    every shape the TrivGad path gives them: kernel 5 on [2·Bt, L, n] (the
-    rescale of a batch) and [1, L, n] (decrypt), kernel 6 on [2·Bt, L − 1, n]
-    over the first L − 1 limbs (the rescale) and [1, L, n] (keygen, hints,
-    encrypt). Times and bound are taken at each kernel's largest call."""
+def grid_names(order: str) -> tuple[str, str]:
+    """Launch counters of the (inverse, forward) standalone transforms of a
+    slot order: kernels 5 and 6, or 9 and 8."""
+    return ("intt2_grid", "ntt2_grid") if order == "mxu" else ("intt_grid", "ntt_grid")
+
+
+def grid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
+                      order: str = "pallas") -> dict:
+    """The standalone transforms of a slot order (kernels 5 and 6, or 9 and
+    8) against their plain versions on any uint32 rows at every shape the
+    TrivGad path gives them: the inverse on [2·Bt, L, n] (the rescale of a
+    batch) and [1, L, n] (decrypt), the forward on [2·Bt, L − 1, n] over the
+    first L − 1 limbs (the rescale) and [1, L, n] (keygen, hints, encrypt).
+    Times and bound are taken at each kernel's largest call."""
     import torch
 
     from alchemy_tpu_torch.backend.cuda import rescale as rk
@@ -227,11 +246,11 @@ def grid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
     n, qs = p.n, p.qs
     u32 = lambda shape: torch.from_numpy(rng.integers(0, 1 << 32, shape, dtype="uint64")
                                          .astype("uint32").view("int32")).cuda()
+    (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
+    inv_name, fwd_name = grid_names(order)
     # name: (kernel, plain, multiplies per word besides the NTT, [(rows, limbs), ...] largest first)
-    calls = {"intt_grid": (rk.intt3_grid, rk.intt3_grid_plain, REDUCE + MUL_CONST,
-                           [(2 * Bt, qs), (1, qs)]),
-             "ntt_grid": (rk.ntt3_grid, rk.ntt3_grid_plain, REDUCE,
-                          [(2 * Bt, qs[:-1]), (1, qs)])}
+    calls = {inv_name: (inv, inv_plain, REDUCE + MUL_CONST, [(2 * Bt, qs), (1, qs)]),
+             fwd_name: (fwd, fwd_plain, REDUCE, [(2 * Bt, qs[:-1]), (1, qs)])}
     res = {}
     for name, (kern, plain, muls, shapes) in calls.items():
         errs = []
@@ -249,13 +268,16 @@ def grid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
         if timed:
             res[name].update(ms=device_ms(lambda: kern(n, limbs, x), 20),
                              plain_ms=device_ms(lambda: plain(n, limbs, x), 3))
-    print(f"[kernels] n=2^{log_n} L={L}: kernels 5 on [{2 * Bt}, {L}, n] and [1, {L}, n], 6 on "
-          f"[{2 * Bt}, {L - 1}, n] and [1, {L}, n] bit-identical to plain " + fmt(res), flush=True)
+    print(f"[kernels] n=2^{log_n} L={L} order={order}: {inv_name} on [{2 * Bt}, {L}, n] and "
+          f"[1, {L}, n], {fwd_name} on [{2 * Bt}, {L - 1}, n] and [1, {L}, n] bit-identical to "
+          "plain " + fmt(res), flush=True)
     return res
 
 
-def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
-    """Kernels 4 (raw and Shoup hints), 5, 6 and 7 against their plain
+def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
+                        order: str = "pallas") -> dict:
+    """Kernels 4 (raw and Shoup hints) and 7 in a slot order, and that
+    order's standalone transforms (5 and 6, or 9 and 8), against their plain
     versions on the card at the shapes of the hybrid path; returns the
     errors and device times."""
     import torch
@@ -281,8 +303,11 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
     xs = garner_digits(widen(coeff[:, L:]), drop)
     is_neg, t, t_neg = hybrid._sign_terms(xs, drop, pe.zp)
     args7 = (n, keep, drop, pe.zp, coeff, narrow(torch.stack(xs, dim=1)),
-             is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32))
+             is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32), order)
     ntt = ntt_muls(n)
+    (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
+    inv_name, fwd_name = grid_names(order)
+    groups = hk.groups
 
     def k4_cost(hint_words, hint_mul):
         return (4 * (Bt * L * n + 2 * T * L + hint_words * hk.dnum * T * n + 2 * T * n + n
@@ -291,20 +316,19 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
 
     G5, G7 = 2 * Bt, 2 * Bt
     calls = {
-        "hybrid_digit_relin": (lambda: mr.hybrid_digit_stage(n, pe.qs, hk.groups, x, *raw),
-                               lambda: mr.hybrid_digit_stage_plain(n, pe.qs, hk.groups, x, *raw),
+        "hybrid_digit_relin": (lambda: mr.hybrid_digit_stage(n, pe.qs, groups, x, *raw, order),
+                               lambda: mr.hybrid_digit_stage_plain(n, pe.qs, groups, x, *raw,
+                                                                   order),
                                k4_cost(2, MUL_VAR)),
         "hybrid_digit_relin_shoup": (
-            lambda: mr.hybrid_digit_stage(n, pe.qs, hk.groups, x, *shoup),
-            lambda: mr.hybrid_digit_stage_plain(n, pe.qs, hk.groups, x, *shoup),
+            lambda: mr.hybrid_digit_stage(n, pe.qs, groups, x, *shoup, order),
+            lambda: mr.hybrid_digit_stage_plain(n, pe.qs, groups, x, *shoup, order),
             k4_cost(4, MUL_CONST)),
-        "intt_grid": (lambda: rk.intt3_grid(n, pe.qs, rows5),
-                      lambda: rk.intt3_grid_plain(n, pe.qs, rows5),
-                      (4 * (2 * G5 * T * n + 2 * T * n + n),
-                       G5 * T * ((REDUCE + MUL_CONST) * n + ntt))),
-        "ntt_grid": (lambda: rk.ntt3_grid(n, keep, rows6),
-                     lambda: rk.ntt3_grid_plain(n, keep, rows6),
-                     (4 * (4 * L * n + 2 * L * n + n), 2 * L * (REDUCE * n + ntt))),
+        inv_name: (lambda: inv(n, pe.qs, rows5), lambda: inv_plain(n, pe.qs, rows5),
+                   (4 * (2 * G5 * T * n + 2 * T * n + n),
+                    G5 * T * ((REDUCE + MUL_CONST) * n + ntt))),
+        fwd_name: (lambda: fwd(n, keep, rows6), lambda: fwd_plain(n, keep, rows6),
+                   (4 * (4 * L * n + 2 * L * n + n), 2 * L * (REDUCE * n + ntt))),
         "rescale_fwd": (lambda: rk.rescale_fwd(*args7), lambda: rk.rescale_fwd_plain(*args7),
                         (4 * (G7 * (2 * L + K + 3) * n + 2 * L * n + n + L * (4 + 2 * K)),
                          G7 * L * (MUL_CONST * (K + 2) * n + ntt))),
@@ -318,16 +342,19 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
         res[name] = {"err": err, "bytes": nbytes, "muls": muls}
         if timed:
             res[name].update(ms=device_ms(kern, 20), plain_ms=device_ms(plain, 3))
-    print(f"[kernels] n=2^{log_n} L={L} dnum={hk.dnum} K={K} T={T} Bt={Bt}: kernels 4 "
-          f"(raw, Shoup), 5, 6, 7 bit-identical to plain " + fmt(res), flush=True)
+    print(f"[kernels] n=2^{log_n} L={L} dnum={hk.dnum} K={K} T={T} Bt={Bt} order={order}: "
+          f"kernels 4 (raw, Shoup), {inv_name}, {fwd_name}, 7 bit-identical to plain " + fmt(res),
+          flush=True)
     return res
 
 
-def main_path(rng, card: str, config: tuple[int, int, int], tag: str) -> dict:
+def main_path(rng, card: str, config: tuple[int, int, int], tag: str, impl: str) -> dict:
     """The port's main path, TrivGad multiply + relinearize with Shoup hints,
-    at one configuration (log2 n, L, Bt): keygen, relin_hint, encrypt,
-    mul_relin, decrypt, rescale, with the launch counters set to 0 before
-    keygen and read after the rescale."""
+    at one configuration (log2 n, L, Bt) and slot order: keygen, relin_hint,
+    encrypt, mul_relin, decrypt, rescale, with the launch counters set to 0
+    before keygen and read after the rescale."""
+    from dataclasses import replace
+
     import numpy as np
     import torch
 
@@ -335,7 +362,7 @@ def main_path(rng, card: str, config: tuple[int, int, int], tag: str) -> dict:
     from alchemy_tpu_torch.she import fast
 
     log_n, L, Bt = config
-    p = fast.FastParams.make(log_n, L, zp=2)
+    p = fast.FastParams.make(log_n, L, zp=2, impl=impl)
     setup = {}
     reset_launches()
     s, setup["keygen"] = host_ms(lambda: fast.keygen(p, rng, device="cuda"))
@@ -351,10 +378,11 @@ def main_path(rng, card: str, config: tuple[int, int, int], tag: str) -> dict:
     out = fast.mul_relin(p, ct_a, ct_b, hb, ha)
     torch.cuda.synchronize()
     check(tuple(out.shape) == (Bt, 2, L, p.n), f"mul_relin shape {tuple(out.shape)}")
-    ref = mr.digit_relin_plain(p.n, p.qs, *mr.tensor_intt_plain(p.n, p.qs, ct_a, ct_b), hb, ha)
+    ref = mr.digit_relin_plain(p.n, p.qs, *mr.tensor_intt_plain(p.n, p.qs, ct_a, ct_b, impl),
+                               hb, ha, impl)
     check(torch.equal(out, ref), "mul_relin through the kernels != plain path")
-    print(f"[{tag}] mul_relin n=2^{log_n} L={L} Bt={Bt}: bit-identical to the plain path",
-          flush=True)
+    print(f"[{tag}] mul_relin n=2^{log_n} L={L} Bt={Bt} impl={impl}: bit-identical to the plain "
+          "path", flush=True)
 
     want = [negacyclic_mod2(a, b) for a, b in zip(m1, m2)]
     dec, dec_ms = host_ms(lambda: [fast.decrypt(p, s, out[i]) for i in range(Bt)])
@@ -362,35 +390,38 @@ def main_path(rng, card: str, config: tuple[int, int, int], tag: str) -> dict:
     for i in range(Bt):
         check(np.array_equal(dec[i], want[i]), f"decrypt of product {i}")
     down, resc_ms = host_ms(lambda: fast.rescale(p, out, 1))
-    p7 = fast.FastParams(n=p.n, qs=p.qs[:-1], zp=p.zp)
+    p7 = replace(p, qs=p.qs[:-1])
     for i in range(Bt):
         check(np.array_equal(fast.decrypt(p7, s[:-1], down[i]), want[i]),
               f"decrypt of rescaled product {i}")
     torch.cuda.synchronize()
     seen = launches()
-    check(all(seen[k] > 0 for k in ("tensor_intt", "digit_relin", "intt_grid", "ntt_grid")),
-          f"kernel launches on the {tag} path: {seen}")
+    inv_name, fwd_name = grid_names(impl)
+    check(all(seen[k] > 0 for k in ("tensor_intt", "digit_relin", inv_name, fwd_name))
+          and sum(seen[k] for k in (*grid_names("mxu"), *grid_names("pallas"))) ==
+          seen[inv_name] + seen[fwd_name], f"kernel launches on the {tag} path: {seen}")
     print(f"[{tag}] {Bt} products decrypt to the negacyclic products mod 2; "
           f"rescale to L={L - 1} decrypts the same; host ms: decrypt_per_ct={dec_ms:.3f} "
           f"rescale_{Bt}ct={resc_ms:.3f}; launches {seen}", flush=True)
 
     ops, us = rate(lambda: fast.mul_relin(p, ct_a, ct_b, hb, ha), Bt, 50)
-    print(f"[perf] mul_relin n=2^{log_n} L={L} Bt={Bt}: {ops:.1f} ops/s (host clock), "
+    print(f"[perf] mul_relin n=2^{log_n} L={L} Bt={Bt} impl={impl}: {ops:.1f} ops/s (host clock), "
           f"device {us:.2f} us/ct ({us * Bt / 1000:.4f} ms/batch) on {card}", flush=True)
     return {"launches": seen, "ops_per_s": ops, "device_us_per_ct": us}
 
 
-def hybrid_path(rng, card: str) -> dict:
-    """Hybrid key-switching at the deep configuration, raw hints (as
-    bench.py runs it) then Shoup pairs, and TrivGad at the same L."""
+def hybrid_path(rng, card: str, config: tuple[int, int, int], tag: str, trivgad: bool) -> dict:
+    """Hybrid key-switching at one configuration (log2 n, L, Bt), slot order
+    "pallas": raw hints (as bench.py runs it) then Shoup pairs, and with
+    trivgad, TrivGad at the same L."""
     import numpy as np
     import torch
 
     from alchemy_tpu_torch.backend.cuda import mul_relin as mr
     from alchemy_tpu_torch.she import fast, hybrid
 
-    log_n, L, Bt = DEEP
-    hk = hybrid.HybridKS.make(fast.FastParams.make(log_n, L, zp=2))
+    log_n, L, Bt = config
+    hk = hybrid.HybridKS.make(fast.FastParams.make(log_n, L, zp=2, impl="pallas"))
     p, pe = hk.p, hk.pe
     setup = {}
     (s, (hb, ha)), setup["hybrid_keygen_hint"] = host_ms(
@@ -420,9 +451,9 @@ def hybrid_path(rng, card: str) -> dict:
     check(torch.equal(out_s, out), "mul_relin_hybrid with Shoup hints != raw hints")
     check(torch.equal(out_s, hybrid.mul_relin_hybrid_plain(hk, ct_a, ct_b, *hs)),
           "mul_relin_hybrid through the kernels != plain path (Shoup hints)")
-    print(f"[hybrid] mul_relin_hybrid Bt={Bt}: launches {seen}, bit-identical to the plain "
-          f"path (raw and Shoup hints); {Bt} products decrypt to the negacyclic products mod 2",
-          flush=True)
+    print(f"[{tag}] mul_relin_hybrid n=2^{log_n} L={L} Bt={Bt}: launches {seen}, bit-identical "
+          f"to the plain path (raw and Shoup hints); {Bt} products decrypt to the negacyclic "
+          "products mod 2", flush=True)
 
     res = {"launches": seen}
     for name, hints in (("raw", (hb, ha)), ("shoup", hs)):
@@ -438,39 +469,42 @@ def hybrid_path(rng, card: str) -> dict:
             lambda: mr.hybrid_digit_stage(p.n, pe.qs, hk.groups, x, hb, ha), 10),
         "rescale_joint": device_ms(lambda: hybrid.rescale_joint(pe, t01, len(hk.ps)), 10),
     }
-    (tb, ta), hint_ms = host_ms(lambda: fast.relin_hint(p, s, rng, shoup=True))
-    trivgad = fast.mul_relin(p, ct_a, ct_b, tb, ta)
-    check(np.array_equal(fast.decrypt(p, s, trivgad[0]), want[0]), "decrypt of TrivGad product")
-    res["trivgad"] = rate(lambda: fast.mul_relin(p, ct_a, ct_b, tb, ta), Bt, 20)
-    for name in ("raw", "shoup", "trivgad"):
+    hint_note = ""
+    if trivgad:
+        (tb, ta), hint_ms = host_ms(lambda: fast.relin_hint(p, s, rng, shoup=True))
+        product = fast.mul_relin(p, ct_a, ct_b, tb, ta)
+        check(np.array_equal(fast.decrypt(p, s, product[0]), want[0]), "decrypt of TrivGad product")
+        res["trivgad"] = rate(lambda: fast.mul_relin(p, ct_a, ct_b, tb, ta), Bt, 20)
+        hint_note = f"; TrivGad relin_hint at L={L}: {hint_ms:.1f} ms host"
+    for name in ("raw", "shoup", "trivgad")[:3 if trivgad else 2]:
         ops, us = res[name]
         print(f"[perf] {'mul_relin_hybrid ' + name if name != 'trivgad' else 'mul_relin TrivGad'}"
               f" n=2^{log_n} L={L} Bt={Bt}: {ops:.1f} ops/s (host clock), device {us:.2f} us/ct"
               f" on {card}", flush=True)
-    print("[perf] hybrid raw-hint call, device ms by stage: "
-          + " ".join(f"{k}={v:.4f}" for k, v in stages.items())
-          + f"; TrivGad relin_hint at L={L}: {hint_ms:.1f} ms host", flush=True)
+    print(f"[perf] {tag} raw-hint call n=2^{log_n}, device ms by stage: "
+          + " ".join(f"{k}={v:.4f}" for k, v in stages.items()) + hint_note, flush=True)
     return res
 
 
-def deep_path(card: str) -> dict:
+def deep_path(card: str, tag: str, impl: str) -> dict:
     """The depth-16 squaring chain at n = 2^15 (18 limbs) with hybrid
-    key-switching."""
+    key-switching, in slot order impl."""
     from alchemy_tpu_torch.examples.deep_circuit import run
 
     reset_launches()
     t0 = time.perf_counter()
-    ok, ct, level_ms = run(log_n=DEEP[0], depth=DEEP_DEPTH, ks="hybrid", device="cuda",
-                           verbose=False)
+    ok, ct, level_ms = run(log_n=DEEP[0], depth=DEEP_DEPTH, impl=impl, ks="hybrid",
+                           device="cuda", verbose=False)
     wall = time.perf_counter() - t0
     seen = launches()
-    check(ok, "deep circuit: decrypt != the squaring chain")
-    check(all(seen[k] > 0 for k in ("tensor_intt", "hybrid_digit_relin", "intt_grid",
-                                    "ntt_grid", "rescale_fwd")),
+    inv_name, fwd_name = grid_names(impl)
+    check(ok, f"deep circuit impl={impl}: decrypt != the squaring chain")
+    check(all(seen[k] > 0 for k in ("tensor_intt", "hybrid_digit_relin", inv_name, fwd_name,
+                                    "rescale_fwd")),
           f"kernel launches on the deep circuit: {seen}")
-    print(f"[deep] n=2^{DEEP[0]} depth={DEEP_DEPTH} hybrid: PASS in {wall:.2f} s (host clock) on {card};"
-          f" launches {seen}; kernel 6 (ntt_grid) launched {seen['ntt_grid']} times", flush=True)
-    print("[deep] per-level ms (hint + mul_relin_hybrid + rescale): "
+    print(f"[{tag}] deep circuit n=2^{DEEP[0]} depth={DEEP_DEPTH} hybrid impl={impl}: PASS in "
+          f"{wall:.2f} s (host clock) on {card}; launches {seen}", flush=True)
+    print(f"[{tag}] per-level ms (hint + mul_relin_hybrid + rescale): "
           + " ".join(f"{v:.1f}" for v in level_ms), flush=True)
     return {"launches": seen, "level_ms": level_ms, "wall_s": wall}
 
@@ -513,10 +547,19 @@ def main() -> int:
     big = {**kernel_phase(*N2E16, rng, timed=True), **grid_kernel_phase(*N2E16, rng, timed=True)}
     big_small = {**kernel_phase(*SMALL_N2E16, rng, timed=False),
                  **grid_kernel_phase(*SMALL_N2E16, rng, timed=False)}
-    mp = main_path(rng, card, HEADLINE, "main")
-    mp16 = main_path(rng, card, N2E16, "n2e16")
-    hy = hybrid_path(rng, card)
-    dp = deep_path(card)
+    head_grid = grid_kernel_phase(*HEADLINE, rng, timed=True)   # 5 and 6 beside 9 and 8
+    mxu_k = grid_kernel_phase(*HEADLINE, rng, timed=True, order="mxu")
+    mxu_small = {**grid_kernel_phase(*SMALL_N2E16, rng, timed=False, order="mxu"),
+                 **hybrid_kernel_phase(*SMALL_HYBRID, rng, timed=False, order="mxu")}
+    h16_k = hybrid_kernel_phase(*HYBRID16, rng, timed=True)
+    h16_small = hybrid_kernel_phase(*SMALL_HYBRID16, rng, timed=False)
+    mp = main_path(rng, card, HEADLINE, "main", "pallas")
+    mp16 = main_path(rng, card, N2E16, "n2e16", "pallas")
+    hy = hybrid_path(rng, card, DEEP, "hybrid", trivgad=True)
+    dp = deep_path(card, "deep", "pallas")
+    mx = main_path(rng, card, HEADLINE, "mxu", "mxu")
+    mxd = deep_path(card, "mxu", "mxu")
+    h16 = hybrid_path(rng, card, HYBRID16, "hybrid16", trivgad=False)
 
     def entry(name, n, replaces, source, launched, timed, *checked):
         """One kernel's line: times and bound from the timed phase's dict,
@@ -529,20 +572,25 @@ def main() -> int:
                 "library_ms": None}
 
     n15, n16 = 1 << HEADLINE[0], 1 << N2E16[0]
-    mr_tpu, rs_tpu = MUL_RELIN_TPU + ":", RESCALE_TPU + ":"
+    mr_tpu, rs_tpu, ntt_tpu = MUL_RELIN_TPU + ":", RESCALE_TPU + ":", NTT_TPU + ":"
     kernels = [
         entry("tensor_intt", n15, mr_tpu + "232", MUL_RELIN_CU, mp["launches"]["tensor_intt"],
               head["tensor_intt"], head, small),
         entry("digit_relin", n15, mr_tpu + "439", MUL_RELIN_CU, mp["launches"]["digit_relin"],
               head["digit_relin"], head, small),
         entry("hybrid_digit_relin", n15, mr_tpu + "807", MUL_RELIN_CU,
-              hy["launches"]["hybrid_digit_relin"], deep_k["hybrid_digit_relin"], deep_k, small_k),
+              hy["launches"]["hybrid_digit_relin"], deep_k["hybrid_digit_relin"], deep_k, small_k,
+              mxu_small),
         entry("intt_grid", n15, rs_tpu + "52", RESCALE_CU, hy["launches"]["intt_grid"],
-              deep_k["intt_grid"], deep_k, small_k),
+              deep_k["intt_grid"], deep_k, small_k, head_grid),
         entry("ntt_grid", n15, rs_tpu + "142", RESCALE_CU, dp["launches"]["ntt_grid"],
-              deep_k["ntt_grid"], deep_k, small_k),
+              deep_k["ntt_grid"], deep_k, small_k, head_grid),
         entry("rescale_fwd", n15, rs_tpu + "206", RESCALE_CU, hy["launches"]["rescale_fwd"],
-              deep_k["rescale_fwd"], deep_k, small_k),
+              deep_k["rescale_fwd"], deep_k, small_k, mxu_small),
+        entry("ntt2_grid", n15, ntt_tpu + "211", RESCALE_CU, mx["launches"]["ntt2_grid"],
+              mxu_k["ntt2_grid"], mxu_k, mxu_small),
+        entry("intt2_grid", n15, ntt_tpu + "232", RESCALE_CU, mx["launches"]["intt2_grid"],
+              mxu_k["intt2_grid"], mxu_k, mxu_small),
         entry("tensor_intt", n16, mr_tpu + "232", MUL_RELIN_CU, mp16["launches"]["tensor_intt"],
               big["tensor_intt"], big, big_small),
         entry("digit_relin", n16, mr_tpu + "319", MUL_RELIN_CU, mp16["launches"]["digit_relin"],
@@ -551,7 +599,15 @@ def main() -> int:
               big["intt_grid"], big, big_small),
         entry("ntt_grid", n16, rs_tpu + "142", RESCALE_CU, mp16["launches"]["ntt_grid"],
               big["ntt_grid"], big, big_small),
+        entry("hybrid_digit_relin", n16, mr_tpu + "807", MUL_RELIN_CU,
+              h16["launches"]["hybrid_digit_relin"], h16_k["hybrid_digit_relin"], h16_k, h16_small),
+        entry("rescale_fwd", n16, rs_tpu + "206", RESCALE_CU, h16["launches"]["rescale_fwd"],
+              h16_k["rescale_fwd"], h16_k, h16_small),
     ]
+    print(f"[summary] mul_relin ops/s (host clock): main {mp['ops_per_s']:.1f}, "
+          f"n2e16 {mp16['ops_per_s']:.1f}, mxu {mx['ops_per_s']:.1f}; mul_relin_hybrid raw: "
+          f"hybrid {hy['raw'][0]:.1f}, hybrid16 {h16['raw'][0]:.1f}; deep circuit s: pallas "
+          f"{dp['wall_s']:.2f}, mxu {mxd['wall_s']:.2f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

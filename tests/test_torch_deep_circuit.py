@@ -15,10 +15,10 @@ from alchemy_tpu_torch.convert import to_numpy
 from alchemy_tpu_torch.examples import deep_circuit as tdeep
 
 
-def _jax_chain(log_n, depth, ks, seed=0):
-    """`alchemy_tpu.examples.deep_circuit.run`'s loop at impl="pallas" (the
-    port's slot order), returning the final ciphertext."""
-    p = jfast.FastParams.make(log_n, depth + 2, zp=2, impl="pallas")
+def _jax_chain(log_n, depth, ks, seed=0, impl="pallas"):
+    """`alchemy_tpu.examples.deep_circuit.run`'s loop at `impl`, returning
+    the final ciphertext."""
+    p = jfast.FastParams.make(log_n, depth + 2, zp=2, impl=impl)
     rng = np.random.default_rng(seed)
     s_int = gaussian_coeffs(rng, 1.0, p.n)
 
@@ -42,9 +42,18 @@ def _jax_chain(log_n, depth, ks, seed=0):
 
 @pytest.mark.parametrize("ks", ["hybrid", "trivgad"])
 def test_deep_circuit_passes_and_matches_jax(ks):
-    ok, ct, level_ms = tdeep.run(log_n=5, depth=4, verbose=False, ks=ks, device="cpu")
+    ok, ct, level_ms = tdeep.run(log_n=5, depth=4, verbose=False, impl="pallas", ks=ks,
+                                 device="cpu")
     assert ok and len(level_ms) == 4 and ct.shape == (2, 2, 32)
     assert np.array_equal(to_numpy(ct), np.asarray(_jax_chain(5, 4, ks)))
+
+
+@pytest.mark.parametrize("ks", ["hybrid", "trivgad"])
+def test_deep_circuit_mxu_passes_and_matches_jax(ks):
+    """The default slot order (impl="mxu", n2 = 1 at n = 2^5) against the
+    JAX package's chain at impl="mxu"."""
+    ok, ct, _ = tdeep.run(log_n=5, depth=4, verbose=False, ks=ks, device="cpu")
+    assert ok and np.array_equal(to_numpy(ct), np.asarray(_jax_chain(5, 4, ks, impl="mxu")))
 
 
 def test_square_chain_oracle_matches_jax():

@@ -1,6 +1,12 @@
 """alchemy_tpu_torch.she.fast, the slice as a whole: keygen, relin_hint,
 encrypt, mul_relin and rescale bit-identical to the JAX package from the
-same seed, and the decrypt oracles (exact equality)."""
+same seed at impl="pallas" and at impl="mxu" (the default of both
+packages), and the decrypt oracles (exact equality)."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,8 +20,8 @@ from alchemy_tpu_torch.she import fast as tfast
 
 def _params(log_n, L, zp=2):
     jp = jfast.FastParams.make(log_n, L, zp=zp, impl="pallas")
-    tp = tfast.FastParams.make(log_n, L, zp=zp)
-    assert (tp.n, tp.qs, tp.zp) == (jp.n, jp.qs, jp.zp)
+    tp = tfast.FastParams.make(log_n, L, zp=zp, impl="pallas")
+    assert (tp.n, tp.qs, tp.zp, tp.impl) == (jp.n, jp.qs, jp.zp, jp.impl)
     return jp, tp
 
 
@@ -130,6 +136,81 @@ def test_mul_relin_decrypts_to_negacyclic_product(shoup):
     assert one.shape == (2, 3, tp.n)
 
 
+def _flat(h):
+    return [*h[0], *h[1]] if isinstance(h[0], (tuple, list)) else list(h)
+
+
+@pytest.mark.parametrize("shoup", [False, True], ids=["raw", "shoup"])
+def test_mxu_slice_matches_jax(shoup):
+    """impl="mxu" from one seed: keygen, relin_hint, encrypt, mul_relin,
+    decrypt and rescale equal the JAX package's (its `ntt_mxu` path)."""
+    jp = jfast.FastParams.make(10, 3, impl="mxu")
+    tp = tfast.FastParams.make(10, 3)
+    assert tp.impl == "mxu" and tp.qs == jp.qs
+    rj, rt = np.random.default_rng(40), np.random.default_rng(40)
+    sj, st = jfast.keygen(jp, rj), tfast.keygen(tp, rt, device="cpu")
+    assert _eq(sj, st)
+    hj = jfast.relin_hint(jp, sj, rj, shoup=shoup)
+    ht = tfast.relin_hint(tp, st, rt, shoup=shoup)
+    assert all(_eq(a, b) for a, b in zip(_flat(hj), _flat(ht)))
+    msgs = rj.integers(0, 2, (4, jp.n))
+    rt.integers(0, 2, (4, jp.n))
+    cj = jnp.stack([jfast.encrypt(jp, sj, m, rj) for m in msgs])
+    ct = torch.stack([tfast.encrypt(tp, st, m, rt) for m in msgs])
+    assert _eq(cj, ct)
+    ref = jfast.mul_relin(jp, cj[:2], cj[2:], *hj)
+    out = tfast.mul_relin(tp, ct[:2], ct[2:], *ht)
+    assert _eq(ref, out)
+    down_j, down_t = jfast.rescale(jp, ref, 1), tfast.rescale(tp, out, 1)
+    assert _eq(down_j, down_t)
+    jdown = jfast.FastParams(n=jp.n, qs=jp.qs[:-1], zp=2, impl="mxu")
+    tdown = tfast.FastParams(n=tp.n, qs=tp.qs[:-1], zp=2)
+    for i in range(2):
+        want = _negacyclic(msgs[i], msgs[2 + i], 2)
+        assert np.array_equal(jfast.decrypt(jp, sj, ref[i]), tfast.decrypt(tp, st, out[i]))
+        assert np.array_equal(tfast.decrypt(tp, st, out[i]), want)
+        assert np.array_equal(tfast.decrypt(tdown, st[:-1], down_t[i]), want)
+        assert np.array_equal(jfast.decrypt(jdown, sj[:-1], down_j[i]), want)
+
+
+def test_rescale_matches_jax_mxu():
+    jp = jfast.FastParams.make(11, 4, impl="mxu")
+    tp = tfast.FastParams.make(11, 4, impl="mxu")
+    rng = np.random.default_rng(11)
+    ct = np.stack([[rng.integers(0, q, jp.n) for q in jp.qs] for _ in range(2)]).astype(np.uint32)
+    assert _eq(jfast.rescale(jp, jnp.asarray(ct), 2), tfast.rescale(tp, to_torch(ct, "cpu"), 2))
+
+
+def test_impl_is_checked():
+    assert tfast.FastParams.make(10, 3, impl="pallas").impl == "pallas"
+    for impl in ("vpu", "mxu8"):
+        with pytest.raises(ValueError, match="impl"):
+            tfast.FastParams.make(10, 3, impl=impl)
+
+
+def test_default_impl_is_mxu_in_both_packages():
+    """Run where ALCHEMY_NTT_IMPL is unset (tests/conftest.py sets it for the
+    JAX package's own tests): `FastParams.make(10, 3)` has impl "mxu" in
+    both packages, and `keygen` with defaults on both sides agrees."""
+    code = (
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "import numpy as np\n"
+        "from alchemy_tpu.she import fast as jfast\n"
+        "from alchemy_tpu_torch.she import fast as tfast\n"
+        "jp, tp = jfast.FastParams.make(10, 3), tfast.FastParams.make(10, 3)\n"
+        "assert jp.impl == tp.impl == 'mxu', (jp.impl, tp.impl)\n"
+        "sj = np.asarray(jfast.keygen(jp, np.random.default_rng(0)))\n"
+        "st = tfast.keygen(tp, np.random.default_rng(0), device='cpu')\n"
+        "assert np.array_equal(sj, st.numpy().view(np.uint32))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "ALCHEMY_NTT_IMPL"}
+    env["JAX_PLATFORMS"] = "cpu"
+    res = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
 def test_decrypt_after_rescale_gives_the_message():
     """The oracle of tests/test_fast.py:75-94 on the port."""
     tp = tfast.FastParams.make(10, 3, zp=2)
@@ -141,3 +222,24 @@ def test_decrypt_after_rescale_gives_the_message():
     down = tfast.rescale(tp, ct, 1)
     p_down = tfast.FastParams(n=tp.n, qs=tp.qs[:-1], zp=tp.zp)
     assert np.array_equal(tfast.decrypt(p_down, s[:-1], down), msg % 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [14, 16])
+def test_mxu_mul_relin_on_the_card_matches_jax(log_n):
+    """TrivGad at impl="mxu" on the card (kernels 8 for the set-up, A and B
+    in the 2-factor order) against the JAX package's jnp path on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    jp = jfast.FastParams.make(log_n, 3, impl="mxu")
+    tp = tfast.FastParams.make(log_n, 3, impl="mxu")
+    rj, rt = np.random.default_rng(log_n), np.random.default_rng(log_n)
+    sj, st = jfast.keygen(jp, rj), tfast.keygen(tp, rt, device="cuda")
+    hj, ht = jfast.relin_hint(jp, sj, rj, shoup=True), tfast.relin_hint(tp, st, rt, shoup=True)
+    msgs = rj.integers(0, 2, (4, jp.n))
+    rt.integers(0, 2, (4, jp.n))
+    cj = jnp.stack([jfast.encrypt(jp, sj, m, rj) for m in msgs])
+    ct = torch.stack([tfast.encrypt(tp, st, m, rt) for m in msgs])
+    out = tfast.mul_relin(tp, ct[:2], ct[2:], *ht)
+    assert out.is_cuda and _eq(jfast.mul_relin(jp, cj[:2], cj[2:], *hj), out)
+    assert np.array_equal(tfast.decrypt(tp, st, out[0]), _negacyclic(msgs[0], msgs[2], 2))

@@ -23,10 +23,10 @@ def _eq(jax_arr, port):
     return np.array_equal(np.asarray(jax_arr), to_numpy(port))
 
 
-def _setup(log_n, L, seed, bits=24):
+def _setup(log_n, L, seed, bits=24, impl="pallas"):
     """The same chain, HybridKS, key and hint in both packages from one seed."""
-    jp = jfast.FastParams.make(log_n, L, zp=2, impl="pallas", bits=bits)
-    tp = tfast.FastParams.make(log_n, L, zp=2, bits=bits)
+    jp = jfast.FastParams.make(log_n, L, zp=2, impl=impl, bits=bits)
+    tp = tfast.FastParams.make(log_n, L, zp=2, bits=bits, impl=impl)
     jhk, thk = jhyb.HybridKS.make(jp, bits=bits), thyb.HybridKS.make(tp, bits=bits)
     rj, rt = np.random.default_rng(seed), np.random.default_rng(seed)
     sj, hj = jhyb.hybrid_keygen_hint(jhk, rj)
@@ -123,6 +123,25 @@ def test_mul_relin_hybrid_matches_jax(L, Bt, shoup):
     assert torch.equal(one, out[0])                 # a single ciphertext, no batch axis
 
 
+@pytest.mark.parametrize("shoup", [False, True], ids=["raw", "shoup"])
+def test_mul_relin_hybrid_matches_jax_mxu(shoup):
+    """impl="mxu" (the 2-factor order in kernels A, 4, 9 and 7, plain
+    versions here) against the JAX package's jnp path; uneven groups 3 + 2."""
+    jhk, thk, rj, rt, sj, st, hj, ht = _setup(10, 5, seed=50, impl="mxu")
+    assert thk.pe.impl == "mxu" and _eq(sj, st) and _eq(hj[0], ht[0]) and _eq(hj[1], ht[1])
+    msgs = rj.integers(0, 2, (2, 2, 1 << 10))
+    cts = jnp.stack([jnp.stack([jfast.encrypt(jhk.p, sj, m, rj) for m in row]) for row in msgs])
+    ref = jhyb.mul_relin_hybrid(jhk, cts[0], cts[1], *hj)
+    if shoup:
+        ht = tuple(tfast.shoup_precompute(h, thk.pe.qs) for h in ht)
+    a, b = to_torch(cts[0], "cpu"), to_torch(cts[1], "cpu")
+    out = thyb.mul_relin_hybrid(thk, a, b, *ht)
+    assert _eq(ref, out) and torch.equal(out, thyb.mul_relin_hybrid_plain(thk, a, b, *ht))
+    for i in range(2):
+        assert np.array_equal(tfast.decrypt(thk.p, st, out[i]),
+                              _negacyclic_mod2(msgs[0, i], msgs[1, i]))
+
+
 def _x_pack(x, n):
     """The port's Garner digits x [Bt, L, n] (natural order, rows
     group-major) → the Pallas kernel's x_pack [Bt, A, L·Br]:
@@ -156,6 +175,26 @@ def test_plain_kernel4_matches_pallas_kernel_interpret(monkeypatch, L):
                                             jnp.asarray(_x_pack(x, n)), *hints_j)
         out = mr.hybrid_digit_stage(n, thk.pe.qs, thk.groups, to_torch(x, "cpu"), *hints_t)
         assert out.shape == (2, Bt, len(thk.pe.qs), n) and _eq(ref, out)
+
+
+def test_plain_kernel4_matches_pallas_kernel_interpret_at_2e16(monkeypatch):
+    """n = 2^16, L = 2 (one group of 2, K = 2, T = 4): kernel 4's plain
+    version against `hybrid_digit_stage_pallas` in interpret mode, the size
+    where the CUDA kernel needs two blocks per limb."""
+    from jax.experimental import pallas as pl
+
+    import alchemy_tpu.backend.pallas.mul_relin_pallas as mrk
+
+    orig = pl.pallas_call
+    monkeypatch.setattr(mrk.pl, "pallas_call", lambda *a, **k: orig(*a, **{"interpret": True, **k}))
+    jhk, thk, rj, rt, sj, st, hj, ht = _setup(16, 2, seed=16, bits=30)
+    n = 1 << 16
+    rng = np.random.default_rng(16)
+    c2c = np.stack([rng.integers(0, q, (1, n)) for q in thk.p.qs], axis=1)
+    x = to_numpy(thyb.garner_pack(thk, to_torch(c2c, "cpu")))
+    ref = mrk.hybrid_digit_stage_pallas(n, jhk.pe.qs, jhk.groups, jnp.asarray(_x_pack(x, n)), *hj)
+    out = mr.hybrid_digit_stage(n, thk.pe.qs, thk.groups, to_torch(x, "cpu"), *ht)
+    assert out.shape == (2, 1, 4, n) and _eq(ref, out)
 
 
 def test_kernel4_constants_match_pallas():
@@ -226,3 +265,32 @@ def test_mul_relin_hybrid_on_the_card_matches_jax(monkeypatch):
     out = thyb.mul_relin_hybrid(thk, to_torch(cts[:2], "cuda"), to_torch(cts[2:], "cuda"),
                                 *(h.cuda() for h in ht))
     assert out.is_cuda and _eq(ref, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n,L,Bt,order", [(16, 5, 2, "pallas"), (16, 16, 2, "pallas"),
+                                              (15, 5, 2, "mxu")])
+def test_kernels_4_and_7_match_plain_on_the_card_split(log_n, L, Bt, order):
+    """Kernels 4 and 7 with two blocks per limb, at 2^16 and in the
+    2-factor slot order; L = 5 gives uneven groups 3 + 2, K = 3."""
+    from alchemy_tpu_torch.backend.cuda import rescale as rk
+
+    _need_card()
+    thk = thyb.HybridKS.make(tfast.FastParams.make(log_n, L, impl=order))
+    n, qs, keep, drop = 1 << log_n, thk.pe.qs, thk.p.qs, thk.ps
+    rng = np.random.default_rng(log_n + L)
+    res = lambda chain, shape: to_torch(
+        rng.integers(0, 1 << 62, shape) % np.array(chain, dtype=np.int64)[:, None], "cuda")
+    x = thyb.garner_pack(thk, res(thk.p.qs, (Bt, L, n)))
+    hb, ha = (res(qs, (thk.dnum, len(qs), n)) for _ in range(2))
+    for hints in ((hb, ha), tuple(tfast.shoup_precompute(h, qs) for h in (hb, ha))):
+        out = mr.hybrid_digit_stage(n, qs, thk.groups, x, *hints, order)
+        assert torch.equal(out, mr.hybrid_digit_stage_plain(n, qs, thk.groups, x, *hints, order))
+    coeff = res(qs, (2 * Bt, len(qs), n))
+    xs = ma.garner_digits(ma.widen(coeff[:, L:]), drop)
+    is_neg, t, t_neg = thyb._sign_terms(xs, drop, 2)
+    args = (n, keep, drop, 2, coeff, ma.narrow(torch.stack(xs, dim=1)), is_neg.to(torch.int32),
+            ma.narrow(t), t_neg.to(torch.int32), order)
+    before = rk.LAUNCHES["rescale_fwd"]
+    assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
+    assert rk.LAUNCHES["rescale_fwd"] == before + 1

@@ -213,34 +213,33 @@ def test_wrappers_check_their_inputs():
     cuda = torch.device("cuda")
     for log_n in (10, 15, 16):
         mr._kernel_device(1 << log_n, cuda)
-    mr._kernel_device(1 << 15, cuda, split=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        mr._kernel_device(1 << 16, cuda, split=False)
-    for split in (True, False):
-        with pytest.raises(NotImplementedError):
-            mr._kernel_device(1 << 17, cuda, split=split)
+    with pytest.raises(NotImplementedError, match="n ≤ 2\\^16"):
+        mr._kernel_device(1 << 17, cuda)
     with pytest.raises(ValueError):
         mr._kernel_device(1 << 15, torch.device("meta"))
+    with pytest.raises(ValueError, match="slot order"):
+        mr.tensor_intt(p.n, p.qs, good, good, order="vpu")
 
 
 class _Gate(Exception):
-    """Raised in place of a launch once the gate passed: carries whether
-    the wrapper asked for half a limb per block."""
+    """Raised in place of a launch once the gate passed: carries the ring
+    size the wrapper asked for."""
 
 
 @pytest.mark.parametrize("log_n", [15, 16, 17])
 def test_wrapper_gates_by_ring_size(monkeypatch, log_n):
     """Each wrapper's gate, reached with tensors on the meta device (no
-    memory, no card) and the gate asked as for CUDA: kernels A, B, 5 and 6
-    (half a limb per block) take 2^16; 4 and 7 refuse it; all refuse 2^17."""
+    memory, no card) and the gate asked as for CUDA: every kernel (A, B,
+    4–9, both slot orders; half a limb per block) takes 2^15 and 2^16 and
+    refuses 2^17."""
     from alchemy_tpu_torch.backend.cuda import rescale as rk
 
     real = mr._kernel_device
 
-    def gate(n, device, split=True):
+    def gate(n, device):
         assert device.type == "meta"
-        real(n, torch.device("cuda"), split)
-        raise _Gate(split)
+        real(n, torch.device("cuda"))
+        raise _Gate(n)
 
     monkeypatch.setattr(mr, "_kernel_device", gate)
     monkeypatch.setattr(rk, "_kernel_device", gate)
@@ -249,23 +248,26 @@ def test_wrapper_gates_by_ring_size(monkeypatch, log_n):
     c, h, x = z(1, 2, n), z(2, 2, n), z(1, 2, n)
     calls = {
         "A": lambda: mr.tensor_intt(n, qs, z(1, 2, 2, n), z(1, 2, 2, n)),
+        "A_mxu": lambda: mr.tensor_intt(n, qs, z(1, 2, 2, n), z(1, 2, 2, n), order="mxu"),
         "B": lambda: mr.digit_relin(n, qs, c, c, c, h, h),
         "B_shoup": lambda: mr.digit_relin(n, qs, c, c, c, (h, h), (h, h)),
         "5": lambda: rk.intt3_grid(n, qs, x),
         "6": lambda: rk.ntt3_grid(n, qs, x),
+        "8": lambda: rk.ntt2_grid(n, qs, x),
+        "9": lambda: rk.intt2_grid(n, qs, x),
         "4": lambda: mr.hybrid_digit_stage(n, qs + (7681,), ((qs[0],), (qs[1],)), x,
                                            z(2, 3, n), z(2, 3, n)),
         "7": lambda: rk.rescale_fwd(n, qs[:1], qs[1:], 2, x, z(1, 1, n), z(1, n), z(1, n),
                                     z(1, n)),
     }
     for name, call in calls.items():
-        if log_n == 17 or (log_n == 16 and name in ("4", "7")):
+        if log_n == 17:
             with pytest.raises(NotImplementedError):
                 call()
         else:
             with pytest.raises(_Gate) as got:
                 call()
-            assert got.value.args[0] == (name not in ("4", "7")), name
+            assert got.value.args[0] == n, name
 
 
 def _need_card():
@@ -301,7 +303,7 @@ def test_mul_relin_on_the_card_matches_jax(log_n):
     _need_card()
     p, hb, ha, ct_a, ct_b = _jax_state(log_n, 3, 2, shoup=True, seed=log_n)
     ref = jfast._mul_relin_jnp(p, ct_a, ct_b, hb, ha)
-    tp = tfast.FastParams(n=p.n, qs=p.qs, zp=p.zp)
+    tp = tfast.FastParams(n=p.n, qs=p.qs, zp=p.zp, impl="pallas")
     out = tfast.mul_relin(tp, to_torch(ct_a, "cuda"), to_torch(ct_b, "cuda"),
                           to_torch(tuple(map(np.asarray, hb)), "cuda"),
                           to_torch(tuple(map(np.asarray, ha)), "cuda"))

@@ -77,12 +77,39 @@ def test_rescale_joint_matches_pallas_interpret_and_jnp(interpret, log_n, L, k_d
     `rescale_joint_pallas` (kernels C and D in interpret mode) and against
     `_rescale_joint_jnp`."""
     p = jfast.FastParams.make(log_n, L, zp=2, impl="pallas")
-    tp = tfast.FastParams(n=p.n, qs=p.qs, zp=2)
+    tp = tfast.FastParams(n=p.n, qs=p.qs, zp=2, impl="pallas")
     ct = _rows(p, 2, seed=L)
     out = thyb.rescale_joint(tp, to_torch(ct, "cpu"), k_drop)
     assert out.shape == (2, L - k_drop, p.n)
     assert _eq(interpret.rescale_joint_pallas(p, jnp.asarray(ct), k_drop), out)
     assert _eq(jhyb._rescale_joint_jnp(p, jnp.asarray(ct), k_drop), out)
+
+
+def test_rescale_joint_matches_pallas_interpret_at_2e16(interpret):
+    """n = 2^16, keep L = 2, K = 2: kernels 5 → sign terms → 7 (plain
+    versions here) against `rescale_joint_pallas` in interpret mode, the size
+    where the CUDA kernel 7 needs two blocks per limb."""
+    p = jfast.FastParams.make(16, 4, zp=2, impl="pallas")
+    ct = _rows(p, 1, seed=16)
+    out = thyb.rescale_joint(tfast.FastParams(n=p.n, qs=p.qs, zp=2, impl="pallas"),
+                             to_torch(ct, "cpu"), 2)
+    assert out.shape == (1, 2, p.n) and _eq(interpret.rescale_joint_pallas(p, jnp.asarray(ct), 2), out)
+
+
+@pytest.mark.parametrize("k_drop", [1, 2])
+def test_rescale_joint_matches_jnp_mxu(k_drop):
+    """impl="mxu": kernels 9 → sign terms → 7 in the 2-factor order (plain
+    versions here) against the JAX package's `rescale_joint` (its jnp path
+    at that impl); at k_drop = 1 it equals the port's `fast.rescale`."""
+    jp = jfast.FastParams.make(10, 5, zp=2, impl="mxu")
+    tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=2)
+    ct = _rows(jp, 3, seed=k_drop)
+    out = thyb.rescale_joint(tp, to_torch(ct, "cpu"), k_drop)
+    assert out.shape == (3, 5 - k_drop, jp.n)
+    assert _eq(jhyb.rescale_joint(jp, jnp.asarray(ct), k_drop), out)
+    assert torch.equal(out, thyb._rescale_joint_plain(tp, to_torch(ct, "cpu"), k_drop))
+    if k_drop == 1:
+        assert torch.equal(out, tfast.rescale(tp, to_torch(ct, "cpu"), 1))
 
 
 def test_kernel7_constants_match_pallas(interpret):
@@ -99,7 +126,7 @@ def test_rescale_joint_matches_jnp_and_fast_rescale(k_drop):
     """On a fresh ciphertext and a batch with leading dims; at k_drop = 1
     the joint rescale equals the port's limb-by-limb `fast.rescale`."""
     jp = jfast.FastParams.make(10, 4, zp=2, impl="pallas")
-    tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=2)
+    tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=2, impl="pallas")
     rng = np.random.default_rng(k_drop)
     s = tfast.keygen(tp, rng, device="cpu")
     msgs = rng.integers(0, 2, (2, 3, tp.n))
@@ -108,17 +135,18 @@ def test_rescale_joint_matches_jnp_and_fast_rescale(k_drop):
     assert out.shape == (2, 3, 2, 4 - k_drop, tp.n)
     assert _eq(jhyb._rescale_joint_jnp(jp, jnp.asarray(to_numpy(ct)), k_drop), out)
     assert torch.equal(out, thyb._rescale_joint_plain(tp, ct, k_drop))
-    down = tfast.FastParams(n=tp.n, qs=tp.qs[:-k_drop], zp=2)
+    down = tfast.FastParams(n=tp.n, qs=tp.qs[:-k_drop], zp=2, impl="pallas")
     assert np.array_equal(tfast.decrypt(down, s[:-k_drop], out[1, 2]), msgs[1, 2])
     if k_drop == 1:
         assert torch.equal(out, tfast.rescale(tp, ct, 1))
     with pytest.raises(ValueError):
-        thyb.rescale_joint(tfast.FastParams(n=tp.n, qs=tp.qs, zp=1 << 17), ct, k_drop)
+        thyb.rescale_joint(tfast.FastParams(n=tp.n, qs=tp.qs, zp=1 << 17, impl="pallas"), ct,
+                           k_drop)
 
 
 def test_ntt_p_intt_p_match_jax():
     jp = jfast.FastParams.make(10, 3, impl="pallas")
-    tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=jp.zp)
+    tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=jp.zp, impl="pallas")
     x = _rows(jp, 4, seed=5).reshape(2, 2, 3, jp.n)            # leading dims fold through
     y = tfast._ntt_p(tp, to_torch(x, "cpu"))
     assert y.shape == x.shape and _eq(jfast._ntt_p(jp, jnp.asarray(x)), y)
@@ -163,7 +191,7 @@ def _need_card():
 @pytest.mark.parametrize("log_n,L,G", [(14, 5, 3), (15, 20, 2)])
 def test_kernels_5_6_7_match_plain_on_the_card(log_n, L, G):
     _need_card()
-    p = tfast.FastParams.make(log_n, L)
+    p = tfast.FastParams.make(log_n, L, impl="pallas")
     x = to_torch(_rows(p, G, seed=log_n, hi=1 << 32), "cuda")
     before = dict(rk.LAUNCHES)
     assert torch.equal(rk.ntt3_grid(p.n, p.qs, x), rk.ntt3_grid_plain(p.n, p.qs, x))
@@ -172,7 +200,7 @@ def test_kernels_5_6_7_match_plain_on_the_card(log_n, L, G):
     for k_drop in (1, 4):
         assert torch.equal(thyb.rescale_joint(p, ct, k_drop),
                            thyb._rescale_joint_plain(p, ct, k_drop))
-    assert rk.LAUNCHES == {"intt_grid": before["intt_grid"] + 3,
+    assert rk.LAUNCHES == {**before, "intt_grid": before["intt_grid"] + 3,
                            "ntt_grid": before["ntt_grid"] + 1,
                            "rescale_fwd": before["rescale_fwd"] + 2}
 
@@ -195,5 +223,6 @@ def test_rescale_joint_on_the_card_matches_jax():
     _need_card()
     jp = jfast.FastParams.make(14, 6, zp=2, impl="pallas")
     ct = _rows(jp, 2, seed=3)
-    out = thyb.rescale_joint(tfast.FastParams(n=jp.n, qs=jp.qs, zp=2), to_torch(ct, "cuda"), 2)
+    out = thyb.rescale_joint(tfast.FastParams(n=jp.n, qs=jp.qs, zp=2, impl="pallas"),
+                             to_torch(ct, "cuda"), 2)
     assert out.is_cuda and _eq(jhyb._rescale_joint_jnp(jp, jnp.asarray(ct), 2), out)
