@@ -126,13 +126,14 @@ __device__ __forceinline__ void ntt_inverse(uint32_t* a, int log_n,
 // into the load from device memory: block `part` keeps x_j + w*x_{j + n/2}
 // (part 0) or x_j - w*x_{j + n/2} (part 1) in a[j], j < n/2, with w the
 // stage's one twiddle and x_i = elem(load, i), any uint32. load is the row
-// in device memory (kernels B, 6, 8) or a callable that returns the
-// kernel's prologue for coefficient i (kernel 4's base extension, kernel
-// 7's correction and division by P), which each block then computes for the
-// whole row. Both blocks read all of the row (the second read comes from
-// L2), so no block needs the other's shared memory. The caller synchronises
-// after it. (A plain pointer keeps B's register count: read through a
-// callable, B spilled under its 32-register cap.)
+// in device memory (kernels 6 and 8; B in its register-blocked first pass)
+// or a callable that returns the kernel's prologue for coefficient i (kernel
+// 7's correction and division by P; kernel 4's base extension), which each
+// block then computes for the whole row. Both blocks read all of the row
+// (the second read comes from L2), so no block needs the other's shared
+// memory. The caller synchronises after it. (A plain pointer keeps the
+// register count of 6 and 8: read through a callable, B once spilled under
+// a 32-register cap.)
 __device__ __forceinline__ uint32_t elem(const uint32_t* __restrict__ x, int i) { return x[i]; }
 template <typename F>
 __device__ __forceinline__ uint32_t elem(const F& f, int i) { return f(i); }
@@ -151,6 +152,221 @@ __device__ __forceinline__ void forward_first_stage(uint32_t* a, Load load, int 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The register-blocked forward NTT of kernels B and 4 (a limb split over two
+// blocks, as above; the other kernels keep ntt_forward). Each thread holds
+// R = 2^RL words of its half in registers and runs RL butterfly stages on
+// them with no barrier between: a pass. One exchange through shared memory
+// and one __syncthreads separate passes, so with passes of up to 4 stages a
+// half of 2^14 words (n = 2^15) takes passes of 4, 4, 4 and 2 stages
+// instead of 14 barrier-separated ones, and 2^15 words 4, 4, 4, 3. The
+// widest pass (kMaxRL) is each launch shape's (mul_relin.cu Shape): the
+// values, twiddles and loads in flight of a pass must fit the registers.
+//
+// A pass whose stages have local strides 2^(lo_b + RL - 1) ... 2^lo_b gives
+// group g = hi*2^lo_b + lo (lo < 2^lo_b) the words
+// j = hi*2^(lo_b + RL) + r*2^lo_b + lo, r < R; its stage u (u < RL) pairs r
+// with r + R/2^(u+1) under the twiddle
+// m + part*m/2 + (hi << u) + (r >> (RL - u)), m = 2^(log_n - 1 - log_t) the
+// stage's groups in the whole transform: 2^u (value, companion) pairs,
+// read once per group. Shared memory holds the half with one spare word
+// after every 32 (pad): a pass whose groups are contiguous (lo_b = 0) then
+// stores, and the slot-order gather of the hint loops loads, without bank
+// conflicts. tests/test_torch_mul_relin.py emulates this schedule in numpy.
+
+// Shared-memory position of word j of a half, and the words of the padded half.
+__device__ __forceinline__ int pad(int j) { return j + (j >> 5); }
+__host__ __device__ constexpr int padded_words(int half) { return half + (half >> 5); }
+
+// kCount consecutive words from p, a multiple of kCount words into a 16-byte
+// aligned table, in accesses of up to 16 bytes.
+template <int kCount>
+__device__ __forceinline__ void load_words(uint32_t (&d)[kCount], const uint32_t* __restrict__ p) {
+  if constexpr (kCount >= 4) {
+#pragma unroll
+    for (int i = 0; i < kCount / 4; ++i) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      d[4 * i] = v.x, d[4 * i + 1] = v.y, d[4 * i + 2] = v.z, d[4 * i + 3] = v.w;
+    }
+  } else if constexpr (kCount == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    d[0] = v.x, d[1] = v.y;
+  } else {
+    d[0] = __ldg(p);
+  }
+}
+
+// Stage u of a pass: r pairs with r + R/2^(u+1) under twiddle
+// w0 + (r >> (RL - u)), w0 = m + part*m/2 + (hi << u) a multiple of 2^u, so
+// the stage's 2^u (value, companion) pairs are two aligned runs of the
+// tables, read 4 pairs at a time.
+template <int RL, int U>
+__device__ __forceinline__ void pass_stage(uint32_t (&v)[1 << RL], int log_n, int part, int lo_b,
+                                           int hi, const uint32_t* __restrict__ tw,
+                                           const uint32_t* __restrict__ tws, uint32_t q) {
+  constexpr int kTw = 1 << U, kChunk = kTw < 4 ? kTw : 4, t = (1 << RL) >> (U + 1);
+  const int m = 1 << (log_n - lo_b - RL + U);   // log_t = lo_b + RL - 1 - U
+  const int w0 = m + part * (m >> 1) + (hi << U);
+#pragma unroll
+  for (int c0 = 0; c0 < kTw; c0 += kChunk) {
+    uint32_t w[kChunk], ws[kChunk];
+    load_words<kChunk>(w, tw + w0 + c0);
+    load_words<kChunk>(ws, tws + w0 + c0);
+#pragma unroll
+    for (int blk = 0; blk < kChunk; ++blk) {
+#pragma unroll
+      for (int c = 0; c < t; ++c) {
+        const int r = 2 * t * (c0 + blk) + c;
+        const uint32_t a = v[r];
+        const uint32_t b = mulmod_shoup(v[r + t], w[blk], ws[blk], q);
+        v[r] = add_mod(a, b, q);
+        v[r + t] = sub_mod(a, b, q);
+      }
+    }
+  }
+}
+
+template <int RL>
+__device__ __forceinline__ void pass_butterflies(uint32_t (&v)[1 << RL], int log_n, int part,
+                                                 int lo_b, int hi,
+                                                 const uint32_t* __restrict__ tw,
+                                                 const uint32_t* __restrict__ tws, uint32_t q) {
+  pass_stage<RL, 0>(v, log_n, part, lo_b, hi, tw, tws, q);
+  if constexpr (RL > 1) pass_stage<RL, 1>(v, log_n, part, lo_b, hi, tw, tws, q);
+  if constexpr (RL > 2) pass_stage<RL, 2>(v, log_n, part, lo_b, hi, tw, tws, q);
+  if constexpr (RL > 3) pass_stage<RL, 3>(v, log_n, part, lo_b, hi, tw, tws, q);
+  static_assert(RL <= 4, "passes of up to 4 stages");
+}
+
+// The two halves of a cluster barrier: arrive (release) after this thread's
+// last read of the partner's shared memory, wait (acquire) before writing
+// what the partner may still be reading. Every thread of both blocks
+// arrives, then waits, once per barrier.
+__device__ __forceinline__ void cluster_arrive() {
+  cooperative_groups::this_cluster().barrier_arrive();
+}
+__device__ __forceinline__ void cluster_wait() {
+  cooperative_groups::this_cluster().barrier_wait();
+}
+
+// Where a pass takes its words: shared memory (rewritten in place: each
+// group's words are its own thread's); device memory, with the stage that
+// crosses the halves fused into the load as in forward_first_stage
+// (x_i = elem(load, i), any uint32); or the pair of shared halves of a
+// cluster of two (ntt_forward_pair below), with that stage done in the read.
+enum PassFrom { kFromShared, kFromLoad, kFromPair };
+
+// One pass over the groups of the half (group g on thread g mod blockDim,
+// hi = g >> lo_b; the first pass has hi = 0). kFromPair: both blocks of the
+// cluster read both halves, so every thread runs the same number of groups
+// and the stores wait for a cluster barrier after the reads.
+template <int RL, int kFrom, typename Load>
+__device__ __forceinline__ void forward_pass(uint32_t* a, Load load, int log_n, int part, int lo_b,
+                                             const uint32_t* __restrict__ tw,
+                                             const uint32_t* __restrict__ tws, const Limb& k) {
+  const int half = 1 << (log_n - 1), groups = half >> RL;
+  const int bd = static_cast<int>(blockDim.x);
+  const int end = kFrom == kFromPair ? (groups + bd - 1) / bd * bd : groups;
+  const uint32_t* other = a;
+  if constexpr (kFrom == kFromPair) {
+    other = cooperative_groups::this_cluster().map_shared_rank(a, static_cast<unsigned>(part ^ 1));
+  }
+  for (int g = threadIdx.x; g < end; g += bd) {
+    const bool active = g < groups;
+    const int hi = g >> lo_b;
+    const int base = (hi << (lo_b + RL)) | (g & ((1 << lo_b) - 1));
+    uint32_t v[1 << RL];
+    if (active) {
+      if constexpr (kFrom == kFromLoad) {
+        const uint32_t w = __ldg(tw + 1), ws = __ldg(tws + 1);
+#pragma unroll
+        for (int r = 0; r < (1 << RL); ++r) {
+          const int j = base + (r << lo_b);
+          const uint32_t x = reduce(elem(load, j), k);
+          const uint32_t y = mulmod_shoup(elem(load, j + half), w, ws, k.q);
+          v[r] = part ? sub_mod(x, y, k.q) : add_mod(x, y, k.q);
+        }
+      } else if constexpr (kFrom == kFromPair) {
+        // half 0 holds x_j, half 1 w*x_{j + n/2} (forward_pair)
+#pragma unroll
+        for (int r = 0; r < (1 << RL); ++r) {
+          const int j = pad(base + (r << lo_b));
+          v[r] = part ? sub_mod(other[j], a[j], k.q) : add_mod(a[j], other[j], k.q);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < (1 << RL); ++r) v[r] = a[pad(base + (r << lo_b))];
+      }
+    }
+    if constexpr (kFrom == kFromPair) cluster_arrive();  // done reading the partner's half
+    if (active) pass_butterflies<RL>(v, log_n, part, lo_b, hi, tw, tws, k.q);
+    if constexpr (kFrom == kFromPair) cluster_wait();    // the partner is done reading ours
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < (1 << RL); ++r) a[pad(base + (r << lo_b))] = v[r];
+    }
+  }
+}
+
+// forward_pass<rl, kFrom> for a runtime rl in [1, RL].
+template <int RL, int kFrom, typename Load>
+__device__ __forceinline__ void forward_pass_of(int rl, uint32_t* a, Load load, int log_n,
+                                                int part, int lo_b,
+                                                const uint32_t* __restrict__ tw,
+                                                const uint32_t* __restrict__ tws, const Limb& k) {
+  if constexpr (RL > 1) {
+    if (rl < RL) {
+      forward_pass_of<RL - 1, kFrom>(rl, a, load, log_n, part, lo_b, tw, tws, k);
+      return;
+    }
+  }
+  forward_pass<RL, kFrom>(a, load, log_n, part, lo_b, tw, tws, k);
+}
+
+// The forward NTT of half `part` of a split limb, register-blocked: a first
+// pass of kFirstRL stages, which takes the words from `load` (kFromLoad) or
+// from the cluster's two halves (kFromPair), then passes of kMaxRL stages
+// from shared memory, the last one shorter (n >= 4). Leaves the padded half
+// in a (word j at pad(j)) in the bit-reversed order of ntt_forward; every
+// thread calls it, and it returns synchronised. The caller synchronises
+// before it if a is still being read.
+template <int kMaxRL, int kFirstRL, int kFrom = kFromLoad, typename Load>
+__device__ __forceinline__ void ntt_forward_passes(uint32_t* a, Load load, int log_n, int part,
+                                                   const uint32_t* __restrict__ tw,
+                                                   const uint32_t* __restrict__ tws,
+                                                   const Limb& k) {
+  const int log_h = log_n - 1;
+  int lo_b = log_h > kFirstRL ? log_h - kFirstRL : 0;
+  forward_pass_of<kFirstRL, kFrom>(log_h - lo_b, a, load, log_n, part, lo_b, tw, tws, k);
+  __syncthreads();
+  while (lo_b > 0) {
+    const int rl = lo_b > kMaxRL ? kMaxRL : lo_b;
+    lo_b -= rl;
+    forward_pass_of<kMaxRL, kFromShared>(rl, a, load, log_n, part, lo_b, tw, tws, k);
+    __syncthreads();
+  }
+}
+
+// ntt_forward_passes for the two blocks of a cluster (rank = part), when the
+// load is dear (kernel 4's base extension): each block evaluates the load
+// only on its own half, x_j in half 0 and w*x_{j + n/2} in half 1 (w the
+// cross-half stage's twiddle), and the first pass reads the partner's half
+// through distributed shared memory. The caller synchronises before it if a
+// is still being read.
+template <int kMaxRL, int kFirstRL, typename Load>
+__device__ __forceinline__ void ntt_forward_pair(uint32_t* a, Load load, int log_n, int part,
+                                                 const uint32_t* __restrict__ tw,
+                                                 const uint32_t* __restrict__ tws,
+                                                 const Limb& k) {
+  const int half = 1 << (log_n - 1);
+  const uint32_t w = __ldg(tw + 1), ws = __ldg(tws + 1);
+  for (int j = threadIdx.x; j < half; j += blockDim.x) {
+    const uint32_t x = elem(load, part * half + j);
+    a[pad(j)] = part ? mulmod_shoup(x, w, ws, k.q) : reduce(x, k);
+  }
+  cooperative_groups::this_cluster().sync();
+  ntt_forward_passes<kMaxRL, kFirstRL, kFromPair>(a, load, log_n, part, tw, tws, k);
+}
 
 // The last stage of ntt_inverse for a limb split over a thread block cluster
 // of two (block `part` of the pair holds half `part`, after ntt_inverse with
@@ -179,17 +395,15 @@ __device__ __forceinline__ void inverse_last_stage(uint32_t* a, uint32_t* __rest
 }
 
 // Launches a kernel that keeps half of one limb in shared memory, two blocks
-// per limb along x (n/2 words opted in as dynamic shared memory; n/4
-// threads up to 1024, one butterfly each per stage), on `stream`: every
-// kernel, at every n. With cluster, each pair of blocks along x is a
-// thread block cluster of two, for the kernels whose last stage crosses the
-// halves. Returns a cudaError_t (0 on success): a refused launch or cluster
-// shape is an error, never a fallback.
+// per limb along x, on `stream`, with `threads` a block and `smem_words`
+// words opted in as dynamic shared memory. With cluster, each pair of
+// blocks along x is a thread block cluster of two, for the kernels whose
+// last stage crosses the halves. Returns a cudaError_t (0 on success): a
+// refused launch or cluster shape is an error, never a fallback.
 template <typename... Params, typename... Args>
-int launch_split(void (*kernel)(Params...), dim3 grid, bool cluster, int log_n, void* stream,
-                 Args... args) {
-  const int n = 1 << log_n;
-  const size_t smem = static_cast<size_t>(n / 2) * sizeof(uint32_t);
+int launch_halves(void (*kernel)(Params...), dim3 grid, int threads, int smem_words,
+                  bool cluster, void* stream, Args... args) {
+  const size_t smem = static_cast<size_t>(smem_words) * sizeof(uint32_t);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -200,7 +414,7 @@ int launch_split(void (*kernel)(Params...), dim3 grid, bool cluster, int log_n, 
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(n / 4 < 1024 ? n / 4 : 1024);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
@@ -208,6 +422,17 @@ int launch_split(void (*kernel)(Params...), dim3 grid, bool cluster, int log_n, 
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_halves for the kernels on ntt_forward/ntt_inverse (A, 5-9): n/2
+// words of shared memory, n/4 threads up to 1024, one butterfly each per
+// stage.
+template <typename... Params, typename... Args>
+int launch_split(void (*kernel)(Params...), dim3 grid, bool cluster, int log_n, void* stream,
+                 Args... args) {
+  const int n = 1 << log_n;
+  return launch_halves(kernel, grid, n / 4 < 1024 ? n / 4 : 1024, n / 2, cluster, stream,
+                       args...);
 }
 
 }  // namespace zq

@@ -23,7 +23,9 @@ raw hints or Shoup pairs; c0 and c1 join after the rescale by P.
 On the H100 every kernel (and 5–9 in `rescale.py`) runs two blocks per
 (limb, row), each with half of the limb's n words in shared memory (64 KB
 at n = 2^15, 128 KB at 2^16, where a whole limb of 256 KB exceeds the
-227 KB a block can have); they take n ≤ 2^16. The kernels work in the
+227 KB a block can have); they take n ≤ 2^16. B and 4 run the
+register-blocked forward NTT of `csrc/zq.cuh` and read each block's slots
+in slot order through `slot_own`. The kernels work in the
 bit-reversed order of a radix-2 NTT; `kernel_tables` maps it to the slot
 order at their boundaries, which is the `order` argument of every wrapper:
 "pallas", the 3-factor order of `backend/ntt3.py`, or "mxu", the 2-factor
@@ -122,11 +124,18 @@ def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
     """Host tables of the kernels (numpy):
 
     - `slot_ct`, `slot_inv` [n] int32: `slot_tables(n, order)`;
+    - `slot_own` [n] int32, kernels B and 4: for each half h, the slots it
+      owns (those of slot_inv[h·n/2 : (h+1)·n/2]) in slot order, each
+      packed with its radix-2 index in the half: s | (slot_ct[s] − h·n/2) << 16
+      (n ≤ 2^16);
     - `fwd`, `inv` [L, 2, n] uint32: ψ^{±bitrev(k)} and Shoup companions;
     - `limbs` [L, 8] uint32: q, n⁻¹, its companion, ⌊2^32/q⌋ and the two
       words of ⌊2^64/q⌋ (zq.cuh `Limb`).
     """
     slot_ct, slot_inv = slot_tables(n, order)
+    own = np.sort(slot_inv.reshape(2, n // 2).astype(np.int64), axis=1)
+    local = slot_ct[own] - np.arange(2)[:, None] * (n // 2)
+    slot_own = (own | local << 16).reshape(n).astype(np.int32)
     br = _bitrev(np.arange(n, dtype=np.int64), n.bit_length() - 1)
     L = len(qs)
     fwd = np.empty((L, 2, n), dtype=np.uint32)
@@ -140,12 +149,14 @@ def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
         barrett = (1 << 64) // q
         limbs[li, :6] = (q, n_inv, shoup_const(n_inv, q), (1 << 32) // q,
                          barrett & 0xFFFFFFFF, barrett >> 32)
-    return {"slot_ct": slot_ct, "slot_inv": slot_inv, "fwd": fwd, "inv": inv, "limbs": limbs}
+    return {"slot_ct": slot_ct, "slot_inv": slot_inv, "slot_own": slot_own, "fwd": fwd,
+            "inv": inv, "limbs": limbs}
 
 
 @lru_cache(maxsize=None)
 def _device_tables(n: int, qs: tuple[int, ...], order: str, device: str) -> dict:
-    """The tables the kernels read (`limbs`, `fwd`, `inv`, `slot_inv`) on `device`."""
+    """The tables the kernels read (`limbs`, `fwd`, `inv`, `slot_inv`, `slot_own`) on
+    `device`."""
     return {k: torch.from_numpy(v.view(np.int32)).to(device)
             for k, v in kernel_tables(n, qs, order).items() if k != "slot_ct"}
 
@@ -272,6 +283,15 @@ def tensor_intt(n: int, qs: tuple[int, ...], ct_a: torch.Tensor,
     return c0, c1, c2c
 
 
+def _aligned(*tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary: kernels B and 4
+    read hint and sum rows 16 bytes at a time."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"tensor at {t.data_ptr():#x}: kernels B and 4 want 16-byte "
+                             "aligned rows (a fresh tensor is)")
+
+
 def _hint_list(hint_b, hint_a, shape: tuple, device: torch.device) -> tuple[bool, list]:
     """(shoup, [hb, hbs, ha, has]) with None for the companions of raw
     hints, each checked against `shape`."""
@@ -299,13 +319,14 @@ def digit_relin(n: int, qs: tuple[int, ...], c0: torch.Tensor, c1: torch.Tensor,
     if dev.type == "cpu":
         return digit_relin_plain(n, qs, c0, c1, c2c, hint_b, hint_a, order)
     _kernel_device(n, dev)
+    _aligned(c0, c1, *hints)
     t = _device_tables(n, qs, order, str(dev))
     out = torch.empty((Bt, 2, L, n), dtype=torch.int32, device=dev)
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(lib.digit_relin(
         c2c.data_ptr(), c0.data_ptr(), c1.data_ptr(), *map(_ptr, hints), out.data_ptr(),
-        t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_inv"].data_ptr(), int(shoup), Bt,
+        t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_own"].data_ptr(), int(shoup), Bt,
         L, n.bit_length() - 1, stream), "digit_relin")
     LAUNCHES["digit_relin"] += 1
     return out
@@ -341,13 +362,14 @@ def hybrid_digit_stage(n: int, ext_qs: tuple[int, ...], groups, x: torch.Tensor,
     if dev.type == "cpu":
         return hybrid_digit_stage_plain(n, ext_qs, groups, x, hint_b, hint_a, order)
     _kernel_device(n, dev)
+    _aligned(*hints)
     t = _device_tables(n, ext_qs, order, str(dev))
     out = torch.empty((2, Bt, T, n), dtype=torch.int32, device=dev)
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(lib.hybrid_digit_relin(
         x.data_ptr(), _device_ext(groups, ext_qs, str(dev)).data_ptr(), *map(_ptr, hints),
-        out.data_ptr(), t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_inv"].data_ptr(),
+        out.data_ptr(), t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_own"].data_ptr(),
         int(shoup), Bt, L, T, dnum, alpha, n.bit_length() - 1, stream), "hybrid_digit_relin")
     LAUNCHES["hybrid_digit_relin"] += 1
     return out

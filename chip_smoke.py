@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (alchemy_tpu_torch) on one GPU.
 
 Builds the CUDA kernels from the sources in the checkout and holds each
-against its plain PyTorch version on the card: A (tensor_intt), B
-(digit_relin, Shoup and raw hints), 4 (hybrid_digit_relin, raw and Shoup),
-5 (intt_grid), 6 (ntt_grid) and 7 (rescale_fwd) at n = 2^15; 8 (ntt2_grid)
+against its plain PyTorch version on the card: A (tensor_intt) and B
+(digit_relin, Shoup and raw hints) at n = 2^15 in both slot orders, 4
+(hybrid_digit_relin, raw and Shoup), 5 (intt_grid), 6 (ntt_grid) and 7
+(rescale_fwd) at n = 2^15; 8 (ntt2_grid)
 and 9 (intt2_grid), the standalone transforms of the 2-factor slot order
 (impl="mxu"), at n = 2^15 and 2^16, with 4 and 7 in that order; A, B, 4, 5,
 6 and 7 again at n = 2^16. Every kernel splits a limb over two blocks. Then
@@ -32,8 +33,8 @@ The first four run at impl="pallas", the 3-factor slot order.
 
 Every check is exact equality. Any failure exits non-zero; the last line of
 a passing run is one JSON object naming the device. The line before the
-card's name lists every kernel with its launches on the paths, device and
-plain ms, and its bound: the larger of its bytes (each input read once,
+card's name lists every kernel with its ring size, slot order, launches on
+the paths, device and plain ms, and its bound: the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its 32-bit integer multiplies
 over 132 SMs x 64 per clock at the card's maximum SM clock.
 
@@ -163,10 +164,10 @@ def random_residues(rng, qs, shape):
     return torch.from_numpy((rng.integers(0, 1 << 62, shape) % q).astype(np.int32))
 
 
-def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
+def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool, order: str = "pallas") -> dict:
     """Kernels A and B against their plain versions on random canonical
-    inputs at one shape; returns, per kernel, the error, device times and
-    the bytes and multiplies of its bound."""
+    inputs at one shape and slot order; returns, per kernel, the error,
+    device times and the bytes and multiplies of its bound."""
     import torch
 
     from alchemy_tpu_torch.backend.cuda import mul_relin as mr
@@ -178,20 +179,21 @@ def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
     ct_b = random_residues(rng, qs, (Bt, 2, L, n)).cuda()
     hints = [fast.shoup_precompute(random_residues(rng, qs, (L, L, n)).cuda(), qs)
              for _ in range(2)]
-    ka = mr.tensor_intt(n, qs, ct_a, ct_b)
+    ka = mr.tensor_intt(n, qs, ct_a, ct_b, order)
     torch.cuda.synchronize()
-    pa = mr.tensor_intt_plain(n, qs, ct_a, ct_b)
+    pa = mr.tensor_intt_plain(n, qs, ct_a, ct_b, order)
     torch.cuda.synchronize()
     err_a = max(max_abs_err(x, y) for x, y in zip(ka, pa))
     check(err_a == 0, f"kernel A != plain at n=2^{log_n} L={L} Bt={Bt} (max abs err {err_a})")
-    kb = mr.digit_relin(n, qs, *ka, *hints)
+    kb = mr.digit_relin(n, qs, *ka, *hints, order)
     torch.cuda.synchronize()
-    pb = mr.digit_relin_plain(n, qs, *ka, *hints)
+    pb = mr.digit_relin_plain(n, qs, *ka, *hints, order)
     torch.cuda.synchronize()
     raw = [h[0] for h in hints]
-    kr = mr.digit_relin(n, qs, *ka, *raw)
+    kr = mr.digit_relin(n, qs, *ka, *raw, order)
     torch.cuda.synchronize()
-    err_b = max(max_abs_err(kb, pb), max_abs_err(kr, mr.digit_relin_plain(n, qs, *ka, *raw)))
+    err_b = max(max_abs_err(kb, pb),
+                max_abs_err(kr, mr.digit_relin_plain(n, qs, *ka, *raw, order)))
     check(err_b == 0, f"kernel B != plain at n=2^{log_n} L={L} Bt={Bt} (max abs err {err_b})")
     tables = 4 * (2 * L * n + n)              # twiddles and companions, slot map
     res = {
@@ -207,14 +209,16 @@ def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool) -> dict:
         res[name].update(bytes=4 * (5 * Bt * L * n + hint_words * L * L * n) + tables,
                          muls=Bt * L * L * ((REDUCE + 2 * hint_mul) * n + ntt_muls(n)))
     if timed:
-        res["tensor_intt"].update(ms=device_ms(lambda: mr.tensor_intt(n, qs, ct_a, ct_b), 20),
-                                  plain_ms=device_ms(lambda: mr.tensor_intt_plain(n, qs, ct_a, ct_b), 3))
-        res["digit_relin"].update(ms=device_ms(lambda: mr.digit_relin(n, qs, *ka, *hints), 20),
-                                  plain_ms=device_ms(lambda: mr.digit_relin_plain(n, qs, *ka, *hints), 3))
-        res["digit_relin_raw"].update(ms=device_ms(lambda: mr.digit_relin(n, qs, *ka, *raw), 20),
-                                      plain_ms=device_ms(lambda: mr.digit_relin_plain(n, qs, *ka, *raw), 3))
-    print(f"[kernels] n=2^{log_n} L={L} Bt={Bt}: A and B (Shoup and raw hints) bit-identical to plain "
-          + fmt(res), flush=True)
+        a_args, b_args, r_args = (n, qs, ct_a, ct_b, order), (n, qs, *ka, *hints, order), \
+            (n, qs, *ka, *raw, order)
+        res["tensor_intt"].update(ms=device_ms(lambda: mr.tensor_intt(*a_args), 20),
+                                  plain_ms=device_ms(lambda: mr.tensor_intt_plain(*a_args), 3))
+        res["digit_relin"].update(ms=device_ms(lambda: mr.digit_relin(*b_args), 20),
+                                  plain_ms=device_ms(lambda: mr.digit_relin_plain(*b_args), 3))
+        res["digit_relin_raw"].update(ms=device_ms(lambda: mr.digit_relin(*r_args), 20),
+                                      plain_ms=device_ms(lambda: mr.digit_relin_plain(*r_args), 3))
+    print(f"[kernels] n=2^{log_n} L={L} Bt={Bt} order={order}: A and B (Shoup and raw hints) "
+          "bit-identical to plain " + fmt(res), flush=True)
     return res
 
 
@@ -541,6 +545,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     head = kernel_phase(*HEADLINE, rng, timed=True)
+    head_mxu = kernel_phase(*HEADLINE, rng, timed=True, order="mxu")   # A and B in the 2-factor order
     small = kernel_phase(*SMALL, rng, timed=False)
     deep_k = hybrid_kernel_phase(*DEEP, rng, timed=True)
     small_k = hybrid_kernel_phase(*SMALL_HYBRID, rng, timed=False)
@@ -561,15 +566,16 @@ def main() -> int:
     mxd = deep_path(card, "mxu", "mxu")
     h16 = hybrid_path(rng, card, HYBRID16, "hybrid16", trivgad=False)
 
-    def entry(name, n, replaces, source, launched, timed, *checked):
-        """One kernel's line: times and bound from the timed phase's dict,
-        the largest error over every phase that checked it."""
+    def entry(name, n, replaces, source, launched, timed, *checked, order="pallas"):
+        """One kernel's line at one slot order: times and bound from the
+        timed phase's dict, the largest error over every phase that checked
+        it."""
         ms_bound, by = bound(timed["bytes"], timed["muls"], clock_hz)
         errs = [r[k]["err"] for r in checked for k in r if k.startswith(name)]
-        return {"name": name, "n": n, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launched, "max_abs_err": max(errs), "ms": timed["ms"],
-                "plain_ms": timed["plain_ms"], "bound_ms": ms_bound, "bound_by": by,
-                "library_ms": None}
+        return {"name": name, "n": n, "order": order, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launched, "max_abs_err": max(errs),
+                "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": ms_bound,
+                "bound_by": by, "library_ms": None}
 
     n15, n16 = 1 << HEADLINE[0], 1 << N2E16[0]
     mr_tpu, rs_tpu, ntt_tpu = MUL_RELIN_TPU + ":", RESCALE_TPU + ":", NTT_TPU + ":"
@@ -578,6 +584,8 @@ def main() -> int:
               head["tensor_intt"], head, small),
         entry("digit_relin", n15, mr_tpu + "439", MUL_RELIN_CU, mp["launches"]["digit_relin"],
               head["digit_relin"], head, small),
+        entry("digit_relin", n15, mr_tpu + "439", MUL_RELIN_CU, mx["launches"]["digit_relin"],
+              head_mxu["digit_relin"], head_mxu, order="mxu"),
         entry("hybrid_digit_relin", n15, mr_tpu + "807", MUL_RELIN_CU,
               hy["launches"]["hybrid_digit_relin"], deep_k["hybrid_digit_relin"], deep_k, small_k,
               mxu_small),
@@ -588,9 +596,9 @@ def main() -> int:
         entry("rescale_fwd", n15, rs_tpu + "206", RESCALE_CU, hy["launches"]["rescale_fwd"],
               deep_k["rescale_fwd"], deep_k, small_k, mxu_small),
         entry("ntt2_grid", n15, ntt_tpu + "211", RESCALE_CU, mx["launches"]["ntt2_grid"],
-              mxu_k["ntt2_grid"], mxu_k, mxu_small),
+              mxu_k["ntt2_grid"], mxu_k, mxu_small, order="mxu"),
         entry("intt2_grid", n15, ntt_tpu + "232", RESCALE_CU, mx["launches"]["intt2_grid"],
-              mxu_k["intt2_grid"], mxu_k, mxu_small),
+              mxu_k["intt2_grid"], mxu_k, mxu_small, order="mxu"),
         entry("tensor_intt", n16, mr_tpu + "232", MUL_RELIN_CU, mp16["launches"]["tensor_intt"],
               big["tensor_intt"], big, big_small),
         entry("digit_relin", n16, mr_tpu + "319", MUL_RELIN_CU, mp16["launches"]["digit_relin"],

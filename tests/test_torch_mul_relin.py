@@ -1,7 +1,8 @@
 """alchemy_tpu_torch kernels A and B (backend/cuda/mul_relin.py): the plain
 versions against the JAX package's mul_relin (exact equality), the host
 tables the CUDA kernels use against the 3-factor slot order, and the index
-schedule of the kernels (each limb split over two blocks) emulated in numpy."""
+schedules of the kernels (each limb split over two blocks; B and 4's
+register-blocked passes) emulated in numpy."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +11,8 @@ import torch
 
 from alchemy_tpu.she import fast as jfast
 from alchemy_tpu_torch.backend.cuda import mul_relin as mr
-from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
+from alchemy_tpu_torch.backend.ntt2 import _pick_split
+from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3
 from alchemy_tpu_torch.convert import to_numpy, to_torch
 from alchemy_tpu_torch.she import fast as tfast
 
@@ -198,6 +200,115 @@ def test_split_schedule_matches_ntt3(log_n):
         assert np.array_equal(_split_inverse(y[li], inv, ql, t["slot_inv"], n_inv), x[li] % ql)
 
 
+#: launch shapes of kernels B and 4 (mul_relin.cu Shape, BSmall ... ExtLarge):
+#: (threads a block, stages a pass at most, stages of the first pass, whether
+#: the first pass reads the two halves of a cluster)
+RB_SHAPES = {"B": (1024, 3, 3, False), "4 n<=2^15": (384, 3, 2, True),
+             "4 n=2^16": (1024, 4, 3, False)}
+
+
+def _pad(j):
+    """zq.cuh pad: one spare shared word after every 32."""
+    return j + (j >> 5)
+
+
+def _rb_butterflies(v, log_n, part, lo_b, hi, tw, q):
+    """zq.cuh pass_butterflies on v [R, groups], a group a column (hi its
+    high index bits): stage u pairs r with r + R/2^(u+1) under twiddle
+    m + part·m/2 + (hi << u) + (r >> (RL − u))."""
+    RL = len(v).bit_length() - 1
+    for u in range(RL):
+        m = 1 << (log_n - lo_b - RL + u)
+        w0 = m + part * (m >> 1) + (hi << u)
+        t = len(v) >> (u + 1)
+        for blk in range(1 << u):
+            w = tw[w0 + blk]
+            for c in range(t):
+                r = 2 * t * blk + c
+                a, b = v[r], v[r + t] * w % q
+                v[r], v[r + t] = (a + b) % q, (a - b) % q
+    return v
+
+
+def _rb_forward(x, tw, q, part, max_rl, first_rl, pair):
+    """zq.cuh ntt_forward_passes (or ntt_forward_pair) of half `part` of row
+    x (any uint32) in numpy → the padded shared half. The first pass takes
+    words j and j + n/2 of each group from x (pair: from the two blocks'
+    staged halves, x_j and w·x_{j+n/2}) and runs the cross-half stage on them,
+    then first_rl stages; later passes take max_rl stages from shared memory.
+    The groups of every pass cover the half once, group g on thread
+    g mod blockDim."""
+    half = len(x) // 2
+    log_n, log_h = len(x).bit_length() - 1, half.bit_length() - 1
+    smem = np.full(_pad(half - 1) + 1, -1, dtype=np.int64)
+    lo_b = max(log_h - first_rl, 0)
+    first = True
+    while first or lo_b > 0:
+        RL = log_h - lo_b if first else min(max_rl, lo_b)
+        lo_b -= 0 if first else RL
+        g = np.arange(half >> RL)
+        hi = g >> lo_b
+        j = ((hi << (lo_b + RL)) | (g & ((1 << lo_b) - 1))) + (np.arange(1 << RL)[:, None] << lo_b)
+        assert np.array_equal(np.sort(j.ravel()), np.arange(half))
+        if first and pair:
+            staged = [x[:half] % q, x[half:] * tw[1] % q]        # each block's own half
+            mine, other = staged[part][j], staged[1 - part][j]
+            v = (other - mine) % q if part else (mine + other) % q
+        elif first:
+            u, v = x[j] % q, x[j + half] * tw[1] % q
+            v = (u - v) % q if part else (u + v) % q
+        else:
+            v = smem[_pad(j)]
+        smem[_pad(j)] = _rb_butterflies(v, log_n, part, lo_b, hi, tw, q)
+        first = False
+    return smem
+
+
+@pytest.mark.parametrize("shape", sorted(RB_SHAPES))
+@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("log_n", [10, 11, 12, 16])
+def test_register_blocked_schedule_matches_plain_ntt(log_n, order, shape):
+    """The schedule of kernels B and 4 at each launch shape (register-blocked
+    passes, the cross-half stage in the first pass's load or across the
+    cluster, the hint loop's slot-order gather through `slot_own`) against
+    ntt3 ("pallas") and ntt2 ("mxu") exactly, at 2^16 and at small sizes.
+    Every slot has one owner thread, the same at every digit; a thread's four
+    elements are four consecutive slots from a multiple of 4, and the 128
+    elements of a warp consecutive slots (from n = 2^14 on; runs of a row of
+    the slot order below)."""
+    threads, max_rl, first_rl, pair = RB_SHAPES[shape]
+    p = jfast.FastParams.make(log_n, 2)
+    n, half = p.n, p.n // 2
+    t = mr.kernel_tables(n, p.qs, order)
+    rng = np.random.default_rng(log_n)
+    x = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(np.int64)  # any uint32
+    y = mr.plain_transforms(order)[0](torch.from_numpy(x), n, p.qs).numpy()
+    own = t["slot_own"].astype(np.int64).reshape(2, half)
+    slots, local = own & 0xFFFF, own >> 16
+    assert np.array_equal(np.sort(slots.ravel()), np.arange(n))
+    A, B, r = _split3(n)
+    run = _pick_split(n)[1] if order == "mxu" else B * r    # a row of the slot order
+    for part in (0, 1):
+        assert np.array_equal(np.sort(slots[part]), np.sort(t["slot_inv"][part * half:(part + 1) * half]))
+        assert np.array_equal(local[part], t["slot_ct"][slots[part]] - part * half)
+        for width in (min(4, run), min(128, run)):       # a thread's quad; a warp's 128
+            lanes = slots[part].reshape(-1, width)
+            assert np.array_equal(lanes - lanes[:, :1], np.broadcast_to(np.arange(width), lanes.shape))
+            assert (lanes[:, 0] % width == 0).all()
+    owners = []
+    for li, ql in enumerate(p.qs):                     # the two limbs stand for two digits
+        fwd = t["fwd"][li, 0].astype(np.int64)
+        got = np.full(n, -1, dtype=np.int64)
+        owner = np.full(n, -1, dtype=np.int64)
+        for part in (0, 1):
+            smem = _rb_forward(x[li], fwd, ql, part, max_rl, first_rl, pair)
+            got[slots[part]] = smem[_pad(local[part])]
+            owner[slots[part]] = part * threads + np.arange(half) // 4 % threads
+        assert np.array_equal(got, y[li])
+        owners.append(owner)
+    assert (owners[0] >= 0).all() and np.array_equal(owners[0], owners[1])
+
+
 def test_wrappers_check_their_inputs():
     p = jfast.FastParams.make(10, 2)
     good = torch.zeros((1, 2, 2, p.n), dtype=torch.int32)
@@ -219,6 +330,11 @@ def test_wrappers_check_their_inputs():
         mr._kernel_device(1 << 15, torch.device("meta"))
     with pytest.raises(ValueError, match="slot order"):
         mr.tensor_intt(p.n, p.qs, good, good, order="vpu")
+    # kernels B and 4 read rows 16 bytes at a time: a view off a 16-byte boundary is refused
+    row = torch.zeros(8, dtype=torch.int32)
+    mr._aligned(row, None)
+    with pytest.raises(ValueError, match="16-byte"):
+        mr._aligned(row[1:])
 
 
 class _Gate(Exception):
@@ -276,8 +392,11 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_n,L,Bt", [(14, 3, 2), (15, 8, 2), (16, 3, 2)])
-def test_kernels_match_plain_on_the_card(log_n, L, Bt):
+@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("log_n,L,Bt", [(8, 2, 2), (14, 3, 2), (15, 8, 2), (16, 3, 2)])
+def test_kernels_match_plain_on_the_card(log_n, L, Bt, order):
+    """At 2^8 the 2-factor order's rows are 2 words: B's hint loop takes its
+    word accesses there."""
     _need_card()
     p = tfast.FastParams.make(log_n, L)
     rng = np.random.default_rng(log_n)
@@ -286,12 +405,13 @@ def test_kernels_match_plain_on_the_card(log_n, L, Bt):
     ct_a, ct_b = res((Bt, 2, L, p.n)), res((Bt, 2, L, p.n))
     hb, ha = (tfast.shoup_precompute(res((L, L, p.n)), p.qs) for _ in range(2))
     before = dict(mr.LAUNCHES)
-    c = mr.tensor_intt(p.n, p.qs, ct_a, ct_b)
-    assert all(torch.equal(x, y) for x, y in zip(c, mr.tensor_intt_plain(p.n, p.qs, ct_a, ct_b)))
-    out = mr.digit_relin(p.n, p.qs, *c, hb, ha)
-    assert torch.equal(out, mr.digit_relin_plain(p.n, p.qs, *c, hb, ha))
+    c = mr.tensor_intt(p.n, p.qs, ct_a, ct_b, order)
+    assert all(torch.equal(x, y)
+               for x, y in zip(c, mr.tensor_intt_plain(p.n, p.qs, ct_a, ct_b, order)))
+    out = mr.digit_relin(p.n, p.qs, *c, hb, ha, order)
+    assert torch.equal(out, mr.digit_relin_plain(p.n, p.qs, *c, hb, ha, order))
     # raw hints: the Barrett branch of kernel B, the same residues
-    assert torch.equal(mr.digit_relin(p.n, p.qs, *c, hb[0], ha[0]), out)
+    assert torch.equal(mr.digit_relin(p.n, p.qs, *c, hb[0], ha[0], order), out)
     assert mr.LAUNCHES == {**before, "tensor_intt": before["tensor_intt"] + 1,
                            "digit_relin": before["digit_relin"] + 2}
 
