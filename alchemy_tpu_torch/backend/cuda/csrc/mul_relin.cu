@@ -69,6 +69,9 @@
 namespace {
 
 using zq::kLimbWords;
+using zq::load4;
+using zq::store4;
+using zq::vector_quads;
 
 // Two blocks per (limb l, ciphertext b), a cluster of two: block `part`
 // does the Karatsuba tensor product c0 = a0*b0, c2 = a1*b1,
@@ -147,16 +150,6 @@ template <class S>
 int shared_words(int log_n) {
   const int half = 1 << (log_n - 1);
   return S::kSums ? sums_offset(half) + 2 * half : zq::padded_words(half);
-}
-
-// Four consecutive words from a 16-byte boundary, in one access.
-__device__ __forceinline__ void load4(uint32_t (&d)[4], const uint32_t* p) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
-}
-
-__device__ __forceinline__ void store4(uint32_t* p, const uint32_t (&d)[4]) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(d[0], d[1], d[2], d[3]);
 }
 
 // p += c[0..4) mod q.
@@ -259,14 +252,6 @@ __device__ __forceinline__ void accumulate(const uint32_t* buf, const uint32_t* 
       }
     }
   }
-}
-
-// Whether the quads of own[] are four consecutive slots from a 16-byte
-// boundary: exactly when the first one is (each half owns every other row
-// of the slot order, and all its rows have one power-of-two length).
-__device__ __forceinline__ bool vector_quads(const uint32_t* __restrict__ own) {
-  const uint32_t s0 = __ldg(own) & 0xFFFFu, s3 = __ldg(own + 3) & 0xFFFFu;
-  return s3 == s0 + 3 && (s0 & 3) == 0;
 }
 
 // Kernel B. Two blocks per (output limb l, ciphertext b); the gadget digits
@@ -415,9 +400,9 @@ int digit_relin(const void* c2c, const void* c0, const void* c1, const void* hb,
                                      : digit_relin_kernel<false, BSmall>)
                             : (shoup ? digit_relin_kernel<true, BLarge>
                                      : digit_relin_kernel<false, BLarge>);
-  return zq::launch_halves(
+  return zq::launch_blocks(
       kernel, dim3(2 * L, bt), small ? BSmall::kThreads : BLarge::kThreads,
-      small ? shared_words<BSmall>(log_n) : shared_words<BLarge>(log_n), false, stream,
+      small ? shared_words<BSmall>(log_n) : shared_words<BLarge>(log_n), 0, stream,
       static_cast<const uint32_t*>(c2c), static_cast<const uint32_t*>(c0),
       static_cast<const uint32_t*>(c1), static_cast<const uint32_t*>(hb),
       static_cast<const uint32_t*>(hbs), static_cast<const uint32_t*>(ha),
@@ -436,10 +421,10 @@ int hybrid_digit_relin(const void* x, const void* ext, const void* hb, const voi
                                      : hybrid_digit_relin_kernel<false, ExtSmall>)
                             : (shoup ? hybrid_digit_relin_kernel<true, ExtLarge>
                                      : hybrid_digit_relin_kernel<false, ExtLarge>);
-  return zq::launch_halves(
+  return zq::launch_blocks(
       kernel, dim3(2 * T, bt), small ? ExtSmall::kThreads : ExtLarge::kThreads,
       small ? shared_words<ExtSmall>(log_n) : shared_words<ExtLarge>(log_n),
-      small ? ExtSmall::kPair : ExtLarge::kPair, stream,
+      (small ? ExtSmall::kPair : ExtLarge::kPair) ? 2 : 0, stream,
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(ext),
       static_cast<const uint32_t*>(hb), static_cast<const uint32_t*>(hbs),
       static_cast<const uint32_t*>(ha), static_cast<const uint32_t*>(has),

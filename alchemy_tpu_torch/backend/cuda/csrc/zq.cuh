@@ -153,14 +153,15 @@ __device__ __forceinline__ void forward_first_stage(uint32_t* a, Load load, int 
 }
 
 // ---------------------------------------------------------------------------
-// The register-blocked forward NTT of kernels B and 4 (a limb split over two
-// blocks, as above; the other kernels keep ntt_forward). Each thread holds
+// The register-blocked forward NTT of kernels B, 4, 6 and 8 (a limb split
+// over two blocks, as above; kernel 7 keeps ntt_forward). Each thread holds
 // R = 2^RL words of its half in registers and runs RL butterfly stages on
 // them with no barrier between: a pass. One exchange through shared memory
 // and one __syncthreads separate passes, so with passes of up to 4 stages a
 // half of 2^14 words (n = 2^15) takes passes of 4, 4, 4 and 2 stages
 // instead of 14 barrier-separated ones, and 2^15 words 4, 4, 4, 3. The
-// widest pass (kMaxRL) is each launch shape's (mul_relin.cu Shape): the
+// widest pass (kMaxRL) is each launch shape's (Shape in mul_relin.cu,
+// GridShape in rescale.cu): the
 // values, twiddles and loads in flight of a pass must fit the registers.
 //
 // A pass whose stages have local strides 2^(lo_b + RL - 1) ... 2^lo_b gives
@@ -199,14 +200,15 @@ __device__ __forceinline__ void load_words(uint32_t (&d)[kCount], const uint32_t
 // Stage u of a pass: r pairs with r + R/2^(u+1) under twiddle
 // w0 + (r >> (RL - u)), w0 = m + part*m/2 + (hi << u) a multiple of 2^u, so
 // the stage's 2^u (value, companion) pairs are two aligned runs of the
-// tables, read 4 pairs at a time.
-template <int RL, int U>
+// tables, read 4 pairs at a time. kSplit = 2 (a limb over four blocks, part
+// < 4 a quarter): m + part*m/4 + (hi << u).
+template <int RL, int U, int kSplit = 1>
 __device__ __forceinline__ void pass_stage(uint32_t (&v)[1 << RL], int log_n, int part, int lo_b,
                                            int hi, const uint32_t* __restrict__ tw,
                                            const uint32_t* __restrict__ tws, uint32_t q) {
   constexpr int kTw = 1 << U, kChunk = kTw < 4 ? kTw : 4, t = (1 << RL) >> (U + 1);
   const int m = 1 << (log_n - lo_b - RL + U);   // log_t = lo_b + RL - 1 - U
-  const int w0 = m + part * (m >> 1) + (hi << U);
+  const int w0 = m + part * (m >> kSplit) + (hi << U);
 #pragma unroll
   for (int c0 = 0; c0 < kTw; c0 += kChunk) {
     uint32_t w[kChunk], ws[kChunk];
@@ -226,15 +228,15 @@ __device__ __forceinline__ void pass_stage(uint32_t (&v)[1 << RL], int log_n, in
   }
 }
 
-template <int RL>
+template <int RL, int kSplit = 1>
 __device__ __forceinline__ void pass_butterflies(uint32_t (&v)[1 << RL], int log_n, int part,
                                                  int lo_b, int hi,
                                                  const uint32_t* __restrict__ tw,
                                                  const uint32_t* __restrict__ tws, uint32_t q) {
-  pass_stage<RL, 0>(v, log_n, part, lo_b, hi, tw, tws, q);
-  if constexpr (RL > 1) pass_stage<RL, 1>(v, log_n, part, lo_b, hi, tw, tws, q);
-  if constexpr (RL > 2) pass_stage<RL, 2>(v, log_n, part, lo_b, hi, tw, tws, q);
-  if constexpr (RL > 3) pass_stage<RL, 3>(v, log_n, part, lo_b, hi, tw, tws, q);
+  pass_stage<RL, 0, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
+  if constexpr (RL > 1) pass_stage<RL, 1, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
+  if constexpr (RL > 2) pass_stage<RL, 2, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
+  if constexpr (RL > 3) pass_stage<RL, 3, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
   static_assert(RL <= 4, "passes of up to 4 stages");
 }
 
@@ -256,15 +258,46 @@ __device__ __forceinline__ void cluster_wait() {
 // cluster of two (ntt_forward_pair below), with that stage done in the read.
 enum PassFrom { kFromShared, kFromLoad, kFromPair };
 
+// The two stages that cross the quarters of a limb split over four blocks,
+// fused into a load from device memory (kernels 6 and 8 on small grids):
+// word j of quarter part from x_{j + c*n/4} = elem(load, j + c*n/4), any
+// uint32: a = x_0 +- w1*x_2, b = x_1 +- w1*x_3 (- for the second half),
+// then a +- w_{2+half}*b (- for the odd quarters).
+struct QuarterTwiddles {
+  uint32_t w1, w1s, w2, w2s;
+};
+
+__device__ __forceinline__ QuarterTwiddles quarter_twiddles(const uint32_t* __restrict__ tw,
+                                                            const uint32_t* __restrict__ tws,
+                                                            int part) {
+  return {__ldg(tw + 1), __ldg(tws + 1), __ldg(tw + 2 + (part >> 1)), __ldg(tws + 2 + (part >> 1))};
+}
+
+template <typename Load>
+__device__ __forceinline__ uint32_t quarter_load(Load load, int j, int quarter, int part,
+                                                 const QuarterTwiddles& w, const Limb& k) {
+  const uint32_t x0 = reduce(elem(load, j), k), x1 = reduce(elem(load, j + quarter), k);
+  const uint32_t y2 = mulmod_shoup(elem(load, j + 2 * quarter), w.w1, w.w1s, k.q);
+  const uint32_t y3 = mulmod_shoup(elem(load, j + 3 * quarter), w.w1, w.w1s, k.q);
+  const bool upper = part >> 1;
+  const uint32_t a = upper ? sub_mod(x0, y2, k.q) : add_mod(x0, y2, k.q);
+  const uint32_t b = upper ? sub_mod(x1, y3, k.q) : add_mod(x1, y3, k.q);
+  const uint32_t c = mulmod_shoup(b, w.w2, w.w2s, k.q);
+  return part & 1 ? sub_mod(a, c, k.q) : add_mod(a, c, k.q);
+}
+
 // One pass over the groups of the half (group g on thread g mod blockDim,
 // hi = g >> lo_b; the first pass has hi = 0). kFromPair: both blocks of the
 // cluster read both halves, so every thread runs the same number of groups
-// and the stores wait for a cluster barrier after the reads.
-template <int RL, int kFrom, typename Load>
+// and the stores wait for a cluster barrier after the reads. kSplit = 2: the
+// limb is split over four blocks and a holds quarter part (kFromLoad fuses
+// the two cross-quarter stages into the load, quarter_load).
+template <int RL, int kFrom, int kSplit = 1, typename Load>
 __device__ __forceinline__ void forward_pass(uint32_t* a, Load load, int log_n, int part, int lo_b,
                                              const uint32_t* __restrict__ tw,
                                              const uint32_t* __restrict__ tws, const Limb& k) {
-  const int half = 1 << (log_n - 1), groups = half >> RL;
+  static_assert(kSplit == 1 || kFrom != kFromPair, "the pair form splits a limb in two");
+  const int half = 1 << (log_n - kSplit), groups = half >> RL;
   const int bd = static_cast<int>(blockDim.x);
   const int end = kFrom == kFromPair ? (groups + bd - 1) / bd * bd : groups;
   const uint32_t* other = a;
@@ -277,7 +310,11 @@ __device__ __forceinline__ void forward_pass(uint32_t* a, Load load, int log_n, 
     const int base = (hi << (lo_b + RL)) | (g & ((1 << lo_b) - 1));
     uint32_t v[1 << RL];
     if (active) {
-      if constexpr (kFrom == kFromLoad) {
+      if constexpr (kFrom == kFromLoad && kSplit == 2) {
+        const QuarterTwiddles w = quarter_twiddles(tw, tws, part);
+#pragma unroll
+        for (int r = 0; r < (1 << RL); ++r) v[r] = quarter_load(load, base + (r << lo_b), half, part, w, k);
+      } else if constexpr (kFrom == kFromLoad) {
         const uint32_t w = __ldg(tw + 1), ws = __ldg(tws + 1);
 #pragma unroll
         for (int r = 0; r < (1 << RL); ++r) {
@@ -299,7 +336,7 @@ __device__ __forceinline__ void forward_pass(uint32_t* a, Load load, int log_n, 
       }
     }
     if constexpr (kFrom == kFromPair) cluster_arrive();  // done reading the partner's half
-    if (active) pass_butterflies<RL>(v, log_n, part, lo_b, hi, tw, tws, k.q);
+    if (active) pass_butterflies<RL, kSplit>(v, log_n, part, lo_b, hi, tw, tws, k.q);
     if constexpr (kFrom == kFromPair) cluster_wait();    // the partner is done reading ours
     if (active) {
 #pragma unroll
@@ -308,19 +345,19 @@ __device__ __forceinline__ void forward_pass(uint32_t* a, Load load, int log_n, 
   }
 }
 
-// forward_pass<rl, kFrom> for a runtime rl in [1, RL].
-template <int RL, int kFrom, typename Load>
+// forward_pass<rl, kFrom, kSplit> for a runtime rl in [1, RL].
+template <int RL, int kFrom, int kSplit = 1, typename Load>
 __device__ __forceinline__ void forward_pass_of(int rl, uint32_t* a, Load load, int log_n,
                                                 int part, int lo_b,
                                                 const uint32_t* __restrict__ tw,
                                                 const uint32_t* __restrict__ tws, const Limb& k) {
   if constexpr (RL > 1) {
     if (rl < RL) {
-      forward_pass_of<RL - 1, kFrom>(rl, a, load, log_n, part, lo_b, tw, tws, k);
+      forward_pass_of<RL - 1, kFrom, kSplit>(rl, a, load, log_n, part, lo_b, tw, tws, k);
       return;
     }
   }
-  forward_pass<RL, kFrom>(a, load, log_n, part, lo_b, tw, tws, k);
+  forward_pass<RL, kFrom, kSplit>(a, load, log_n, part, lo_b, tw, tws, k);
 }
 
 // The forward NTT of half `part` of a split limb, register-blocked: a first
@@ -329,20 +366,21 @@ __device__ __forceinline__ void forward_pass_of(int rl, uint32_t* a, Load load, 
 // from shared memory, the last one shorter (n >= 4). Leaves the padded half
 // in a (word j at pad(j)) in the bit-reversed order of ntt_forward; every
 // thread calls it, and it returns synchronised. The caller synchronises
-// before it if a is still being read.
-template <int kMaxRL, int kFirstRL, int kFrom = kFromLoad, typename Load>
+// before it if a is still being read. kSplit = 2: quarter part of a limb
+// split over four blocks (n >= 8), the two cross-quarter stages in the load.
+template <int kMaxRL, int kFirstRL, int kFrom = kFromLoad, int kSplit = 1, typename Load>
 __device__ __forceinline__ void ntt_forward_passes(uint32_t* a, Load load, int log_n, int part,
                                                    const uint32_t* __restrict__ tw,
                                                    const uint32_t* __restrict__ tws,
                                                    const Limb& k) {
-  const int log_h = log_n - 1;
+  const int log_h = log_n - kSplit;
   int lo_b = log_h > kFirstRL ? log_h - kFirstRL : 0;
-  forward_pass_of<kFirstRL, kFrom>(log_h - lo_b, a, load, log_n, part, lo_b, tw, tws, k);
+  forward_pass_of<kFirstRL, kFrom, kSplit>(log_h - lo_b, a, load, log_n, part, lo_b, tw, tws, k);
   __syncthreads();
   while (lo_b > 0) {
     const int rl = lo_b > kMaxRL ? kMaxRL : lo_b;
     lo_b -= rl;
-    forward_pass_of<kMaxRL, kFromShared>(rl, a, load, log_n, part, lo_b, tw, tws, k);
+    forward_pass_of<kMaxRL, kFromShared, kSplit>(rl, a, load, log_n, part, lo_b, tw, tws, k);
     __syncthreads();
   }
 }
@@ -368,13 +406,130 @@ __device__ __forceinline__ void ntt_forward_pair(uint32_t* a, Load load, int log
   ntt_forward_passes<kMaxRL, kFirstRL, kFromPair>(a, load, log_n, part, tw, tws, k);
 }
 
+// ---------------------------------------------------------------------------
+// The register-blocked inverse NTT of kernels 5 and 9: the Gentleman-Sande
+// mirror of ntt_forward_passes on the padded half in shared memory, passes
+// of up to kMaxRL stages from the smallest stride up, one barrier between
+// passes. A pass whose stages have local strides 2^lo_b ... 2^(lo_b + RL - 1)
+// gives group g = hi*2^lo_b + lo the words j = hi*2^(lo_b + RL) + r*2^lo_b +
+// lo, r < R, as in the forward passes; its stage u pairs r with r + 2^u (bit
+// u of r clear) under the twiddle h + part*h/2 + (hi << (RL - 1 - u)) +
+// (r >> (u + 1)), h = 2^(log_n - 1 - lo_b - u) the stage's groups in the
+// whole transform: 2^(RL - 1 - u) (value, companion) pairs a group, two
+// aligned runs of the tables read 4 pairs at a time. The stage that crosses
+// the halves is inverse_last_stage's. tests/test_torch_rescale.py emulates
+// this schedule in numpy. kSplit = 2: quarter part of a limb split over four
+// blocks, twiddles h + part*h/4 + ..., and the two cross-quarter stages are
+// inverse_last_stages4's.
+template <int RL, int U, int kSplit = 1>
+__device__ __forceinline__ void inverse_pass_stage(uint32_t (&v)[1 << RL], int log_n, int part,
+                                                   int lo_b, int hi,
+                                                   const uint32_t* __restrict__ tw,
+                                                   const uint32_t* __restrict__ tws, uint32_t q) {
+  constexpr int kTw = 1 << (RL - 1 - U), kChunk = kTw < 4 ? kTw : 4, s = 1 << U;
+  const int h = 1 << (log_n - 1 - lo_b - U);   // log_t = lo_b + U
+  const int w0 = h + part * (h >> kSplit) + (hi << (RL - 1 - U));
+#pragma unroll
+  for (int c0 = 0; c0 < kTw; c0 += kChunk) {
+    uint32_t w[kChunk], ws[kChunk];
+    load_words<kChunk>(w, tw + w0 + c0);
+    load_words<kChunk>(ws, tws + w0 + c0);
+#pragma unroll
+    for (int blk = 0; blk < kChunk; ++blk) {
+#pragma unroll
+      for (int c = 0; c < s; ++c) {
+        const int r = 2 * s * (c0 + blk) + c;
+        const uint32_t a = v[r], b = v[r + s];
+        v[r] = add_mod(a, b, q);
+        v[r + s] = mulmod_shoup(sub_mod(a, b, q), w[blk], ws[blk], q);
+      }
+    }
+  }
+}
+
+// One inverse pass of RL stages over the groups of the half (quarter), in place.
+template <int RL, int kSplit = 1>
+__device__ __forceinline__ void inverse_pass(uint32_t* a, int log_n, int part, int lo_b,
+                                             const uint32_t* __restrict__ tw,
+                                             const uint32_t* __restrict__ tws, uint32_t q) {
+  const int groups = (1 << (log_n - kSplit)) >> RL;
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    const int hi = g >> lo_b;
+    const int base = (hi << (lo_b + RL)) | (g & ((1 << lo_b) - 1));
+    uint32_t v[1 << RL];
+#pragma unroll
+    for (int r = 0; r < (1 << RL); ++r) v[r] = a[pad(base + (r << lo_b))];
+    inverse_pass_stage<RL, 0, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
+    if constexpr (RL > 1) inverse_pass_stage<RL, 1, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
+    if constexpr (RL > 2) inverse_pass_stage<RL, 2, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
+    if constexpr (RL > 3) inverse_pass_stage<RL, 3, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
+    static_assert(RL <= 4, "passes of up to 4 stages");
+#pragma unroll
+    for (int r = 0; r < (1 << RL); ++r) a[pad(base + (r << lo_b))] = v[r];
+  }
+}
+
+// inverse_pass<rl, kSplit> for a runtime rl in [1, RL].
+template <int RL, int kSplit = 1>
+__device__ __forceinline__ void inverse_pass_of(int rl, uint32_t* a, int log_n, int part,
+                                                int lo_b, const uint32_t* __restrict__ tw,
+                                                const uint32_t* __restrict__ tws, uint32_t q) {
+  if constexpr (RL > 1) {
+    if (rl < RL) {
+      inverse_pass_of<RL - 1, kSplit>(rl, a, log_n, part, lo_b, tw, tws, q);
+      return;
+    }
+  }
+  inverse_pass<RL, kSplit>(a, log_n, part, lo_b, tw, tws, q);
+}
+
+// The stages of ntt_inverse inside half `part` (split = 1; kSplit = 2:
+// quarter part) on the padded half a (word j at pad(j)), register-blocked:
+// passes of kMaxRL stages, the last one shorter. The caller synchronises
+// before it; it returns synchronised.
+template <int kMaxRL, int kSplit = 1>
+__device__ __forceinline__ void ntt_inverse_passes(uint32_t* a, int log_n, int part,
+                                                   const uint32_t* __restrict__ tw,
+                                                   const uint32_t* __restrict__ tws, uint32_t q) {
+  const int log_h = log_n - kSplit;
+  for (int lo_b = 0; lo_b < log_h;) {
+    const int rl = log_h - lo_b > kMaxRL ? kMaxRL : log_h - lo_b;
+    inverse_pass_of<kMaxRL, kSplit>(rl, a, log_n, part, lo_b, tw, tws, q);
+    __syncthreads();
+    lo_b += rl;
+  }
+}
+
+// Four consecutive words from a 16-byte boundary, in one access.
+__device__ __forceinline__ void load4(uint32_t (&d)[4], const uint32_t* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+}
+
+__device__ __forceinline__ void store4(uint32_t* p, const uint32_t (&d)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(d[0], d[1], d[2], d[3]);
+}
+
+// Whether the quads of a block's slot_own table (its slots in slot order,
+// each packed with its radix-2 index in the half: s | x << 16) are four
+// consecutive slots from a 16-byte boundary: exactly when the first one is
+// (each half owns every other row of the slot order, and all its rows have
+// one power-of-two length; rows of fewer than 4 words, below n = 2^9 in the
+// 2-factor order, are not).
+__device__ __forceinline__ bool vector_quads(const uint32_t* __restrict__ own) {
+  const uint32_t s0 = __ldg(own) & 0xFFFFu, s3 = __ldg(own + 3) & 0xFFFFu;
+  return s3 == s0 + 3 && (s0 & 3) == 0;
+}
+
 // The last stage of ntt_inverse for a limb split over a thread block cluster
 // of two (block `part` of the pair holds half `part`, after ntt_inverse with
-// split = 1), scaled by n^-1: out[j] = (u + v)*n^-1 from block 0 and
-// out[n/2 + j] = (u - v)*w*n^-1 from block 1, with u = half 0's a[j] and
-// v = half 1's, each block reading its partner's half through distributed
-// shared memory. Every thread of both blocks calls it; it returns once both
-// blocks are done reading, so neither exits while the other reads its a.
+// split = 1, or with kPad after ntt_inverse_passes), scaled by n^-1:
+// out[j] = (u + v)*n^-1 from block 0 and out[n/2 + j] = (u - v)*w*n^-1 from
+// block 1, with u = half 0's word j and v = half 1's, each block reading its
+// partner's half through distributed shared memory. Every thread of both
+// blocks calls it; it returns once both blocks are done reading, so neither
+// exits while the other reads its a.
+template <bool kPad = false>
 __device__ __forceinline__ void inverse_last_stage(uint32_t* a, uint32_t* __restrict__ out,
                                                    int log_n, int part,
                                                    const uint32_t* __restrict__ tw,
@@ -386,7 +541,8 @@ __device__ __forceinline__ void inverse_last_stage(uint32_t* a, uint32_t* __rest
   const uint32_t* other = cluster.map_shared_rank(a, static_cast<unsigned>(part ^ 1));
   const uint32_t w = __ldg(tw + 1), ws = __ldg(tws + 1);
   for (int j = threadIdx.x; j < half; j += blockDim.x) {
-    const uint32_t mine = a[j], theirs = other[j];
+    const int at = kPad ? pad(j) : j;
+    const uint32_t mine = a[at], theirs = other[at];
     const uint32_t r = part ? mulmod_shoup(sub_mod(theirs, mine, k.q), w, ws, k.q)
                             : add_mod(mine, theirs, k.q);
     out[part * half + j] = mulmod_shoup(r, k.n_inv, k.n_inv_s, k.q);
@@ -394,22 +550,57 @@ __device__ __forceinline__ void inverse_last_stage(uint32_t* a, uint32_t* __rest
   cluster.sync();
 }
 
-// Launches a kernel that keeps half of one limb in shared memory, two blocks
-// per limb along x, on `stream`, with `threads` a block and `smem_words`
-// words opted in as dynamic shared memory. With cluster, each pair of
-// blocks along x is a thread block cluster of two, for the kernels whose
-// last stage crosses the halves. Returns a cudaError_t (0 on success): a
-// refused launch or cluster shape is an error, never a fallback.
+// The two stages of ntt_inverse that cross the quarters of a limb split over
+// a thread block cluster of four (block `part` holds quarter `part` padded,
+// after ntt_inverse_passes<., 2>), scaled by n^-1: with a_c word j of
+// quarter c, b0 = a0 + a1, b1 = (a0 - a1)*w2, b2 = a2 + a3,
+// b3 = (a2 - a3)*w3, then out[j] = b0 + b2, out[n/4 + j] = b1 + b3,
+// out[n/2 + j] = (b0 - b2)*w1, out[3n/4 + j] = (b1 - b3)*w1, block part
+// writing quarter part of out and reading the other three quarters through
+// distributed shared memory. Every thread of the four blocks calls it; it
+// returns once all are done reading.
+__device__ __forceinline__ void inverse_last_stages4(uint32_t* a, uint32_t* __restrict__ out,
+                                                     int log_n, int part,
+                                                     const uint32_t* __restrict__ tw,
+                                                     const uint32_t* __restrict__ tws,
+                                                     const Limb& k) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int quarter = 1 << (log_n - 2);
+  cluster.sync();  // every quarter has run its stages
+  const uint32_t* q4[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) q4[c] = cluster.map_shared_rank(a, static_cast<unsigned>(c));
+  const bool odd = part & 1, upper = part >> 1;
+  const uint32_t w1 = __ldg(tw + 1), w1s = __ldg(tws + 1);
+  const uint32_t w2 = __ldg(tw + 2), w2s = __ldg(tws + 2), w3 = __ldg(tw + 3), w3s = __ldg(tws + 3);
+  for (int j = threadIdx.x; j < quarter; j += blockDim.x) {
+    const int at = pad(j);
+    const uint32_t a0 = q4[0][at], a1 = q4[1][at], a2 = q4[2][at], a3 = q4[3][at];
+    // the pair of b this quarter's output takes: sums (even) or differences (odd)
+    const uint32_t lo = odd ? mulmod_shoup(sub_mod(a0, a1, k.q), w2, w2s, k.q) : add_mod(a0, a1, k.q);
+    const uint32_t hi = odd ? mulmod_shoup(sub_mod(a2, a3, k.q), w3, w3s, k.q) : add_mod(a2, a3, k.q);
+    const uint32_t r = upper ? mulmod_shoup(sub_mod(lo, hi, k.q), w1, w1s, k.q) : add_mod(lo, hi, k.q);
+    out[part * quarter + j] = mulmod_shoup(r, k.n_inv, k.n_inv_s, k.q);
+  }
+  cluster.sync();
+}
+
+// Launches a kernel that keeps part of one limb in shared memory, blocks of
+// a limb consecutive along x, on `stream`, with `threads` a block and
+// `smem_words` words opted in as dynamic shared memory. With cluster > 1,
+// each run of `cluster` blocks along x is a thread block cluster, for the
+// kernels whose last stages cross the parts. Returns a cudaError_t (0 on
+// success): a refused launch or cluster shape is an error, never a fallback.
 template <typename... Params, typename... Args>
-int launch_halves(void (*kernel)(Params...), dim3 grid, int threads, int smem_words,
-                  bool cluster, void* stream, Args... args) {
+int launch_blocks(void (*kernel)(Params...), dim3 grid, int threads, int smem_words, int cluster,
+                  void* stream, Args... args) {
   const size_t smem = static_cast<size_t>(smem_words) * sizeof(uint32_t);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
@@ -418,20 +609,20 @@ int launch_halves(void (*kernel)(Params...), dim3 grid, int threads, int smem_wo
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
-  cfg.numAttrs = cluster ? 1 : 0;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch_halves for the kernels on ntt_forward/ntt_inverse (A, 5-9): n/2
-// words of shared memory, n/4 threads up to 1024, one butterfly each per
-// stage.
+// launch_blocks for the kernels on ntt_forward/ntt_inverse (A and 7), a
+// limb over two blocks (with cluster, a cluster of two): n/2 words of shared
+// memory, n/4 threads up to 1024, one butterfly each per stage.
 template <typename... Params, typename... Args>
 int launch_split(void (*kernel)(Params...), dim3 grid, bool cluster, int log_n, void* stream,
                  Args... args) {
   const int n = 1 << log_n;
-  return launch_halves(kernel, grid, n / 4 < 1024 ? n / 4 : 1024, n / 2, cluster, stream,
+  return launch_blocks(kernel, grid, n / 4 < 1024 ? n / 4 : 1024, n / 2, cluster ? 2 : 0, stream,
                        args...);
 }
 

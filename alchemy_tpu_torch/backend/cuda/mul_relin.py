@@ -23,9 +23,9 @@ raw hints or Shoup pairs; c0 and c1 join after the rescale by P.
 On the H100 every kernel (and 5–9 in `rescale.py`) runs two blocks per
 (limb, row), each with half of the limb's n words in shared memory (64 KB
 at n = 2^15, 128 KB at 2^16, where a whole limb of 256 KB exceeds the
-227 KB a block can have); they take n ≤ 2^16. B and 4 run the
-register-blocked forward NTT of `csrc/zq.cuh` and read each block's slots
-in slot order through `slot_own`. The kernels work in the
+227 KB a block can have); they take n ≤ 2^16. B and 4 (and 5, 6, 8, 9)
+run the register-blocked NTT passes of `csrc/zq.cuh` and read or write
+each block's slots in slot order through `slot_own`. The kernels work in the
 bit-reversed order of a radix-2 NTT; `kernel_tables` maps it to the slot
 order at their boundaries, which is the `order` argument of every wrapper:
 "pallas", the 3-factor order of `backend/ntt3.py`, or "mxu", the 2-factor
@@ -124,18 +124,22 @@ def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
     """Host tables of the kernels (numpy):
 
     - `slot_ct`, `slot_inv` [n] int32: `slot_tables(n, order)`;
-    - `slot_own` [n] int32, kernels B and 4: for each half h, the slots it
-      owns (those of slot_inv[h·n/2 : (h+1)·n/2]) in slot order, each
-      packed with its radix-2 index in the half: s | (slot_ct[s] − h·n/2) << 16
-      (n ≤ 2^16);
+    - `slot_own` [n] int32, kernels B and 4 (and 5, 6, 8, 9): for each half
+      h, the slots it owns (those of slot_inv[h·n/2 : (h+1)·n/2]) in slot
+      order, each packed with its radix-2 index in the half:
+      s | (slot_ct[s] − h·n/2) << 16 (n ≤ 2^16);
+    - `slot_own4` [n] int32, kernels 5, 6, 8, 9 with a limb over four
+      blocks: the same for each quarter;
     - `fwd`, `inv` [L, 2, n] uint32: ψ^{±bitrev(k)} and Shoup companions;
     - `limbs` [L, 8] uint32: q, n⁻¹, its companion, ⌊2^32/q⌋ and the two
       words of ⌊2^64/q⌋ (zq.cuh `Limb`).
     """
     slot_ct, slot_inv = slot_tables(n, order)
-    own = np.sort(slot_inv.reshape(2, n // 2).astype(np.int64), axis=1)
-    local = slot_ct[own] - np.arange(2)[:, None] * (n // 2)
-    slot_own = (own | local << 16).reshape(n).astype(np.int32)
+
+    def owned(parts):
+        own = np.sort(slot_inv.reshape(parts, n // parts).astype(np.int64), axis=1)
+        local = slot_ct[own] - np.arange(parts)[:, None] * (n // parts)
+        return (own | local << 16).reshape(n).astype(np.int32)
     br = _bitrev(np.arange(n, dtype=np.int64), n.bit_length() - 1)
     L = len(qs)
     fwd = np.empty((L, 2, n), dtype=np.uint32)
@@ -149,16 +153,19 @@ def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
         barrett = (1 << 64) // q
         limbs[li, :6] = (q, n_inv, shoup_const(n_inv, q), (1 << 32) // q,
                          barrett & 0xFFFFFFFF, barrett >> 32)
-    return {"slot_ct": slot_ct, "slot_inv": slot_inv, "slot_own": slot_own, "fwd": fwd,
-            "inv": inv, "limbs": limbs}
+    return {"slot_ct": slot_ct, "slot_inv": slot_inv, "slot_own": owned(2),
+            "slot_own4": owned(4), "fwd": fwd, "inv": inv, "limbs": limbs}
 
 
 @lru_cache(maxsize=None)
 def _device_tables(n: int, qs: tuple[int, ...], order: str, device: str) -> dict:
-    """The tables the kernels read (`limbs`, `fwd`, `inv`, `slot_inv`, `slot_own`) on
-    `device`."""
-    return {k: torch.from_numpy(v.view(np.int32)).to(device)
-            for k, v in kernel_tables(n, qs, order).items() if k != "slot_ct"}
+    """The tables the kernels read on `device`: `limbs`, `fwd`, `inv`,
+    `slot_inv`, `slot_own`, and `grid_own` [2n] (slot_own, then slot_own4)
+    for kernels 5, 6, 8, 9."""
+    t = kernel_tables(n, qs, order)
+    host = {k: t[k] for k in ("limbs", "fwd", "inv", "slot_inv", "slot_own")}
+    host["grid_own"] = np.concatenate([t["slot_own"], t["slot_own4"]])
+    return {k: torch.from_numpy(v.view(np.int32)).to(device) for k, v in host.items()}
 
 
 # ---------------------------------------------------------------------------

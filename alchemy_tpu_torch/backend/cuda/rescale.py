@@ -24,8 +24,11 @@ them as a 4-step NTT of bf16 digit-plane matmuls on its matrix unit; here
 they are the split radix-2 NTT of kernels 5 and 6 run with the 2-factor
 slot table: the same values x(ψ^{2K+1}), in the same slots.
 
-Same structure and bounds as kernels A, B and 4 (`mul_relin.py`): two blocks
-per (limb, row), each with half of the limb in shared memory (n ≤ 2^16).
+Same structure as kernels A, B and 4 (`mul_relin.py`): two blocks per (limb,
+row), each with half of the limb in shared memory (n ≤ 2^16); kernels 5, 6,
+8 and 9 run B's register-blocked passes (and their inverse mirror), take
+each block's slots in slot order through `slot_own`, and on grids that fit
+one wave spread a limb over four blocks (`csrc/rescale.cu` says why).
 Each wrapper takes the plain PyTorch version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises.
 """
@@ -60,11 +63,15 @@ from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
 
 #: launches of each kernel since the last `reset_launches()`
 LAUNCHES = {"intt_grid": 0, "ntt_grid": 0, "rescale_fwd": 0, "intt2_grid": 0, "ntt2_grid": 0}
+#: launches of the standalone transforms (5, 6, 8, 9) by shape since the last
+#: `reset_launches()`: {(name, G, T, n): count}
+LAUNCHES_BY_SHAPE: dict[tuple[str, int, int, int], int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_SHAPE.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +154,10 @@ def _grid(name: str, entry: str, order: str, n: int, qs: tuple[int, ...], x: tor
     twiddles = t["inv"] if entry == "intt_grid" else t["fwd"]
     build.check(getattr(build.library(), entry)(
         x.data_ptr(), out.data_ptr(), t["limbs"].data_ptr(), twiddles.data_ptr(),
-        t["slot_inv"].data_ptr(), G, T, n.bit_length() - 1, stream), name)
+        t["grid_own"].data_ptr(), G, T, n.bit_length() - 1, stream), name)
     LAUNCHES[name] += 1
+    key = (name, G, T, n)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return out
 
 

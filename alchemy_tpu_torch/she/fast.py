@@ -17,6 +17,7 @@ kernels A and B, in the slot order of `impl`, on the card.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from math import prod
 
 import numpy as np
 import torch
@@ -204,16 +205,34 @@ def decrypt(p: FastParams, s_ntt: torch.Tensor, ct: torch.Tensor) -> np.ndarray:
     return _garner_centered_mod(np.moveaxis(coeff, 0, -2), p.qs, p.zp)
 
 
+def kernel_hint(h, shape: tuple):
+    """A hint (raw, or a Shoup pair) as kernels B and 4 take it, from any
+    layout the JAX package's `mul_relin` takes: each tensor with the leading
+    dims of `shape` and trailing dims that multiply to n (the kernel-grid
+    shape [L, L, A, B·r] too, as `_flat` of fast.py:339) reshaped to `shape`,
+    made contiguous, and on the card copied where it starts off a 16-byte
+    boundary. Other shapes pass through, for the kernel wrappers to refuse."""
+    if isinstance(h, (tuple, list)):
+        return tuple(kernel_hint(x, shape) for x in h)
+    if h.shape != shape and h.shape[:len(shape) - 1] == shape[:-1] and h.numel() == prod(shape):
+        h = h.reshape(shape)
+    if not h.is_contiguous():
+        h = h.contiguous()
+    return h.clone() if h.is_cuda and h.data_ptr() % 16 else h
+
+
 def mul_relin(p: FastParams, ct_a: torch.Tensor, ct_b: torch.Tensor,
               hint_b, hint_a) -> torch.Tensor:
     """BGV multiply + relinearize, [..., 2, L, n] × [..., 2, L, n] →
     [..., 2, L, n] (fast.py:310): kernel A then kernel B, in the slot order
     of p.impl. Hints are raw [L, L, n] or Shoup pairs from
-    relin_hint(shoup=True)."""
+    relin_hint(shoup=True), in any layout (`kernel_hint`)."""
     lead = ct_a.shape[:-3]
-    shape = (-1, 2, len(p.qs), p.n)
+    L = len(p.qs)
+    shape = (-1, 2, L, p.n)
     c0, c1, c2c = tensor_intt(p.n, p.qs, ct_a.reshape(shape).contiguous(),
                               ct_b.reshape(shape).contiguous(), p.impl)
+    hint_b, hint_a = (kernel_hint(h, (L, L, p.n)) for h in (hint_b, hint_a))
     out = digit_relin(p.n, p.qs, c0, c1, c2c, hint_b, hint_a, p.impl)
     return out.reshape(*lead, *out.shape[1:])
 

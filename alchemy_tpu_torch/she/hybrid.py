@@ -54,7 +54,7 @@ from alchemy_tpu_torch.backend.modarith import (
     widen,
 )
 from alchemy_tpu_torch.nt.primes import find_ntt_prime
-from alchemy_tpu_torch.she.fast import FastParams, _ntt_p, _residues, _uniform
+from alchemy_tpu_torch.she.fast import FastParams, _ntt_p, _residues, _uniform, kernel_hint
 from alchemy_tpu_torch.she.keys import gaussian_coeffs
 
 # ---------------------------------------------------------------------------
@@ -225,6 +225,7 @@ def _mul_relin_hybrid(hk: HybridKS, ct_a, ct_b, hint_b, hint_a, tensor, digit_st
     shape = (-1, 2, L, n)
     c0, c1, c2c = tensor(n, p.qs, ct_a.reshape(shape).contiguous(),
                          ct_b.reshape(shape).contiguous(), p.impl)
+    hint_b, hint_a = (kernel_hint(h, (hk.dnum, len(pe.qs), n)) for h in (hint_b, hint_a))
     t01 = digit_stage(n, pe.qs, hk.groups, garner_pack(hk, c2c), hint_b, hint_a, p.impl)
     r01 = widen(rescale(pe, t01, len(hk.ps)))            # [2, Bt, L, n]
     q = qcol(p.qs, c0.device)
@@ -236,7 +237,8 @@ def mul_relin_hybrid(hk: HybridKS, ct_a: torch.Tensor, ct_b: torch.Tensor,
                      hint_b, hint_a) -> torch.Tensor:
     """BGV multiply + hybrid relinearization (hybrid.py:334): [..., 2, L, n]
     NTT-domain ciphertexts at the base chain → the same. Hints are raw
-    [dnum, T, n] or Shoup pairs (`fast.shoup_precompute` over hk.pe.qs).
+    [dnum, T, n] or Shoup pairs (`fast.shoup_precompute` over hk.pe.qs), in
+    any layout (`fast.kernel_hint`).
     Kernel A → Garner digits → kernel 4 → `rescale_joint` → + (c0, c1), in
     the slot order of hk.p.impl."""
     return _mul_relin_hybrid(hk, ct_a, ct_b, hint_b, hint_a, tensor_intt,

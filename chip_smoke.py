@@ -29,14 +29,22 @@ just before it:
   [hybrid16] [hybrid] at n = 2^16 (L = 16, dnum = 4, K = 4, raw then Shoup
             hints, 16 ciphertexts).
 
-The first four run at impl="pallas", the 3-factor slot order.
+The first four run at impl="pallas", the 3-factor slot order. Kernels 5,
+6, 8 and 9 then run again, checked and timed, at every [G, T, n] a path
+launched them with (rescale.LAUNCHES_BY_SHAPE, read per path) and at
+GRID_SHAPES in both orders: one `[grid]` line each with the launches, device
+ms and bound by shape.
 
 Every check is exact equality. Any failure exits non-zero; the last line of
 a passing run is one JSON object naming the device. The line before the
 card's name lists every kernel with its ring size, slot order, launches on
 the paths, device and plain ms, and its bound: the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its 32-bit integer multiplies
-over 132 SMs x 64 per clock at the card's maximum SM clock.
+over 132 SMs x 64 per clock at the card's maximum SM clock. Kernels 5, 6, 8
+and 9 have one entry per (ring size, slot order, shape) that a path launched,
+with `graph_ms`, the device time of the launches captured in a CUDA graph,
+`launches_by_path`, each path's own count, and `path`, the path whose count
+`launches` is (the one that launched the shape most).
 
     python3 chip_smoke.py        # from the root of a checkout, one GPU
 """
@@ -58,6 +66,13 @@ SMALL_HYBRID = (14, 5, 2)         # uneven digit groups (3, 2), K = 3
 HYBRID16 = (16, 16, 16)           # hybrid at n = 2^16: dnum = 4, K = 4, T = 20
 SMALL_HYBRID16 = (16, 5, 2)
 DEEP_DEPTH = 16
+# (G, T) of the standalone transforms on [G, T, n] at the shapes the paths give
+# them. Forward (6/8): keygen, hints and encrypt at L = 8; the hybrid hint over
+# T = 20 limbs; the deep chain's rescale of one ciphertext; fast.rescale of a
+# Bt = 16 batch. Inverse (5/9): decrypt; the deep chain's rescales; fast.rescale
+# of the batch; rescale_joint of the hybrid op at Bt = 16.
+GRID_SHAPES = {"forward": ((1, 8), (1, 20), (2, 16), (32, 7)),
+               "inverse": ((1, 8), (2, 16), (32, 8), (32, 20))}
 MUL_RELIN_TPU = "alchemy_tpu/backend/pallas/mul_relin_pallas.py"
 RESCALE_TPU = "alchemy_tpu/backend/pallas/rescale_pallas.py"
 NTT_TPU = "alchemy_tpu/backend/pallas/ntt_pallas.py"
@@ -104,6 +119,28 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() in ms over reps launches captured in one
+    CUDA graph and replayed (after one warm-up call and one replay): the
+    kernels back to back, without the host's time between launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / reps
+
+
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item())
 
@@ -121,6 +158,13 @@ def launches() -> dict:
     from alchemy_tpu_torch.backend.cuda import rescale as rk
 
     return {**mr.LAUNCHES, **rk.LAUNCHES}
+
+
+def shape_launches() -> dict:
+    """Launches of kernels 5, 6, 8, 9 by (name, G, T, n) since the reset."""
+    from alchemy_tpu_torch.backend.cuda import rescale as rk
+
+    return dict(rk.LAUNCHES_BY_SHAPE)
 
 
 def host_ms(fn):
@@ -233,14 +277,13 @@ def grid_names(order: str) -> tuple[str, str]:
     return ("intt2_grid", "ntt2_grid") if order == "mxu" else ("intt_grid", "ntt_grid")
 
 
-def grid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
-                      order: str = "pallas") -> dict:
+def grid_kernel_phase(log_n: int, L: int, Bt: int, rng, order: str = "pallas") -> dict:
     """The standalone transforms of a slot order (kernels 5 and 6, or 9 and
     8) against their plain versions on any uint32 rows at every shape the
     TrivGad path gives them: the inverse on [2·Bt, L, n] (the rescale of a
     batch) and [1, L, n] (decrypt), the forward on [2·Bt, L − 1, n] over the
     first L − 1 limbs (the rescale) and [1, L, n] (keygen, hints, encrypt).
-    Times and bound are taken at each kernel's largest call."""
+    Returns each kernel's largest error (grid_report times them)."""
     import torch
 
     from alchemy_tpu_torch.backend.cuda import rescale as rk
@@ -252,11 +295,11 @@ def grid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
                                          .astype("uint32").view("int32")).cuda()
     (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
     inv_name, fwd_name = grid_names(order)
-    # name: (kernel, plain, multiplies per word besides the NTT, [(rows, limbs), ...] largest first)
-    calls = {inv_name: (inv, inv_plain, REDUCE + MUL_CONST, [(2 * Bt, qs), (1, qs)]),
-             fwd_name: (fwd, fwd_plain, REDUCE, [(2 * Bt, qs[:-1]), (1, qs)])}
+    # name: (kernel, plain, [(rows, limbs), ...])
+    calls = {inv_name: (inv, inv_plain, [(2 * Bt, qs), (1, qs)]),
+             fwd_name: (fwd, fwd_plain, [(2 * Bt, qs[:-1]), (1, qs)])}
     res = {}
-    for name, (kern, plain, muls, shapes) in calls.items():
+    for name, (kern, plain, shapes) in calls.items():
         errs = []
         for G, limbs in shapes:
             x = u32((G, len(limbs), n))
@@ -265,17 +308,61 @@ def grid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
             errs.append(max_abs_err(got, plain(n, limbs, x)))
             check(errs[-1] == 0, f"{name} != plain at n=2^{log_n} on [{G}, {len(limbs)}, n] "
                                  f"(max abs err {errs[-1]})")
-        G, limbs = shapes[0]
-        T, x = len(limbs), u32((G, len(limbs), n))
-        res[name] = {"err": max(errs), "bytes": 4 * (2 * G * T * n + 2 * T * n + n),
-                     "muls": G * T * (muls * n + ntt_muls(n))}
-        if timed:
-            res[name].update(ms=device_ms(lambda: kern(n, limbs, x), 20),
-                             plain_ms=device_ms(lambda: plain(n, limbs, x), 3))
+        res[name] = {"err": max(errs)}
     print(f"[kernels] n=2^{log_n} L={L} order={order}: {inv_name} on [{2 * Bt}, {L}, n] and "
           f"[1, {L}, n], {fwd_name} on [{2 * Bt}, {L - 1}, n] and [1, {L}, n] bit-identical to "
           "plain " + fmt(res), flush=True)
     return res
+
+
+def grid_cost(inverse: bool, G: int, T: int, n: int) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of a standalone transform on [G, T, n]:
+    rows in and out, twiddles and companions, the slot table; per word its
+    reduction (and the inverse's scale by n^-1), and the NTT."""
+    return (4 * (2 * G * T * n + 2 * T * n + n),
+            G * T * ((REDUCE + (MUL_CONST if inverse else 0)) * n + ntt_muls(n)))
+
+
+def grid_shape_phase(log_n: int, order: str, shapes, rng, reps: int = 20) -> dict:
+    """The standalone transforms of a slot order (kernels 5 and 6, or 9 and
+    8) against their plain versions on any uint32 rows at each (name, G, T)
+    of shapes, over the first T limbs of one chain; with reps > 0 each is
+    timed, launched one by one (ms) and from a CUDA graph (graph_ms), and so
+    is its plain version (plain_ms). Returns {(name, G, T): {"err", "bytes",
+    "muls"[, "ms", "graph_ms", "plain_ms"]}}."""
+    import torch
+
+    from alchemy_tpu_torch.backend.cuda import rescale as rk
+    from alchemy_tpu_torch.she import fast
+
+    n = 1 << log_n
+    qs = fast.FastParams.make(log_n, max(T for _, _, T in shapes)).qs
+    inv_name = grid_names(order)[0]
+    (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
+    res = {}
+    for name, G, T in sorted(shapes):
+        kern, plain = (inv, inv_plain) if name == inv_name else (fwd, fwd_plain)
+        x = torch.from_numpy(rng.integers(0, 1 << 32, (G, T, n), dtype="uint64")
+                             .astype("uint32").view("int32")).cuda()
+        got = kern(n, qs[:T], x)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, plain(n, qs[:T], x))
+        check(err == 0, f"{name} != plain at n=2^{log_n} on [{G}, {T}, n] (max abs err {err})")
+        nbytes, muls = grid_cost(name == inv_name, G, T, n)
+        r = res[name, G, T] = {"err": err, "bytes": nbytes, "muls": muls}
+        if reps:
+            r["ms"] = device_ms(lambda: kern(n, qs[:T], x), reps)
+            r["graph_ms"] = graph_ms(lambda: kern(n, qs[:T], x), reps)
+            r["plain_ms"] = device_ms(lambda: plain(n, qs[:T], x), 3)
+        del x, got
+    return res
+
+
+def representative_shapes(order: str) -> set:
+    """(name, G, T) of GRID_SHAPES in a slot order's kernel names."""
+    inv_name, fwd_name = grid_names(order)
+    return {(name, G, T) for name, key in ((inv_name, "inverse"), (fwd_name, "forward"))
+            for G, T in GRID_SHAPES[key]}
 
 
 def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
@@ -283,7 +370,8 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
     """Kernels 4 (raw and Shoup hints) and 7 in a slot order, and that
     order's standalone transforms (5 and 6, or 9 and 8), against their plain
     versions on the card at the shapes of the hybrid path; returns the
-    errors and device times."""
+    errors, and with timed the device times of 4 and 7 (grid_report times
+    the transforms)."""
     import torch
 
     from alchemy_tpu_torch.backend.cuda import mul_relin as mr
@@ -318,7 +406,7 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
                      + 2 * Bt * T * n),
                 Bt * T * (MUL_CONST * L * n + hk.dnum * (ntt + 2 * hint_mul * n)))
 
-    G5, G7 = 2 * Bt, 2 * Bt
+    G7 = 2 * Bt
     calls = {
         "hybrid_digit_relin": (lambda: mr.hybrid_digit_stage(n, pe.qs, groups, x, *raw, order),
                                lambda: mr.hybrid_digit_stage_plain(n, pe.qs, groups, x, *raw,
@@ -328,24 +416,22 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
             lambda: mr.hybrid_digit_stage(n, pe.qs, groups, x, *shoup, order),
             lambda: mr.hybrid_digit_stage_plain(n, pe.qs, groups, x, *shoup, order),
             k4_cost(4, MUL_CONST)),
-        inv_name: (lambda: inv(n, pe.qs, rows5), lambda: inv_plain(n, pe.qs, rows5),
-                   (4 * (2 * G5 * T * n + 2 * T * n + n),
-                    G5 * T * ((REDUCE + MUL_CONST) * n + ntt))),
-        fwd_name: (lambda: fwd(n, keep, rows6), lambda: fwd_plain(n, keep, rows6),
-                   (4 * (4 * L * n + 2 * L * n + n), 2 * L * (REDUCE * n + ntt))),
+        inv_name: (lambda: inv(n, pe.qs, rows5), lambda: inv_plain(n, pe.qs, rows5), None),
+        fwd_name: (lambda: fwd(n, keep, rows6), lambda: fwd_plain(n, keep, rows6), None),
         "rescale_fwd": (lambda: rk.rescale_fwd(*args7), lambda: rk.rescale_fwd_plain(*args7),
                         (4 * (G7 * (2 * L + K + 3) * n + 2 * L * n + n + L * (4 + 2 * K)),
                          G7 * L * (MUL_CONST * (K + 2) * n + ntt))),
     }
     res = {}
-    for name, (kern, plain, (nbytes, muls)) in calls.items():
+    for name, (kern, plain, cost) in calls.items():
         got = kern()
         torch.cuda.synchronize()
         err = max_abs_err(got, plain())
         check(err == 0, f"{name} != plain at n=2^{log_n} L={L} Bt={Bt} (max abs err {err})")
-        res[name] = {"err": err, "bytes": nbytes, "muls": muls}
-        if timed:
-            res[name].update(ms=device_ms(kern, 20), plain_ms=device_ms(plain, 3))
+        res[name] = {"err": err}
+        if timed and cost:
+            res[name].update(bytes=cost[0], muls=cost[1], ms=device_ms(kern, 20),
+                             plain_ms=device_ms(plain, 3))
     print(f"[kernels] n=2^{log_n} L={L} dnum={hk.dnum} K={K} T={T} Bt={Bt} order={order}: "
           f"kernels 4 (raw, Shoup), {inv_name}, {fwd_name}, 7 bit-identical to plain " + fmt(res),
           flush=True)
@@ -393,25 +479,28 @@ def main_path(rng, card: str, config: tuple[int, int, int], tag: str, impl: str)
     dec_ms /= Bt
     for i in range(Bt):
         check(np.array_equal(dec[i], want[i]), f"decrypt of product {i}")
-    down, resc_ms = host_ms(lambda: fast.rescale(p, out, 1))
+    down, resc_first_ms = host_ms(lambda: fast.rescale(p, out, 1))
     p7 = replace(p, qs=p.qs[:-1])
     for i in range(Bt):
         check(np.array_equal(fast.decrypt(p7, s[:-1], down[i]), want[i]),
               f"decrypt of rescaled product {i}")
     torch.cuda.synchronize()
-    seen = launches()
+    seen, by_shape = launches(), shape_launches()
     inv_name, fwd_name = grid_names(impl)
     check(all(seen[k] > 0 for k in ("tensor_intt", "digit_relin", inv_name, fwd_name))
           and sum(seen[k] for k in (*grid_names("mxu"), *grid_names("pallas"))) ==
           seen[inv_name] + seen[fwd_name], f"kernel launches on the {tag} path: {seen}")
+    # the first call also pays the caching allocator's cudaMalloc of its int64 temporaries
+    _, resc_ms = host_ms(lambda: fast.rescale(p, out, 1))
     print(f"[{tag}] {Bt} products decrypt to the negacyclic products mod 2; "
           f"rescale to L={L - 1} decrypts the same; host ms: decrypt_per_ct={dec_ms:.3f} "
-          f"rescale_{Bt}ct={resc_ms:.3f}; launches {seen}", flush=True)
+          f"rescale_{Bt}ct={resc_ms:.3f} (first call {resc_first_ms:.3f}); launches {seen}",
+          flush=True)
 
     ops, us = rate(lambda: fast.mul_relin(p, ct_a, ct_b, hb, ha), Bt, 50)
     print(f"[perf] mul_relin n=2^{log_n} L={L} Bt={Bt} impl={impl}: {ops:.1f} ops/s (host clock), "
           f"device {us:.2f} us/ct ({us * Bt / 1000:.4f} ms/batch) on {card}", flush=True)
-    return {"launches": seen, "ops_per_s": ops, "device_us_per_ct": us}
+    return {"launches": seen, "by_shape": by_shape, "ops_per_s": ops, "device_us_per_ct": us}
 
 
 def hybrid_path(rng, card: str, config: tuple[int, int, int], tag: str, trivgad: bool) -> dict:
@@ -441,7 +530,7 @@ def hybrid_path(rng, card: str, config: tuple[int, int, int], tag: str, trivgad:
     reset_launches()
     out = hybrid.mul_relin_hybrid(hk, ct_a, ct_b, hb, ha)
     torch.cuda.synchronize()
-    seen = launches()
+    seen, by_shape = launches(), shape_launches()
     check(all(seen[k] > 0 for k in ("tensor_intt", "hybrid_digit_relin", "intt_grid",
                                     "rescale_fwd")), f"kernel launches on the hybrid path: {seen}")
     check(tuple(out.shape) == (Bt, 2, L, p.n), f"mul_relin_hybrid shape {tuple(out.shape)}")
@@ -459,7 +548,7 @@ def hybrid_path(rng, card: str, config: tuple[int, int, int], tag: str, trivgad:
           f"to the plain path (raw and Shoup hints); {Bt} products decrypt to the negacyclic "
           "products mod 2", flush=True)
 
-    res = {"launches": seen}
+    res = {"launches": seen, "by_shape": by_shape}
     for name, hints in (("raw", (hb, ha)), ("shoup", hs)):
         res[name] = rate(lambda: hybrid.mul_relin_hybrid(hk, ct_a, ct_b, *hints), Bt, 20)
     # where the device time of one raw-hint call goes
@@ -500,7 +589,7 @@ def deep_path(card: str, tag: str, impl: str) -> dict:
     ok, ct, level_ms = run(log_n=DEEP[0], depth=DEEP_DEPTH, impl=impl, ks="hybrid",
                            device="cuda", verbose=False)
     wall = time.perf_counter() - t0
-    seen = launches()
+    seen, by_shape = launches(), shape_launches()
     inv_name, fwd_name = grid_names(impl)
     check(ok, f"deep circuit impl={impl}: decrypt != the squaring chain")
     check(all(seen[k] > 0 for k in ("tensor_intt", "hybrid_digit_relin", inv_name, fwd_name,
@@ -510,7 +599,45 @@ def deep_path(card: str, tag: str, impl: str) -> dict:
           f"{wall:.2f} s (host clock) on {card}; launches {seen}", flush=True)
     print(f"[{tag}] per-level ms (hint + mul_relin_hybrid + rescale): "
           + " ".join(f"{v:.1f}" for v in level_ms), flush=True)
-    return {"launches": seen, "level_ms": level_ms, "wall_s": wall}
+    return {"launches": seen, "by_shape": by_shape, "level_ms": level_ms, "wall_s": wall}
+
+
+def grid_report(runs: dict, rng, clock_hz: float) -> dict:
+    """Kernels 5, 6, 8 and 9 at every shape a path launched them with and at
+    GRID_SHAPES, per (log2 n, order) of runs ({tag: result} of the paths
+    that ran there): checked, timed, with each path's launches by shape
+    ("by_path") and bound. Prints each kernel's shapes and its ranking,
+    launches x (ms - bound) summed over its shapes and the paths; also checks
+    GRID_SHAPES at n = 2^14. Returns {(log2 n, order): {(name, G, T):
+    record}}."""
+    grid = {}
+    for order in ("pallas", "mxu"):
+        grid_shape_phase(SMALL[0], order, representative_shapes(order), rng, reps=0)
+    for (log_n, order), paths in runs.items():
+        by_path = {}
+        for tag, r in paths.items():
+            for (name, G, T, n), c in r["by_shape"].items():
+                if n == 1 << log_n and name in grid_names(order):
+                    by_path.setdefault((name, G, T), {})[tag] = c
+        res = grid_shape_phase(log_n, order, representative_shapes(order) | set(by_path), rng)
+        for key, r in res.items():
+            r["by_path"] = by_path.get(key, {})
+            r["launches"] = sum(r["by_path"].values())
+            r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["muls"], clock_hz)
+        grid[log_n, order] = res
+        for name in grid_names(order):
+            mine = sorted((k, r) for k, r in res.items() if k[0] == name)
+            loss, graph_loss = (sum(r["launches"] * (r[key] - r["bound_ms"]) for _, r in mine)
+                                for key in ("ms", "graph_ms"))
+            print(f"[grid] n=2^{log_n} order={order} {name}: errors 0 at {len(mine)} shapes; "
+                  f"launches over the paths {sum(r['launches'] for _, r in mine)}, sum of "
+                  f"launches x (ms - bound) {loss:.4f} ms, x (graph_ms - bound) "
+                  f"{graph_loss:.4f} ms; "
+                  "[G,T]:launches@ms/graph_ms/bound_ms " + " ".join(
+                      f"[{G},{T}]:{r['launches']}@{r['ms']:.4f}/{r['graph_ms']:.4f}/"
+                      f"{r['bound_ms']:.4f}" for (_, G, T), r in mine), flush=True)
+    print(f"[grid] GRID_SHAPES at n=2^{SMALL[0]} in both orders: errors 0", flush=True)
+    return grid
 
 
 def main() -> int:
@@ -549,12 +676,11 @@ def main() -> int:
     small = kernel_phase(*SMALL, rng, timed=False)
     deep_k = hybrid_kernel_phase(*DEEP, rng, timed=True)
     small_k = hybrid_kernel_phase(*SMALL_HYBRID, rng, timed=False)
-    big = {**kernel_phase(*N2E16, rng, timed=True), **grid_kernel_phase(*N2E16, rng, timed=True)}
+    big = kernel_phase(*N2E16, rng, timed=True)
+    # 5/6/8/9 at the paths' shapes: checked and timed by grid_report
     big_small = {**kernel_phase(*SMALL_N2E16, rng, timed=False),
-                 **grid_kernel_phase(*SMALL_N2E16, rng, timed=False)}
-    head_grid = grid_kernel_phase(*HEADLINE, rng, timed=True)   # 5 and 6 beside 9 and 8
-    mxu_k = grid_kernel_phase(*HEADLINE, rng, timed=True, order="mxu")
-    mxu_small = {**grid_kernel_phase(*SMALL_N2E16, rng, timed=False, order="mxu"),
+                 **grid_kernel_phase(*SMALL_N2E16, rng)}
+    mxu_small = {**grid_kernel_phase(*SMALL_N2E16, rng, order="mxu"),
                  **hybrid_kernel_phase(*SMALL_HYBRID, rng, timed=False, order="mxu")}
     h16_k = hybrid_kernel_phase(*HYBRID16, rng, timed=True)
     h16_small = hybrid_kernel_phase(*SMALL_HYBRID16, rng, timed=False)
@@ -565,6 +691,10 @@ def main() -> int:
     mx = main_path(rng, card, HEADLINE, "mxu", "mxu")
     mxd = deep_path(card, "mxu", "mxu")
     h16 = hybrid_path(rng, card, HYBRID16, "hybrid16", trivgad=False)
+    grid = grid_report({(HEADLINE[0], "pallas"): {"main": mp, "hybrid": hy, "deep": dp},
+                        (N2E16[0], "pallas"): {"n2e16": mp16, "hybrid16": h16},
+                        (HEADLINE[0], "mxu"): {"mxu": mx, "mxu deep": mxd},
+                        (N2E16[0], "mxu"): {}}, rng, clock_hz)
 
     def entry(name, n, replaces, source, launched, timed, *checked, order="pallas"):
         """One kernel's line at one slot order: times and bound from the
@@ -579,6 +709,19 @@ def main() -> int:
 
     n15, n16 = 1 << HEADLINE[0], 1 << N2E16[0]
     mr_tpu, rs_tpu, ntt_tpu = MUL_RELIN_TPU + ":", RESCALE_TPU + ":", NTT_TPU + ":"
+    grid_tpu = {"intt_grid": rs_tpu + "52", "ntt_grid": rs_tpu + "142",
+                "ntt2_grid": ntt_tpu + "211", "intt2_grid": ntt_tpu + "232"}
+    # kernels 5, 6, 8, 9: one entry per shape a path launched; `launches` is the
+    # count of the path that launched it most
+    grid_entries = [
+        {"name": name, "n": 1 << log_n, "order": order, "shape": [G, T, 1 << log_n],
+         "route": "cuda", "source": RESCALE_CU, "replaces": grid_tpu[name],
+         "path": top, "launches": r["by_path"][top], "launches_by_path": r["by_path"],
+         "max_abs_err": r["err"], "ms": r["ms"], "graph_ms": r["graph_ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": None}
+        for (log_n, order), res in grid.items() for (name, G, T), r in sorted(res.items())
+        if r["by_path"] for top in [max(r["by_path"], key=r["by_path"].get)]]
     kernels = [
         entry("tensor_intt", n15, mr_tpu + "232", MUL_RELIN_CU, mp["launches"]["tensor_intt"],
               head["tensor_intt"], head, small),
@@ -589,28 +732,17 @@ def main() -> int:
         entry("hybrid_digit_relin", n15, mr_tpu + "807", MUL_RELIN_CU,
               hy["launches"]["hybrid_digit_relin"], deep_k["hybrid_digit_relin"], deep_k, small_k,
               mxu_small),
-        entry("intt_grid", n15, rs_tpu + "52", RESCALE_CU, hy["launches"]["intt_grid"],
-              deep_k["intt_grid"], deep_k, small_k, head_grid),
-        entry("ntt_grid", n15, rs_tpu + "142", RESCALE_CU, dp["launches"]["ntt_grid"],
-              deep_k["ntt_grid"], deep_k, small_k, head_grid),
         entry("rescale_fwd", n15, rs_tpu + "206", RESCALE_CU, hy["launches"]["rescale_fwd"],
               deep_k["rescale_fwd"], deep_k, small_k, mxu_small),
-        entry("ntt2_grid", n15, ntt_tpu + "211", RESCALE_CU, mx["launches"]["ntt2_grid"],
-              mxu_k["ntt2_grid"], mxu_k, mxu_small, order="mxu"),
-        entry("intt2_grid", n15, ntt_tpu + "232", RESCALE_CU, mx["launches"]["intt2_grid"],
-              mxu_k["intt2_grid"], mxu_k, mxu_small, order="mxu"),
         entry("tensor_intt", n16, mr_tpu + "232", MUL_RELIN_CU, mp16["launches"]["tensor_intt"],
               big["tensor_intt"], big, big_small),
         entry("digit_relin", n16, mr_tpu + "319", MUL_RELIN_CU, mp16["launches"]["digit_relin"],
               big["digit_relin"], big, big_small),
-        entry("intt_grid", n16, rs_tpu + "52", RESCALE_CU, mp16["launches"]["intt_grid"],
-              big["intt_grid"], big, big_small),
-        entry("ntt_grid", n16, rs_tpu + "142", RESCALE_CU, mp16["launches"]["ntt_grid"],
-              big["ntt_grid"], big, big_small),
         entry("hybrid_digit_relin", n16, mr_tpu + "807", MUL_RELIN_CU,
               h16["launches"]["hybrid_digit_relin"], h16_k["hybrid_digit_relin"], h16_k, h16_small),
         entry("rescale_fwd", n16, rs_tpu + "206", RESCALE_CU, h16["launches"]["rescale_fwd"],
               h16_k["rescale_fwd"], h16_k, h16_small),
+        *grid_entries,
     ]
     print(f"[summary] mul_relin ops/s (host clock): main {mp['ops_per_s']:.1f}, "
           f"n2e16 {mp16['ops_per_s']:.1f}, mxu {mx['ops_per_s']:.1f}; mul_relin_hybrid raw: "

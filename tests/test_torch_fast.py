@@ -173,6 +173,82 @@ def test_mxu_slice_matches_jax(shoup):
         assert np.array_equal(jfast.decrypt(jdown, sj[:-1], down_j[i]), want)
 
 
+def _strided(h):
+    """The same values in a non-contiguous layout (a transposed-and-back view)."""
+    if isinstance(h, (tuple, list)):
+        return tuple(map(_strided, h))
+    out = h.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not out.is_contiguous() and torch.equal(out, h)
+    return out
+
+
+def _grid_shaped(h, n):
+    """The kernel-grid shape [L, L, A, B·r] of the JAX package's
+    `prep_pallas_hints`, as a non-contiguous view."""
+    from alchemy_tpu_torch.backend.ntt3 import _split3
+
+    if isinstance(h, (tuple, list)):
+        return tuple(_grid_shaped(x, n) for x in h)
+    A, B, r = _split3(n)
+    return _strided(h).reshape(*h.shape[:2], A, B * r)
+
+
+@pytest.mark.parametrize("layout", ["strided", "grid"])
+@pytest.mark.parametrize("shoup", [False, True], ids=["raw", "shoup"])
+def test_mul_relin_takes_any_hint_layout(layout, shoup):
+    """Hints that are views (non-contiguous) or in the kernel-grid shape
+    give the same product as contiguous [L, L, n] hints, and the JAX
+    package's `_mul_relin_jnp` on the same values, at n = 2^6."""
+    jp = jfast.FastParams.make(6, 3, impl="mxu")
+    tp = tfast.FastParams.make(6, 3)
+    rng = np.random.default_rng(60)
+    s = tfast.keygen(tp, rng, device="cpu")
+    hints = tfast.relin_hint(tp, s, rng, shoup=shoup)
+    cts = torch.stack([tfast.encrypt(tp, s, rng.integers(0, 2, tp.n), rng) for _ in range(4)])
+    want = tfast.mul_relin(tp, cts[:2], cts[2:], *hints)
+    views = [_strided(h) if layout == "strided" else _grid_shaped(h, tp.n) for h in hints]
+    out = tfast.mul_relin(tp, cts[:2], cts[2:], *views)
+    assert torch.equal(out, want)
+    # the JAX package is given the same views (its `_flat` takes the grid shape)
+    to_jax = lambda h: tuple(map(jnp.asarray, to_numpy(h))) if isinstance(h, tuple) \
+        else jnp.asarray(to_numpy(h))
+    cj = jnp.asarray(to_numpy(cts))
+    assert _eq(jfast._mul_relin_jnp(jp, cj[:2], cj[2:], *map(to_jax, views)), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shoup", [False, True], ids=["raw", "shoup"])
+def test_mul_relin_takes_misaligned_hints_on_the_card(shoup):
+    """A hint at storage offset 1 (off the 16-byte boundary kernels B and 4
+    read from) is copied by the op entry points, TrivGad and hybrid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from alchemy_tpu_torch.she import hybrid as thyb
+
+    def misaligned(h):
+        if isinstance(h, (tuple, list)):
+            return tuple(map(misaligned, h))
+        out = torch.empty(h.numel() + 1, dtype=h.dtype, device=h.device)[1:].view(h.shape)
+        out.copy_(h)
+        assert out.data_ptr() % 16
+        return out
+
+    tp = tfast.FastParams.make(14, 3)
+    rng = np.random.default_rng(14)
+    s = tfast.keygen(tp, rng, device="cuda")
+    hints = tfast.relin_hint(tp, s, rng, shoup=shoup)
+    cts = torch.stack([tfast.encrypt(tp, s, rng.integers(0, 2, tp.n), rng) for _ in range(4)])
+    want = tfast.mul_relin(tp, cts[:2], cts[2:], *hints)
+    assert torch.equal(tfast.mul_relin(tp, cts[:2], cts[2:], *map(misaligned, hints)), want)
+    hk = thyb.HybridKS.make(tp)
+    s_h, hh = thyb.hybrid_keygen_hint(hk, rng, device="cuda")
+    if shoup:
+        hh = tuple(tfast.shoup_precompute(h, hk.pe.qs) for h in hh)
+    cts = torch.stack([tfast.encrypt(tp, s_h, rng.integers(0, 2, tp.n), rng) for _ in range(4)])
+    want = thyb.mul_relin_hybrid(hk, cts[:2], cts[2:], *hh)
+    assert torch.equal(thyb.mul_relin_hybrid(hk, cts[:2], cts[2:], *map(misaligned, hh)), want)
+
+
 def test_rescale_matches_jax_mxu():
     jp = jfast.FastParams.make(11, 4, impl="mxu")
     tp = tfast.FastParams.make(11, 4, impl="mxu")

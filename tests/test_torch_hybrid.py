@@ -142,6 +142,36 @@ def test_mul_relin_hybrid_matches_jax_mxu(shoup):
                               _negacyclic_mod2(msgs[0, i], msgs[1, i]))
 
 
+@pytest.mark.parametrize("layout", ["strided", "grid"])
+@pytest.mark.parametrize("shoup", [False, True], ids=["raw", "shoup"])
+def test_mul_relin_hybrid_takes_any_hint_layout(layout, shoup):
+    """Hybrid hints that are views (non-contiguous), or in a kernel-grid
+    shape [dnum, T, A, B·r], give the same product as contiguous
+    [dnum, T, n] hints, and the JAX package's jnp path on the same values,
+    at n = 2^6 with uneven groups 3 + 2."""
+    from alchemy_tpu_torch.backend.ntt3 import _split3
+
+    jhk, thk, rj, rt, sj, st, hj, ht = _setup(6, 5, seed=66)
+    n = 1 << 6
+    cts = jnp.stack([jfast.encrypt(jhk.p, sj, rj.integers(0, 2, n), rj) for _ in range(4)])
+    a, b = to_torch(cts[:2], "cpu"), to_torch(cts[2:], "cpu")
+    if shoup:
+        ht = tuple(tfast.shoup_precompute(h, thk.pe.qs) for h in ht)
+    A, B, r = _split3(n)
+
+    def view(h):
+        if isinstance(h, (tuple, list)):
+            return tuple(map(view, h))
+        out = h.transpose(0, 1).contiguous().transpose(0, 1)
+        assert not out.is_contiguous() and torch.equal(out, h)
+        return out if layout == "strided" else out.reshape(*h.shape[:2], A, B * r)
+
+    want = thyb.mul_relin_hybrid(thk, a, b, *ht)
+    assert torch.equal(thyb.mul_relin_hybrid(thk, a, b, *map(view, ht)), want)
+    assert torch.equal(thyb.mul_relin_hybrid_plain(thk, a, b, *map(view, ht)), want)
+    assert _eq(jhyb._mul_relin_hybrid_jnp(jhk, cts[:2], cts[2:], *hj), want)
+
+
 def _x_pack(x, n):
     """The port's Garner digits x [Bt, L, n] (natural order, rows
     group-major) → the Pallas kernel's x_pack [Bt, A, L·Br]:

@@ -1,8 +1,9 @@
 """alchemy_tpu_torch kernels A and B (backend/cuda/mul_relin.py): the plain
 versions against the JAX package's mul_relin (exact equality), the host
 tables the CUDA kernels use against the 3-factor slot order, and the index
-schedules of the kernels (each limb split over two blocks; B and 4's
-register-blocked passes) emulated in numpy."""
+schedules of the kernels (each limb split over two blocks; the
+register-blocked passes of B and 4, and of 5, 6, 8 and 9) emulated in
+numpy."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -118,7 +119,7 @@ def _bitrev_inverse(a, tw, q, split=0, part=0):
 
 
 def _split_forward(x, tw, q, slot_inv):
-    """Kernels B and 6 as they run (rescale.cu ntt_grid_kernel): block
+    """Kernel 7's transform as it runs (rescale.cu rescale_fwd_kernel): block
     `part` fuses the first stage into its load (zq.cuh forward_first_stage,
     any uint32 x), runs the stages inside its half and writes slot
     slot_inv[part·n/2 + j] from its word j → the row in slot order."""
@@ -131,7 +132,7 @@ def _split_forward(x, tw, q, slot_inv):
 
 
 def _split_inverse(y, tw, q, slot_inv, n_inv):
-    """Kernels A and 5 as they run (rescale.cu intt_grid_kernel): block
+    """Kernel A's inverse as it runs (mul_relin.cu tensor_intt_kernel): block
     `part` gathers the slots slot_inv[part·n/2 + j], runs the stages inside
     its half, and the cluster's last stage (zq.cuh inverse_last_stage) pairs
     the halves and scales by n⁻¹ → natural-order coefficients."""
@@ -182,7 +183,7 @@ def test_kernel_tables_map_radix2_order_to_slot_order_full_size(log_n):
 
 @pytest.mark.parametrize("log_n", [10, 11, 12, 16])
 def test_split_schedule_matches_ntt3(log_n):
-    """The index logic of kernels A, B, 5 and 6 (two blocks per limb, the
+    """The index logic of kernels A and 7 (two blocks per limb, the
     slot_inv ownership, the fused first forward stage and the cross-half
     last inverse stage) against ntt3/intt3 (exact), at 2^16 (the radix-4
     slot order) and at small sizes."""
@@ -212,14 +213,14 @@ def _pad(j):
     return j + (j >> 5)
 
 
-def _rb_butterflies(v, log_n, part, lo_b, hi, tw, q):
+def _rb_butterflies(v, log_n, part, lo_b, hi, tw, q, split=1):
     """zq.cuh pass_butterflies on v [R, groups], a group a column (hi its
     high index bits): stage u pairs r with r + R/2^(u+1) under twiddle
-    m + part·m/2 + (hi << u) + (r >> (RL − u))."""
+    m + part·m/2^split + (hi << u) + (r >> (RL − u))."""
     RL = len(v).bit_length() - 1
     for u in range(RL):
         m = 1 << (log_n - lo_b - RL + u)
-        w0 = m + part * (m >> 1) + (hi << u)
+        w0 = m + part * (m >> split) + (hi << u)
         t = len(v) >> (u + 1)
         for blk in range(1 << u):
             w = tw[w0 + blk]
@@ -230,15 +231,17 @@ def _rb_butterflies(v, log_n, part, lo_b, hi, tw, q):
     return v
 
 
-def _rb_forward(x, tw, q, part, max_rl, first_rl, pair):
+def _rb_forward(x, tw, q, part, max_rl, first_rl, pair, split=1):
     """zq.cuh ntt_forward_passes (or ntt_forward_pair) of half `part` of row
     x (any uint32) in numpy → the padded shared half. The first pass takes
     words j and j + n/2 of each group from x (pair: from the two blocks'
     staged halves, x_j and w·x_{j+n/2}) and runs the cross-half stage on them,
     then first_rl stages; later passes take max_rl stages from shared memory.
     The groups of every pass cover the half once, group g on thread
-    g mod blockDim."""
-    half = len(x) // 2
+    g mod blockDim. split = 2: quarter `part` of the row, the first pass
+    taking words j + c·n/4 (c < 4) and running the two cross-quarter stages
+    on them (zq.cuh quarter_load)."""
+    half = len(x) >> split
     log_n, log_h = len(x).bit_length() - 1, half.bit_length() - 1
     smem = np.full(_pad(half - 1) + 1, -1, dtype=np.int64)
     lo_b = max(log_h - first_rl, 0)
@@ -250,7 +253,14 @@ def _rb_forward(x, tw, q, part, max_rl, first_rl, pair):
         hi = g >> lo_b
         j = ((hi << (lo_b + RL)) | (g & ((1 << lo_b) - 1))) + (np.arange(1 << RL)[:, None] << lo_b)
         assert np.array_equal(np.sort(j.ravel()), np.arange(half))
-        if first and pair:
+        if first and split == 2:
+            w1, w2 = tw[1], tw[2 + (part >> 1)]
+            x0, x1 = x[j] % q, x[j + half] % q
+            y2, y3 = x[j + 2 * half] * w1 % q, x[j + 3 * half] * w1 % q
+            a, b = ((x0 - y2) % q, (x1 - y3) % q) if part >> 1 else ((x0 + y2) % q, (x1 + y3) % q)
+            c = b * w2 % q
+            v = (a - c) % q if part & 1 else (a + c) % q
+        elif first and pair:
             staged = [x[:half] % q, x[half:] * tw[1] % q]        # each block's own half
             mine, other = staged[part][j], staged[1 - part][j]
             v = (other - mine) % q if part else (mine + other) % q
@@ -259,7 +269,7 @@ def _rb_forward(x, tw, q, part, max_rl, first_rl, pair):
             v = (u - v) % q if part else (u + v) % q
         else:
             v = smem[_pad(j)]
-        smem[_pad(j)] = _rb_butterflies(v, log_n, part, lo_b, hi, tw, q)
+        smem[_pad(j)] = _rb_butterflies(v, log_n, part, lo_b, hi, tw, q, split)
         first = False
     return smem
 
@@ -307,6 +317,107 @@ def test_register_blocked_schedule_matches_plain_ntt(log_n, order, shape):
         assert np.array_equal(got, y[li])
         owners.append(owner)
     assert (owners[0] >= 0).all() and np.array_equal(owners[0], owners[1])
+
+
+#: launch shapes of kernels 5, 6, 8 and 9 (rescale.cu GridShape: GridOne,
+#: GridTwo, GridFour, and GridOne with a limb over four blocks at 2^16):
+#: (threads a block, stages a pass at most, log2 of the blocks of a limb)
+GRID_SHAPES = {"one": (1024, 4, 1), "two": (512, 4, 1), "four": (1024, 3, 2),
+               "four 2^16": (1024, 4, 2)}
+
+
+def _rb_inverse(y, tw, q, part, max_rl, own, split=1):
+    """Kernel 5's half `part` as it runs (rescale.cu intt_grid_kernel) on row
+    y (slot order, any uint32), in numpy → the padded shared half before the
+    cluster's last stage: the slot-order gather through slot_own (reduced,
+    placed at pad of its radix-2 index), then zq.cuh ntt_inverse_passes:
+    passes of up to max_rl stages from the smallest stride up; stage u of a
+    pass pairs r with r + 2^u under twiddle h + part·h/2 + (hi << (RL−1−u))
+    + (r >> (u + 1)), h = 2^(log_n − 1 − lo_b − u). split = 2: quarter
+    `part` (slot_own4), twiddles h + part·h/4 + ...."""
+    half = len(y) >> split
+    log_n, log_h = len(y).bit_length() - 1, half.bit_length() - 1
+    smem = np.full(_pad(half - 1) + 1, -1, dtype=np.int64)
+    slots, local = own & 0xFFFF, own >> 16
+    smem[_pad(local)] = y[slots] % q
+    assert (smem[_pad(np.arange(half))] >= 0).all()
+    lo_b = 0
+    while lo_b < log_h:
+        RL = min(max_rl, log_h - lo_b)
+        g = np.arange(half >> RL)
+        hi = g >> lo_b
+        j = ((hi << (lo_b + RL)) | (g & ((1 << lo_b) - 1))) + (np.arange(1 << RL)[:, None] << lo_b)
+        assert np.array_equal(np.sort(j.ravel()), np.arange(half))
+        v = smem[_pad(j)]
+        for u in range(RL):
+            h = 1 << (log_n - 1 - lo_b - u)
+            w0 = h + part * (h >> split) + (hi << (RL - 1 - u))
+            s = 1 << u
+            for r in range(1 << RL):
+                if r & s:
+                    continue
+                w = tw[w0 + (r >> (u + 1))]
+                a, b = v[r].copy(), v[r + s].copy()
+                v[r], v[r + s] = (a + b) % q, (a - b) % q * w % q
+        smem[_pad(j)] = v
+        lo_b += RL
+    return smem
+
+
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+@pytest.mark.parametrize("shape", sorted(GRID_SHAPES))
+@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("log_n", [10, 11, 12, 16])
+def test_grid_kernel_schedule_matches_plain_ntt(log_n, order, shape, direction):
+    """The schedule of kernels 6/8 (forward: register-blocked passes from the
+    row, the stages that cross the parts in the first pass's load, then each
+    block's slots stored in slot order, four consecutive slots a thread) and
+    5/9 (inverse: the slot-order gather, the inverse passes, the cluster's
+    last stages scaled by n⁻¹) at each launch shape, a limb over two blocks
+    or four, against ntt3/intt3 ("pallas") and ntt2/intt2 ("mxu") exactly.
+    Every slot is written or read once, in quads of four consecutive slots
+    from a multiple of 4."""
+    _, max_rl, split = GRID_SHAPES[shape]
+    parts = 1 << split
+    p = jfast.FastParams.make(log_n, 2)
+    n, size = p.n, p.n >> split
+    t = mr.kernel_tables(n, p.qs, order)
+    fwd_plain, inv_plain = mr.plain_transforms(order)[:2]
+    rng = np.random.default_rng(log_n)
+    x = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(np.int64)  # any uint32
+    q = np.array(p.qs, dtype=np.int64)[:, None]
+    plain = fwd_plain if direction == "forward" else inv_plain
+    want = plain(torch.from_numpy(x % q), n, p.qs).numpy()
+    own = t["slot_own" if split == 1 else "slot_own4"].astype(np.int64).reshape(parts, size)
+    slots, local = own & 0xFFFF, own >> 16
+    assert np.array_equal(np.sort(slots.ravel()), np.arange(n))
+    for part in range(parts):               # the quads of each thread, as walk_slots takes them
+        assert np.array_equal(local[part], t["slot_ct"][slots[part]] - part * size)
+        quads = slots[part].reshape(-1, 4)
+        assert np.array_equal(quads - quads[:, :1], np.broadcast_to(np.arange(4), quads.shape))
+        assert (quads[:, 0] % 4 == 0).all()
+    for li, ql in enumerate(p.qs):
+        if direction == "forward":
+            fwd = t["fwd"][li, 0].astype(np.int64)
+            got = np.full(n, -1, dtype=np.int64)
+            for part in range(parts):
+                smem = _rb_forward(x[li], fwd, ql, part, max_rl, max_rl, False, split)
+                assert (got[slots[part]] == -1).all()
+                got[slots[part]] = smem[_pad(local[part])]
+        else:
+            inv = t["inv"][li, 0].astype(np.int64)
+            n_inv = int(t["limbs"][li, 1])
+            a = [_rb_inverse(x[li], inv, ql, part, max_rl, own[part], split)[_pad(np.arange(size))]
+                 for part in range(parts)]
+            if split == 1:          # zq.cuh inverse_last_stage
+                got = np.concatenate([(a[0] + a[1]) % ql, (a[0] - a[1]) % ql * inv[1] % ql])
+            else:                   # zq.cuh inverse_last_stages4
+                b0, b2 = (a[0] + a[1]) % ql, (a[2] + a[3]) % ql
+                b1, b3 = (a[0] - a[1]) % ql * inv[2] % ql, (a[2] - a[3]) % ql * inv[3] % ql
+                got = np.concatenate([(b0 + b2) % ql, (b1 + b3) % ql,
+                                      (b0 - b2) % ql * inv[1] % ql, (b1 - b3) % ql * inv[1] % ql])
+            got = got * n_inv % ql
+        assert np.array_equal(got, want[li])
 
 
 def test_wrappers_check_their_inputs():

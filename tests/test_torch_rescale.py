@@ -187,35 +187,56 @@ def _need_card():
         pytest.skip("needs a CUDA device")
 
 
+def _grid_names(order):
+    """Launch counters of the (inverse, forward) transforms of a slot order."""
+    return ("intt2_grid", "ntt2_grid") if order == "mxu" else ("intt_grid", "ntt_grid")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_n,L,G", [(14, 5, 3), (15, 20, 2)])
-def test_kernels_5_6_7_match_plain_on_the_card(log_n, L, G):
+@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("log_n,L,G", [(14, 5, 1), (14, 5, 3), (15, 20, 1), (15, 20, 2),
+                                       (15, 20, 4)])
+def test_kernels_5_6_7_match_plain_on_the_card(log_n, L, G, order):
+    """Kernels 5 and 6 (8 and 9 in the mxu order) at every launch form of
+    rescale.cu launch_grid: a limb over four blocks ([1, 5, n], [3, 5, n] and
+    [1, 20, n]; the inverse on [1, 20, n] where the card runs 20 clusters of
+    four at once), over two in GridOne ([2, 20, n]) and GridTwo ([4, 20, n]:
+    160 blocks); and kernel 7."""
     _need_card()
-    p = tfast.FastParams.make(log_n, L, impl="pallas")
+    p = tfast.FastParams.make(log_n, L, impl=order)
     x = to_torch(_rows(p, G, seed=log_n, hi=1 << 32), "cuda")
+    (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
+    inv_name, fwd_name = _grid_names(order)
     before = dict(rk.LAUNCHES)
-    assert torch.equal(rk.ntt3_grid(p.n, p.qs, x), rk.ntt3_grid_plain(p.n, p.qs, x))
-    assert torch.equal(rk.intt3_grid(p.n, p.qs, x), rk.intt3_grid_plain(p.n, p.qs, x))
+    assert torch.equal(fwd(p.n, p.qs, x), fwd_plain(p.n, p.qs, x))
+    assert torch.equal(inv(p.n, p.qs, x), inv_plain(p.n, p.qs, x))
     ct = to_torch(_rows(p, G, seed=1), "cuda")
     for k_drop in (1, 4):
         assert torch.equal(thyb.rescale_joint(p, ct, k_drop),
                            thyb._rescale_joint_plain(p, ct, k_drop))
-    assert rk.LAUNCHES == {**before, "intt_grid": before["intt_grid"] + 3,
-                           "ntt_grid": before["ntt_grid"] + 1,
+    assert rk.LAUNCHES == {**before, inv_name: before[inv_name] + 3,
+                           fwd_name: before[fwd_name] + 1,
                            "rescale_fwd": before["rescale_fwd"] + 2}
 
 
 @pytest.mark.cuda
-def test_kernels_5_6_match_plain_on_the_card_at_2e16():
-    """The split form: two blocks per limb, kernel 5 across a cluster."""
+@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("G", [1, 8, 12])
+def test_kernels_5_6_match_plain_on_the_card_at_2e16(G, order):
+    """n = 2^16 (one 1024-thread block an SM) in both slot orders: a limb
+    over four blocks ([1, 3, n]; [8, 3, n], the inverse where the card runs
+    24 clusters of four at once) and over two ([12, 3, n])."""
     _need_card()
-    p = tfast.FastParams.make(16, 3)
-    x = to_torch(_rows(p, 2, seed=16, hi=1 << 32), "cuda")
+    p = tfast.FastParams.make(16, 3, impl=order)
+    x = to_torch(_rows(p, G, seed=16, hi=1 << 32), "cuda")
+    (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
+    inv_name, fwd_name = _grid_names(order)
     before = dict(rk.LAUNCHES)
-    assert torch.equal(rk.ntt3_grid(p.n, p.qs, x), rk.ntt3_grid_plain(p.n, p.qs, x))
-    assert torch.equal(rk.intt3_grid(p.n, p.qs, x), rk.intt3_grid_plain(p.n, p.qs, x))
-    assert rk.LAUNCHES == {**before, "intt_grid": before["intt_grid"] + 1,
-                           "ntt_grid": before["ntt_grid"] + 1}
+    assert torch.equal(fwd(p.n, p.qs, x), fwd_plain(p.n, p.qs, x))
+    assert torch.equal(inv(p.n, p.qs, x), inv_plain(p.n, p.qs, x))
+    assert rk.LAUNCHES == {**before, inv_name: before[inv_name] + 1,
+                           fwd_name: before[fwd_name] + 1}
+    assert rk.LAUNCHES_BY_SHAPE[inv_name, G, 3, p.n] >= 1
 
 
 @pytest.mark.cuda
