@@ -23,16 +23,26 @@
 //   hints (4)   [dnum, T, n]    over the extended chain of T = L + K limbs
 //   out (4)     [2, Bt, T, n]   NTT domain, before the rescale by P
 //
-// The TPU's matmul-shaped 3-factor NTT is replaced by a radix-2 NTT with
-// native 64-bit products and Shoup twiddles in shared memory. Inside a
-// kernel the NTT works in bit-reversed evaluation order; host tables map
-// each radix-2 index to its slot (any permutation: the kernels are the same
-// for both slot orders). Every kernel splits each limb over two blocks (a
-// limb of 2^16 words, 256 KB, exceeds the 227 KB of shared memory a block
-// can have); block `part` holds half of it and owns the slots whose radix-2
-// index lies in that half. Only one stage of each NTT crosses the halves: A
-// finishes its inverse NTT with it across a thread block cluster of two
-// (distributed shared memory); B and 4 start their forward NTTs with it.
+// The TPU's matmul-shaped 3-factor NTT is replaced by a register-blocked
+// radix-2 NTT (zq.cuh) with native 64-bit products and Shoup twiddles in
+// shared memory. Inside a kernel the NTT works in bit-reversed evaluation
+// order; host tables map each radix-2 index to its slot (any permutation:
+// the kernels are the same for both slot orders). Every kernel splits each
+// limb over two blocks (a limb of 2^16 words, 256 KB, exceeds the 227 KB of
+// shared memory a block can have), kernel A on small grids over four; block
+// `part` holds its part and owns the slots whose radix-2 index lies there.
+// Only the first stage of a forward NTT (the first two for quarters) crosses
+// the parts, and the last of an inverse one: A finishes its inverse NTT with
+// it across a thread block cluster (distributed shared memory); B and 4
+// start their forward NTTs with it.
+//
+// Kernel A reads 4 and writes 3 words a coefficient and is bound by those
+// bytes. It walks each block's slots in slot order (slot_own), 16 bytes of
+// every row at a time (by radix-2 index, a warp's reads in the 2-factor
+// order would touch a sector a word), and runs the inverse NTT of c2 as
+// kernel 5 does: the passes of zq::ntt_inverse_passes and the cluster's last
+// stage, a limb over four blocks where the grid fits one wave of the card
+// (zq::launch_grid).
 //
 // Kernels B and 4, per (limb, ciphertext) pair of blocks, run a serial loop
 // of digit forward NTTs, each followed by two hint products added into
@@ -68,26 +78,36 @@
 
 namespace {
 
+using zq::aligned16;
+using zq::GridFour;
+using zq::GridOne;
+using zq::GridTwo;
 using zq::kLimbWords;
 using zq::load4;
+using zq::own_of;
 using zq::store4;
 using zq::vector_quads;
+using zq::walk_slots;
 
-// Two blocks per (limb l, ciphertext b), a cluster of two: block `part`
-// does the Karatsuba tensor product c0 = a0*b0, c2 = a1*b1,
-// c1 = (a0+a1)(b0+b1) - c0 - c2 of the slots whose radix-2 index lies in its
-// half and keeps c2 there; then the inverse NTT's stages inside the half,
-// and the last stage across the pair. At most 32 registers a thread, so that
-// two 1024-thread blocks share an SM where their halves fit (n <= 2^15).
-__global__ void __launch_bounds__(1024, 2)
+// Kernel A. A cluster of 2^kSplit blocks per (limb l, ciphertext b), each
+// with a half (kSplit = 1) or a quarter of the limb: block `part` walks its
+// slots in slot order (slot_own, four consecutive slots a thread, 16 bytes
+// of each of a0, a1, b0, b1, c0 and c1 at a time), computes the Karatsuba
+// tensor product c0 = a0*b0, c2 = a1*b1, c1 = (a0+a1)(b0+b1) - c0 - c2 of
+// each slot, writes c0 and c1 and places c2 at its radix-2 index in the
+// padded part (kernel 5's gather with the product in it); then the
+// register-blocked inverse passes inside the part, and the stages that
+// cross the parts across the cluster, scaled by n^-1 -> c2c in natural order.
+template <class S, int kSplit>
+__global__ void __launch_bounds__(S::kThreads, S::kBlocks)
 tensor_intt_kernel(const uint32_t* __restrict__ ct_a, const uint32_t* __restrict__ ct_b,
                    uint32_t* __restrict__ c0, uint32_t* __restrict__ c1,
                    uint32_t* __restrict__ c2c, const uint32_t* __restrict__ limbs,
-                   const uint32_t* __restrict__ inv_tw,
-                   const int32_t* __restrict__ slot_inv, int L, int log_n) {
+                   const uint32_t* __restrict__ inv_tw, const uint32_t* __restrict__ slot_own,
+                   int L, int log_n) {
   extern __shared__ uint32_t buf[];
-  const int n = 1 << log_n, half = n >> 1;
-  const int l = blockIdx.x >> 1, part = blockIdx.x & 1;
+  const int n = 1 << log_n, words = n >> kSplit;
+  const int l = blockIdx.x >> kSplit, part = blockIdx.x & ((1 << kSplit) - 1);
   const size_t b = blockIdx.y;
   const zq::Limb k = zq::load_limb(limbs + kLimbWords * l);
   const size_t limb_off = static_cast<size_t>(l) * n;
@@ -96,22 +116,48 @@ tensor_intt_kernel(const uint32_t* __restrict__ ct_a, const uint32_t* __restrict
   const uint32_t* b0 = ct_b + b * 2 * L * n + limb_off;
   const uint32_t* b1 = b0 + static_cast<size_t>(L) * n;
   const size_t out_off = b * L * n + limb_off;
-  const int32_t* own = slot_inv + part * half;
-
-  for (int x = threadIdx.x; x < half; x += blockDim.x) {
-    const int s = own[x];
-    const uint32_t x0 = a0[s], x1 = a1[s], y0 = b0[s], y1 = b1[s];
-    const uint32_t p0 = zq::mulmod(x0, y0, k);
+  uint32_t* o0 = c0 + out_off;
+  uint32_t* o1 = c1 + out_off;
+  // c0 and c1 of one slot into p0, p1; returns its c2
+  auto tensor = [&](uint32_t x0, uint32_t x1, uint32_t y0, uint32_t y1, uint32_t& p0,
+                    uint32_t& p1) {
+    p0 = zq::mulmod(x0, y0, k);
     const uint32_t p2 = zq::mulmod(x1, y1, k);
     const uint32_t cross = zq::mulmod(zq::add_mod(x0, x1, k.q), zq::add_mod(y0, y1, k.q), k);
-    c0[out_off + s] = p0;
-    c1[out_off + s] = zq::sub_mod(cross, zq::add_mod(p0, p2, k.q), k.q);
-    buf[x] = p2;
-  }
+    p1 = zq::sub_mod(cross, zq::add_mod(p0, p2, k.q), k.q);
+    return p2;
+  };
+  const uint32_t* own = own_of<kSplit>(slot_own, part, n);
+  walk_slots(
+      own, words,
+      vector_quads(own) && aligned16(ct_a) && aligned16(ct_b) && aligned16(c0) && aligned16(c1),
+      [&](int s, int x) {
+        uint32_t p0, p1;
+        buf[zq::pad(x)] = tensor(a0[s], a1[s], b0[s], b1[s], p0, p1);
+        o0[s] = p0;
+        o1[s] = p1;
+      },
+      [&](int s, const int (&x)[4]) {
+        uint32_t va0[4], va1[4], vb0[4], vb1[4], p0[4], p1[4];
+        load4(va0, a0 + s);
+        load4(va1, a1 + s);
+        load4(vb0, b0 + s);
+        load4(vb1, b1 + s);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          buf[zq::pad(x[u])] = tensor(va0[u], va1[u], vb0[u], vb1[u], p0[u], p1[u]);
+        }
+        store4(o0 + s, p0);
+        store4(o1 + s, p1);
+      });
   __syncthreads();
   const uint32_t* tw = inv_tw + 2 * limb_off;
-  zq::ntt_inverse(buf, log_n, tw, tw + n, k.q, 1, part);
-  zq::inverse_last_stage(buf, c2c + out_off, log_n, part, tw, tw + n, k);
+  zq::ntt_inverse_passes<S::kMaxRL, kSplit>(buf, log_n, part, tw, tw + n, k.q);
+  if constexpr (kSplit == 2) {
+    zq::inverse_last_stages4(buf, c2c + out_off, log_n, part, tw, tw + n, k);
+  } else {
+    zq::inverse_last_stage(buf, c2c + out_off, log_n, part, tw, tw + n, k);
+  }
 }
 
 // Launch shape of kernels B and 4: threads a block and the blocks an SM it
@@ -378,16 +424,19 @@ const char* zq_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Kernel A. Returns a cudaError_t (0 on success).
+// Kernel A; slot_own is the [2n] table of launch_grid's kernels (slot_own,
+// then slot_own4). Returns a cudaError_t (0 on success).
 int tensor_intt(const void* ct_a, const void* ct_b, void* c0, void* c1, void* c2c,
-                const void* limbs, const void* inv_tw, const void* slot_inv, int bt, int L,
+                const void* limbs, const void* inv_tw, const void* slot_own, int bt, int L,
                 int log_n, void* stream) {
-  return zq::launch_split(tensor_intt_kernel, dim3(2 * L, bt), true, log_n, stream,
-                          static_cast<const uint32_t*>(ct_a), static_cast<const uint32_t*>(ct_b),
-                          static_cast<uint32_t*>(c0), static_cast<uint32_t*>(c1),
-                          static_cast<uint32_t*>(c2c), static_cast<const uint32_t*>(limbs),
-                          static_cast<const uint32_t*>(inv_tw),
-                          static_cast<const int32_t*>(slot_inv), L, log_n);
+  return zq::launch_grid(tensor_intt_kernel<GridOne, 1>, tensor_intt_kernel<GridTwo, 1>,
+                         tensor_intt_kernel<GridFour, 2>, tensor_intt_kernel<GridOne, 2>, true,
+                         bt, L, log_n, stream, static_cast<const uint32_t*>(ct_a),
+                         static_cast<const uint32_t*>(ct_b), static_cast<uint32_t*>(c0),
+                         static_cast<uint32_t*>(c1), static_cast<uint32_t*>(c2c),
+                         static_cast<const uint32_t*>(limbs),
+                         static_cast<const uint32_t*>(inv_tw),
+                         static_cast<const uint32_t*>(slot_own), L, log_n);
 }
 
 // Kernel B; hbs and has are ignored unless shoup != 0. Returns a cudaError_t.

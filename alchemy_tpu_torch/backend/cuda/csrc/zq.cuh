@@ -12,6 +12,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace zq {
 
@@ -66,103 +67,37 @@ __device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b, const Limb& k
   return static_cast<uint32_t>(r >= k.q ? r - k.q : r);
 }
 
-// Forward negacyclic NTT of a[0, n) in shared memory (Cooley-Tukey, natural
-// order in): afterwards a[i] holds x(psi^(2*bitrev(i)+1)). tw/tws hold
-// psi^bitrev(k) and its Shoup companions. Every thread of the block calls
-// this; the caller synchronises before it, and it returns synchronised.
-//
-// split = 1: the limb is split over two blocks (every kernel of this
-// directory), and a holds only its half `part` (a[x] is index part*n/2 + x
-// of the whole). Only the first stage (m = 1) pairs j with j + n/2; the
-// caller fuses it into its load (forward_first_stage), and this runs the
-// log2(n) - 1 stages that stay inside the half, with the whole transform's
-// twiddles m + part*m/2 + i.
-__device__ __forceinline__ void ntt_forward(uint32_t* a, int log_n,
-                                            const uint32_t* __restrict__ tw,
-                                            const uint32_t* __restrict__ tws,
-                                            uint32_t q, int split = 0, int part = 0) {
-  const int bfly = 1 << (log_n - split - 1);
-  for (int m = 1 << split, log_t = log_n - split - 1; log_t >= 0; m <<= 1, --log_t) {
-    const int t = 1 << log_t;
-    const int w0 = m + part * (m >> split);
-    for (int k = threadIdx.x; k < bfly; k += blockDim.x) {
-      const int i = k >> log_t;
-      const int j = (i << (log_t + 1)) + (k & (t - 1));
-      const uint32_t u = a[j];
-      const uint32_t v = mulmod_shoup(a[j + t], __ldg(tw + w0 + i), __ldg(tws + w0 + i), q);
-      a[j] = add_mod(u, v, q);
-      a[j + t] = sub_mod(u, v, q);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse of ntt_forward without the n^-1 scale (Gentleman-Sande,
-// bit-reversed evaluation order in, natural order out). tw/tws hold
-// psi^-bitrev(k) and companions. split = 1: a holds half `part` of the limb
-// and this runs the log2(n) - 1 stages that stay inside it; the last stage,
-// which pairs j with j + n/2, is inverse_last_stage's.
-__device__ __forceinline__ void ntt_inverse(uint32_t* a, int log_n,
-                                            const uint32_t* __restrict__ tw,
-                                            const uint32_t* __restrict__ tws,
-                                            uint32_t q, int split = 0, int part = 0) {
-  const int bfly = 1 << (log_n - split - 1);
-  for (int h = 1 << (log_n - 1), log_t = 0; log_t < log_n - split; h >>= 1, ++log_t) {
-    const int t = 1 << log_t;
-    const int w0 = h + part * (h >> split);
-    for (int k = threadIdx.x; k < bfly; k += blockDim.x) {
-      const int i = k >> log_t;
-      const int j = (i << (log_t + 1)) + (k & (t - 1));
-      const uint32_t u = a[j];
-      const uint32_t v = a[j + t];
-      a[j] = add_mod(u, v, q);
-      a[j + t] = mulmod_shoup(sub_mod(u, v, q), __ldg(tw + w0 + i), __ldg(tws + w0 + i), q);
-    }
-    __syncthreads();
-  }
-}
-
-// The first stage of ntt_forward for a limb split over two blocks, fused
-// into the load from device memory: block `part` keeps x_j + w*x_{j + n/2}
-// (part 0) or x_j - w*x_{j + n/2} (part 1) in a[j], j < n/2, with w the
-// stage's one twiddle and x_i = elem(load, i), any uint32. load is the row
-// in device memory (kernels 6 and 8; B in its register-blocked first pass)
-// or a callable that returns the kernel's prologue for coefficient i (kernel
-// 7's correction and division by P; kernel 4's base extension), which each
-// block then computes for the whole row. Both blocks read all of the row
-// (the second read comes from L2), so no block needs the other's shared
-// memory. The caller synchronises after it. (A plain pointer keeps the
-// register count of 6 and 8: read through a callable, B once spilled under
-// a 32-register cap.)
+// Word i of the row a forward pass loads (x_i, any uint32): the row in device
+// memory (kernels B, 6 and 8), or a callable that returns the kernel's
+// prologue for coefficient i (kernel 7's correction and division by P;
+// kernel 4's base extension), which never goes to device memory. (A plain
+// pointer keeps the register count of 6 and 8: read through a callable, B
+// once spilled under a 32-register cap.)
 __device__ __forceinline__ uint32_t elem(const uint32_t* __restrict__ x, int i) { return x[i]; }
 template <typename F>
 __device__ __forceinline__ uint32_t elem(const F& f, int i) { return f(i); }
 
-template <typename Load>
-__device__ __forceinline__ void forward_first_stage(uint32_t* a, Load load, int log_n, int part,
-                                                    const uint32_t* __restrict__ tw,
-                                                    const uint32_t* __restrict__ tws,
-                                                    const Limb& k) {
-  const int half = 1 << (log_n - 1);
-  const uint32_t w = __ldg(tw + 1), ws = __ldg(tws + 1);
-  for (int j = threadIdx.x; j < half; j += blockDim.x) {
-    const uint32_t u = reduce(elem(load, j), k);
-    const uint32_t v = mulmod_shoup(elem(load, j + half), w, ws, k.q);
-    a[j] = part ? sub_mod(u, v, k.q) : add_mod(u, v, k.q);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The register-blocked forward NTT of kernels B, 4, 6 and 8 (a limb split
-// over two blocks, as above; kernel 7 keeps ntt_forward). Each thread holds
-// R = 2^RL words of its half in registers and runs RL butterfly stages on
-// them with no barrier between: a pass. One exchange through shared memory
-// and one __syncthreads separate passes, so with passes of up to 4 stages a
-// half of 2^14 words (n = 2^15) takes passes of 4, 4, 4 and 2 stages
-// instead of 14 barrier-separated ones, and 2^15 words 4, 4, 4, 3. The
-// widest pass (kMaxRL) is each launch shape's (Shape in mul_relin.cu,
-// GridShape in rescale.cu): the
-// values, twiddles and loads in flight of a pass must fit the registers.
+// The negacyclic NTT of every kernel here (Cooley-Tukey forward, natural
+// order in): afterwards word i holds x(psi^(2*bitrev(i)+1)), and the host's
+// slot tables map each radix-2 index i to its slot. tw/tws hold psi^bitrev(k)
+// (psi^-bitrev(k) for the Gentleman-Sande inverse, which takes that order
+// back to natural order) and their Shoup companions. A limb is split over
+// two blocks (or four): block `part` holds half `part` of it, word j of the
+// half being index part*n/2 + j of the whole. Only the first forward stage
+// (and the last inverse one) pairs words of different halves; the forward
+// kernels fuse it into their load, the inverse ones end with it across a
+// cluster (inverse_last_stage).
+//
+// The forward NTT is register-blocked (kernels B, 4, 6, 7 and 8). Each
+// thread holds R = 2^RL words of its half in registers and runs RL
+// butterfly stages on them with no barrier between: a pass. One exchange
+// through shared memory and one __syncthreads separate passes, so with
+// passes of up to 4 stages a half of 2^14 words (n = 2^15) takes passes of
+// 4, 4, 4 and 2 stages instead of 14 barrier-separated ones, and 2^15 words
+// 4, 4, 4, 3. The widest pass (kMaxRL) is each launch shape's (Shape in
+// mul_relin.cu, GridShape below): the values, twiddles and loads in flight
+// of a pass must fit the registers.
 //
 // A pass whose stages have local strides 2^(lo_b + RL - 1) ... 2^lo_b gives
 // group g = hi*2^lo_b + lo (lo < 2^lo_b) the words
@@ -172,8 +107,8 @@ __device__ __forceinline__ void forward_first_stage(uint32_t* a, Load load, int 
 // stage's groups in the whole transform: 2^u (value, companion) pairs,
 // read once per group. Shared memory holds the half with one spare word
 // after every 32 (pad): a pass whose groups are contiguous (lo_b = 0) then
-// stores, and the slot-order gather of the hint loops loads, without bank
-// conflicts. tests/test_torch_mul_relin.py emulates this schedule in numpy.
+// stores, and the slot-order gathers load, without bank conflicts.
+// tests/test_torch_mul_relin.py emulates this schedule in numpy.
 
 // Shared-memory position of word j of a half, and the words of the padded half.
 __device__ __forceinline__ int pad(int j) { return j + (j >> 5); }
@@ -253,9 +188,10 @@ __device__ __forceinline__ void cluster_wait() {
 
 // Where a pass takes its words: shared memory (rewritten in place: each
 // group's words are its own thread's); device memory, with the stage that
-// crosses the halves fused into the load as in forward_first_stage
-// (x_i = elem(load, i), any uint32); or the pair of shared halves of a
-// cluster of two (ntt_forward_pair below), with that stage done in the read.
+// crosses the halves fused into the load (block `part` keeps x_j + w*x_{j +
+// n/2}, part 0, or x_j - w*x_{j + n/2}, part 1, w the stage's one twiddle,
+// x_i = elem(load, i)); or the pair of shared halves of a cluster of two
+// (ntt_forward_pair below), with that stage done in the read.
 enum PassFrom { kFromShared, kFromLoad, kFromPair };
 
 // The two stages that cross the quarters of a limb split over four blocks,
@@ -364,7 +300,7 @@ __device__ __forceinline__ void forward_pass_of(int rl, uint32_t* a, Load load, 
 // pass of kFirstRL stages, which takes the words from `load` (kFromLoad) or
 // from the cluster's two halves (kFromPair), then passes of kMaxRL stages
 // from shared memory, the last one shorter (n >= 4). Leaves the padded half
-// in a (word j at pad(j)) in the bit-reversed order of ntt_forward; every
+// in a (word j at pad(j)) in bit-reversed evaluation order; every
 // thread calls it, and it returns synchronised. The caller synchronises
 // before it if a is still being read. kSplit = 2: quarter part of a limb
 // split over four blocks (n >= 8), the two cross-quarter stages in the load.
@@ -386,11 +322,11 @@ __device__ __forceinline__ void ntt_forward_passes(uint32_t* a, Load load, int l
 }
 
 // ntt_forward_passes for the two blocks of a cluster (rank = part), when the
-// load is dear (kernel 4's base extension): each block evaluates the load
-// only on its own half, x_j in half 0 and w*x_{j + n/2} in half 1 (w the
-// cross-half stage's twiddle), and the first pass reads the partner's half
-// through distributed shared memory. The caller synchronises before it if a
-// is still being read.
+// load is dear (kernel 4's base extension, kernel 7's prologue): each block
+// evaluates the load only on its own half, x_j in half 0 and w*x_{j + n/2}
+// in half 1 (w the cross-half stage's twiddle), and the first pass reads the
+// partner's half through distributed shared memory. The caller synchronises
+// before it if a is still being read.
 template <int kMaxRL, int kFirstRL, typename Load>
 __device__ __forceinline__ void ntt_forward_pair(uint32_t* a, Load load, int log_n, int part,
                                                  const uint32_t* __restrict__ tw,
@@ -407,7 +343,7 @@ __device__ __forceinline__ void ntt_forward_pair(uint32_t* a, Load load, int log
 }
 
 // ---------------------------------------------------------------------------
-// The register-blocked inverse NTT of kernels 5 and 9: the Gentleman-Sande
+// The register-blocked inverse NTT of kernels A, 5 and 9: the Gentleman-Sande
 // mirror of ntt_forward_passes on the padded half in shared memory, passes
 // of up to kMaxRL stages from the smallest stride up, one barrier between
 // passes. A pass whose stages have local strides 2^lo_b ... 2^(lo_b + RL - 1)
@@ -483,8 +419,8 @@ __device__ __forceinline__ void inverse_pass_of(int rl, uint32_t* a, int log_n, 
   inverse_pass<RL, kSplit>(a, log_n, part, lo_b, tw, tws, q);
 }
 
-// The stages of ntt_inverse inside half `part` (split = 1; kSplit = 2:
-// quarter part) on the padded half a (word j at pad(j)), register-blocked:
+// The stages of the inverse NTT inside half `part` (kSplit = 2: quarter
+// part) on the padded half a (word j at pad(j)), register-blocked:
 // passes of kMaxRL stages, the last one shorter. The caller synchronises
 // before it; it returns synchronised.
 template <int kMaxRL, int kSplit = 1>
@@ -521,15 +457,14 @@ __device__ __forceinline__ bool vector_quads(const uint32_t* __restrict__ own) {
   return s3 == s0 + 3 && (s0 & 3) == 0;
 }
 
-// The last stage of ntt_inverse for a limb split over a thread block cluster
-// of two (block `part` of the pair holds half `part`, after ntt_inverse with
-// split = 1, or with kPad after ntt_inverse_passes), scaled by n^-1:
+// The last stage of the inverse NTT for a limb split over a thread block
+// cluster of two (block `part` of the pair holds half `part` padded, after
+// ntt_inverse_passes), scaled by n^-1:
 // out[j] = (u + v)*n^-1 from block 0 and out[n/2 + j] = (u - v)*w*n^-1 from
 // block 1, with u = half 0's word j and v = half 1's, each block reading its
 // partner's half through distributed shared memory. Every thread of both
 // blocks calls it; it returns once both blocks are done reading, so neither
 // exits while the other reads its a.
-template <bool kPad = false>
 __device__ __forceinline__ void inverse_last_stage(uint32_t* a, uint32_t* __restrict__ out,
                                                    int log_n, int part,
                                                    const uint32_t* __restrict__ tw,
@@ -541,8 +476,7 @@ __device__ __forceinline__ void inverse_last_stage(uint32_t* a, uint32_t* __rest
   const uint32_t* other = cluster.map_shared_rank(a, static_cast<unsigned>(part ^ 1));
   const uint32_t w = __ldg(tw + 1), ws = __ldg(tws + 1);
   for (int j = threadIdx.x; j < half; j += blockDim.x) {
-    const int at = kPad ? pad(j) : j;
-    const uint32_t mine = a[at], theirs = other[at];
+    const uint32_t mine = a[pad(j)], theirs = other[pad(j)];
     const uint32_t r = part ? mulmod_shoup(sub_mod(theirs, mine, k.q), w, ws, k.q)
                             : add_mod(mine, theirs, k.q);
     out[part * half + j] = mulmod_shoup(r, k.n_inv, k.n_inv_s, k.q);
@@ -550,8 +484,8 @@ __device__ __forceinline__ void inverse_last_stage(uint32_t* a, uint32_t* __rest
   cluster.sync();
 }
 
-// The two stages of ntt_inverse that cross the quarters of a limb split over
-// a thread block cluster of four (block `part` holds quarter `part` padded,
+// The two stages of the inverse NTT that cross the quarters of a limb split
+// over a thread block cluster of four (block `part` holds quarter `part` padded,
 // after ntt_inverse_passes<., 2>), scaled by n^-1: with a_c word j of
 // quarter c, b0 = a0 + a1, b1 = (a0 - a1)*w2, b2 = a2 + a3,
 // b3 = (a2 - a3)*w3, then out[j] = b0 + b2, out[n/4 + j] = b1 + b3,
@@ -615,15 +549,144 @@ int launch_blocks(void (*kernel)(Params...), dim3 grid, int threads, int smem_wo
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch_blocks for the kernels on ntt_forward/ntt_inverse (A and 7), a
-// limb over two blocks (with cluster, a cluster of two): n/2 words of shared
-// memory, n/4 threads up to 1024, one butterfly each per stage.
+// Block `part`'s slots in slot order, own[e] = s | x << 16 (e < words: n/2,
+// or n/4 for a quarter; x the radix-2 index in its part: kernel_tables'
+// slot_own, slot_own4), walked as B's hint loop walks them: thread t takes
+// the four elements e = 4*(t + c*blockDim.x) + 0..3, with vec four
+// consecutive slots from a 16-byte boundary of the row, one 16-byte access
+// (each part owns whole rows of the slot order), else word accesses:
+// word(s, x) for each slot, or quad(s, x[4]) for the slots s .. s + 3.
+template <typename Word, typename Quad>
+__device__ __forceinline__ void walk_slots(const uint32_t* __restrict__ own, int words, bool vec,
+                                           Word word, Quad quad) {
+  vec = vec && words >= 4;
+  for (int e = 4 * threadIdx.x; e < words; e += 4 * blockDim.x) {
+    if (vec) {
+      const uint4 o = __ldg(reinterpret_cast<const uint4*>(own + e));
+      const int x[4] = {static_cast<int>(o.x >> 16), static_cast<int>(o.y >> 16),
+                        static_cast<int>(o.z >> 16), static_cast<int>(o.w >> 16)};
+      quad(static_cast<int>(o.x & 0xFFFFu), x);
+    } else {
+      for (int u = 0; u < 4 && e + u < words; ++u) {
+        const uint32_t o = __ldg(own + e + u);
+        word(static_cast<int>(o & 0xFFFFu), static_cast<int>(o >> 16));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The slot tables of the kernels launched by launch_grid (A, 5, 6, 8, 9),
+// [2n]: slot_own (halves), then slot_own4 (quarters); block part of a limb
+// split over 2^kSplit blocks owns the n/2^kSplit entries from
+// own_of<kSplit>(table, part, n).
+template <int kSplit>
+__device__ __forceinline__ const uint32_t* own_of(const uint32_t* table, int part, int n) {
+  return table + (kSplit - 1) * n + part * (n >> kSplit);
+}
+
+// Launch shape of the kernels launched by launch_grid (A, 5, 6, 8, 9):
+// threads a block and the blocks an SM it is built for (shared memory
+// allowing: n/2 + n/64 words a block, 66 KB at n = 2^15, 132 KB at 2^16), so
+// registers a thread; kMaxRL, the stages of a pass (R = 2^kMaxRL words a
+// thread).
+template <int kThreads_, int kBlocks_, int kMaxRL_>
+struct GridShape {
+  static constexpr int kThreads = kThreads_, kBlocks = kBlocks_, kMaxRL = kMaxRL_;
+};
+
+// Each the fastest without spills of the shapes measured on the H100
+// (PERF.md): one 1024-thread block an SM (64 registers, passes of 4 stages)
+// at n = 2^16, where a block's half takes 132 KB, and for grids of at most
+// one such wave at n <= 2^15; two 512-thread blocks an SM (64 registers,
+// passes of 4) for larger grids at n <= 2^15; with a limb over four blocks,
+// 1024 threads with passes of 3 stages at n <= 2^15 (a quarter of 2^13
+// words: one group of 8 a thread), else GridOne.
+using GridOne = GridShape<1024, 1, 4>;
+using GridTwo = GridShape<512, 2, 4>;
+using GridFour = GridShape<1024, 1, 3>;
+
+// The card's SMs, read once (a process is taken to use one model of card).
+inline int sm_count() {
+  static const int sms = [] {
+    int dev = 0, count = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;  // then every grid takes halves in GridTwo
+    }
+    return count;
+  }();
+  return sms;
+}
+
+// The clusters of four blocks of `kernel` the card runs at once, at n =
+// 2^log_n: a cluster needs four SMs of one GPC, so this is fewer than a
+// quarter of the SMs (measured on the H100: [2, 16, n], 32 clusters, took
+// two waves, PERF.md). Read once per kernel and ring size; 0 if the query
+// fails.
+template <typename... Params>
+int quarter_clusters(void (*kernel)(Params...), int threads, int log_n) {
+  static int count[17];
+  static std::once_flag once[17];
+  std::call_once(once[log_n], [&] {
+    const size_t smem = padded_words(1 << (log_n - 2)) * sizeof(uint32_t);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 4;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(4);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&count[log_n], kernel, &cfg) != cudaSuccess) {
+      cudaGetLastError();
+      count[log_n] = 0;
+    }
+  });
+  return count[log_n];
+}
+
+// The launch of a kernel that keeps part of each of the T limbs of G rows in
+// shared memory (A, 5, 6, 8, 9), built as `one` (GridOne, halves), `two`
+// (GridTwo, halves), `four15` (GridFour, quarters) and `four16` (GridOne,
+// quarters), on [G, T, n] (n >= 2^10 for quarters): a limb over four
+// blocks where the grid still fits one wave, so that small grids ([1, L, n]:
+// 2L blocks of halves) spread over more SMs: one block an SM for the
+// forward kernels, and for the inverse ones (cluster: the last stages cross
+// the parts through distributed shared memory) no more clusters of four
+// than the card runs at once. Else over two, GridOne at n = 2^16 and for at
+// most one wave, GridTwo beyond. args are the kernel's.
 template <typename... Params, typename... Args>
-int launch_split(void (*kernel)(Params...), dim3 grid, bool cluster, int log_n, void* stream,
-                 Args... args) {
-  const int n = 1 << log_n;
-  return launch_blocks(kernel, grid, n / 4 < 1024 ? n / 4 : 1024, n / 2, cluster ? 2 : 0, stream,
-                       args...);
+int launch_grid(void (*one)(Params...), void (*two)(Params...), void (*four15)(Params...),
+                void (*four16)(Params...), bool cluster, int G, int T, int log_n, void* stream,
+                Args... args) {
+  const int sms = sm_count();
+  void (*four)(Params...) = log_n > 15 ? four16 : four15;
+  const int four_threads = log_n > 15 ? GridOne::kThreads : GridFour::kThreads;
+  const int split = log_n >= 10 && 4 * T * G <= sms &&
+                            (!cluster || T * G <= quarter_clusters(four, four_threads, log_n))
+                        ? 2
+                        : 1;
+  void (*kernel)(Params...) = two;
+  int threads = GridTwo::kThreads;
+  if (split == 2) {
+    kernel = four;
+    threads = four_threads;
+  } else if (log_n > 15 || 2 * T * G <= sms) {
+    kernel = one;
+    threads = GridOne::kThreads;
+  }
+  return launch_blocks(kernel, dim3(T << split, G), threads, padded_words(1 << (log_n - split)),
+                       cluster ? 1 << split : 0, stream, args...);
 }
 
 }  // namespace zq

@@ -23,14 +23,15 @@ raw hints or Shoup pairs; c0 and c1 join after the rescale by P.
 On the H100 every kernel (and 5–9 in `rescale.py`) runs two blocks per
 (limb, row), each with half of the limb's n words in shared memory (64 KB
 at n = 2^15, 128 KB at 2^16, where a whole limb of 256 KB exceeds the
-227 KB a block can have); they take n ≤ 2^16. B and 4 (and 5, 6, 8, 9)
-run the register-blocked NTT passes of `csrc/zq.cuh` and read or write
-each block's slots in slot order through `slot_own`. The kernels work in the
-bit-reversed order of a radix-2 NTT; `kernel_tables` maps it to the slot
-order at their boundaries, which is the `order` argument of every wrapper:
-"pallas", the 3-factor order of `backend/ntt3.py`, or "mxu", the 2-factor
-order of `backend/ntt2.py` (`FastParams.impl`). See `csrc/mul_relin.cu` for
-what bounds them.
+227 KB a block can have); they take n ≤ 2^16. Every kernel runs the
+register-blocked NTT passes of `csrc/zq.cuh` and reads or writes each
+block's slots in slot order through `slot_own`; A (like 5 and 9) spreads a
+limb over four blocks on grids that fit one wave of the card. The kernels
+work in the bit-reversed order of a radix-2 NTT; `kernel_tables` maps it to
+the slot order at their boundaries, which is the `order` argument of every
+wrapper: "pallas", the 3-factor order of `backend/ntt3.py`, or "mxu", the
+2-factor order of `backend/ntt2.py` (`FastParams.impl`). See
+`csrc/mul_relin.cu` for what bounds them.
 
 Each wrapper takes the plain PyTorch version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises. The plain versions compute in
@@ -62,6 +63,9 @@ from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3, ntt3_bcast, psi
 
 #: launches of each kernel since the last `reset_launches()`
 LAUNCHES = {"tensor_intt": 0, "digit_relin": 0, "hybrid_digit_relin": 0}
+#: launches of kernel A by shape since the last `reset_launches()`:
+#: {("tensor_intt", Bt, L, n): count}
+LAUNCHES_BY_SHAPE: dict[tuple, int] = {}
 
 #: shared memory one block may use on sm_90 (bytes)
 MAX_SHARED_BYTES = 232448
@@ -70,6 +74,14 @@ MAX_SHARED_BYTES = 232448
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_SHAPE.clear()
+
+
+def count_launch(launches: dict, by_shape: dict, name: str, *dims) -> None:
+    """Add one launch of kernel `name` to `launches` and, keyed (name,
+    *dims), to `by_shape`."""
+    launches[name] += 1
+    by_shape[(name, *dims)] = by_shape.get((name, *dims), 0) + 1
 
 
 def _bitrev(v: np.ndarray, bits: int) -> np.ndarray:
@@ -124,11 +136,11 @@ def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
     """Host tables of the kernels (numpy):
 
     - `slot_ct`, `slot_inv` [n] int32: `slot_tables(n, order)`;
-    - `slot_own` [n] int32, kernels B and 4 (and 5, 6, 8, 9): for each half
-      h, the slots it owns (those of slot_inv[h·n/2 : (h+1)·n/2]) in slot
-      order, each packed with its radix-2 index in the half:
+    - `slot_own` [n] int32, every kernel: for each half h, the slots it
+      owns (those of slot_inv[h·n/2 : (h+1)·n/2]) in slot order, each
+      packed with its radix-2 index in the half:
       s | (slot_ct[s] − h·n/2) << 16 (n ≤ 2^16);
-    - `slot_own4` [n] int32, kernels 5, 6, 8, 9 with a limb over four
+    - `slot_own4` [n] int32, kernels A, 5, 6, 8, 9 with a limb over four
       blocks: the same for each quarter;
     - `fwd`, `inv` [L, 2, n] uint32: ψ^{±bitrev(k)} and Shoup companions;
     - `limbs` [L, 8] uint32: q, n⁻¹, its companion, ⌊2^32/q⌋ and the two
@@ -160,10 +172,10 @@ def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
 @lru_cache(maxsize=None)
 def _device_tables(n: int, qs: tuple[int, ...], order: str, device: str) -> dict:
     """The tables the kernels read on `device`: `limbs`, `fwd`, `inv`,
-    `slot_inv`, `slot_own`, and `grid_own` [2n] (slot_own, then slot_own4)
-    for kernels 5, 6, 8, 9."""
+    `slot_own`, and `grid_own` [2n] (slot_own, then slot_own4) for the
+    kernels that may split a limb over four blocks (A, 5, 6, 8, 9)."""
     t = kernel_tables(n, qs, order)
-    host = {k: t[k] for k in ("limbs", "fwd", "inv", "slot_inv", "slot_own")}
+    host = {k: t[k] for k in ("limbs", "fwd", "inv", "slot_own")}
     host["grid_own"] = np.concatenate([t["slot_own"], t["slot_own4"]])
     return {k: torch.from_numpy(v.view(np.int32)).to(device) for k, v in host.items()}
 
@@ -285,8 +297,8 @@ def tensor_intt(n: int, qs: tuple[int, ...], ct_a: torch.Tensor,
     build.check(lib.tensor_intt(
         ct_a.data_ptr(), ct_b.data_ptr(), c0.data_ptr(), c1.data_ptr(),
         c2c.data_ptr(), t["limbs"].data_ptr(), t["inv"].data_ptr(),
-        t["slot_inv"].data_ptr(), Bt, L, n.bit_length() - 1, stream), "tensor_intt")
-    LAUNCHES["tensor_intt"] += 1
+        t["grid_own"].data_ptr(), Bt, L, n.bit_length() - 1, stream), "tensor_intt")
+    count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "tensor_intt", Bt, L, n)
     return c0, c1, c2c
 
 

@@ -25,10 +25,12 @@ they are the split radix-2 NTT of kernels 5 and 6 run with the 2-factor
 slot table: the same values x(ψ^{2K+1}), in the same slots.
 
 Same structure as kernels A, B and 4 (`mul_relin.py`): two blocks per (limb,
-row), each with half of the limb in shared memory (n ≤ 2^16); kernels 5, 6,
-8 and 9 run B's register-blocked passes (and their inverse mirror), take
-each block's slots in slot order through `slot_own`, and on grids that fit
-one wave spread a limb over four blocks (`csrc/rescale.cu` says why).
+row), each with half of the limb in shared memory (n ≤ 2^16); every kernel
+runs B's register-blocked passes (5 and 9 their inverse mirror) and takes
+each block's slots in slot order through `slot_own`; on grids that fit one
+wave 5, 6, 8 and 9 spread a limb over four blocks, and kernel 7 at
+n ≤ 2^15 splits its prologue between the two blocks of a cluster
+(`csrc/rescale.cu` says why).
 Each wrapper takes the plain PyTorch version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises.
 """
@@ -47,6 +49,7 @@ from alchemy_tpu_torch.backend.cuda.mul_relin import (
     _device_tables,
     _kernel_device,
     _with_shoup,
+    count_launch,
     plain_transforms,
 )
 from alchemy_tpu_torch.backend.modarith import (
@@ -63,9 +66,10 @@ from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
 
 #: launches of each kernel since the last `reset_launches()`
 LAUNCHES = {"intt_grid": 0, "ntt_grid": 0, "rescale_fwd": 0, "intt2_grid": 0, "ntt2_grid": 0}
-#: launches of the standalone transforms (5, 6, 8, 9) by shape since the last
-#: `reset_launches()`: {(name, G, T, n): count}
-LAUNCHES_BY_SHAPE: dict[tuple[str, int, int, int], int] = {}
+#: launches of each kernel by shape since the last `reset_launches()`:
+#: {(name, G, T, n): count} for the standalone transforms (5, 6, 8, 9) and
+#: {("rescale_fwd", G, L, K, n): count} for kernel 7
+LAUNCHES_BY_SHAPE: dict[tuple, int] = {}
 
 
 def reset_launches() -> None:
@@ -155,9 +159,7 @@ def _grid(name: str, entry: str, order: str, n: int, qs: tuple[int, ...], x: tor
     build.check(getattr(build.library(), entry)(
         x.data_ptr(), out.data_ptr(), t["limbs"].data_ptr(), twiddles.data_ptr(),
         t["grid_own"].data_ptr(), G, T, n.bit_length() - 1, stream), name)
-    LAUNCHES[name] += 1
-    key = (name, G, T, n)
-    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, name, G, T, n)
     return out
 
 
@@ -223,7 +225,7 @@ def rescale_fwd(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: int,
     build.check(build.library().rescale_fwd(
         coeff.data_ptr(), xs.data_ptr(), is_neg.data_ptr(), t.data_ptr(), t_neg.data_ptr(),
         _device_consts(keep, drop, str(dev)).data_ptr(), out.data_ptr(),
-        tab["limbs"].data_ptr(), tab["fwd"].data_ptr(), tab["slot_inv"].data_ptr(),
+        tab["limbs"].data_ptr(), tab["fwd"].data_ptr(), tab["slot_own"].data_ptr(),
         G, L, K, zp, n.bit_length() - 1, stream), "rescale_fwd")
-    LAUNCHES["rescale_fwd"] += 1
+    count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "rescale_fwd", G, L, K, n)
     return out

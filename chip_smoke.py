@@ -33,18 +33,20 @@ The first four run at impl="pallas", the 3-factor slot order. Kernels 5,
 6, 8 and 9 then run again, checked and timed, at every [G, T, n] a path
 launched them with (rescale.LAUNCHES_BY_SHAPE, read per path) and at
 GRID_SHAPES in both orders: one `[grid]` line each with the launches, device
-ms and bound by shape.
+ms and bound by shape. Kernels A (by [Bt, L, n], mul_relin.LAUNCHES_BY_SHAPE)
+and 7 (by [G, L, K, n]) follow, at every shape a path launched them with and
+at FUSED_SHAPES, both orders, 2^15 and 2^16: one `[fused]` line each.
 
 Every check is exact equality. Any failure exits non-zero; the last line of
 a passing run is one JSON object naming the device. The line before the
 card's name lists every kernel with its ring size, slot order, launches on
 the paths, device and plain ms, and its bound: the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its 32-bit integer multiplies
-over 132 SMs x 64 per clock at the card's maximum SM clock. Kernels 5, 6, 8
-and 9 have one entry per (ring size, slot order, shape) that a path launched,
-with `graph_ms`, the device time of the launches captured in a CUDA graph,
-`launches_by_path`, each path's own count, and `path`, the path whose count
-`launches` is (the one that launched the shape most).
+over 132 SMs x 64 per clock at the card's maximum SM clock. Kernels 5, 6, 8,
+9, A and 7 also have one entry per (ring size, slot order, shape) that a path
+launched, with `graph_ms`, the device time of the launches captured in a CUDA
+graph, `launches_by_path`, each path's own count, and `path`, the path whose
+count `launches` is (the one that launched the shape most).
 
     python3 chip_smoke.py        # from the root of a checkout, one GPU
 """
@@ -92,6 +94,23 @@ def ntt_muls(n: int) -> int:
     """32-bit multiplies of one radix-2 NTT: one product by a constant twiddle
     a butterfly."""
     return MUL_CONST * (n // 2) * (n.bit_length() - 1)
+
+
+def tensor_cost(Bt: int, L: int, n: int) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of kernel A on [Bt, L, n]: four rows in,
+    three out, twiddles and companions, the slot table; per word three
+    products of the tensor, the inverse NTT and its scale by n^-1."""
+    return (4 * (7 * Bt * L * n + 2 * L * n + n),
+            Bt * L * ((3 * MUL_VAR + MUL_CONST) * n + ntt_muls(n)))
+
+
+def rescale_cost(G: int, L: int, K: int, n: int) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of kernel 7 on [G, L, n] with K dropped
+    limbs: the L coefficient rows, the K Garner digit rows and the three
+    sign rows in, L rows out, twiddles, the slot table and the constants;
+    per word K + 2 Shoup products and the forward NTT."""
+    return (4 * (G * (2 * L + K + 3) * n + 2 * L * n + n + L * (4 + 2 * K)),
+            G * L * (MUL_CONST * (K + 2) * n + ntt_muls(n)))
 
 
 def bound(nbytes: float, muls: float, clock_hz: float) -> tuple[float, str]:
@@ -161,10 +180,12 @@ def launches() -> dict:
 
 
 def shape_launches() -> dict:
-    """Launches of kernels 5, 6, 8, 9 by (name, G, T, n) since the reset."""
+    """Launches by shape since the reset: kernels 5, 6, 8, 9 by (name, G, T,
+    n), A by ("tensor_intt", Bt, L, n), 7 by ("rescale_fwd", G, L, K, n)."""
+    from alchemy_tpu_torch.backend.cuda import mul_relin as mr
     from alchemy_tpu_torch.backend.cuda import rescale as rk
 
-    return dict(rk.LAUNCHES_BY_SHAPE)
+    return {**mr.LAUNCHES_BY_SHAPE, **rk.LAUNCHES_BY_SHAPE}
 
 
 def host_ms(fn):
@@ -240,10 +261,9 @@ def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool, order: str = "pa
                 max_abs_err(kr, mr.digit_relin_plain(n, qs, *ka, *raw, order)))
     check(err_b == 0, f"kernel B != plain at n=2^{log_n} L={L} Bt={Bt} (max abs err {err_b})")
     tables = 4 * (2 * L * n + n)              # twiddles and companions, slot map
+    a_bytes, a_muls = tensor_cost(Bt, L, n)
     res = {
-        # three products of the tensor, the inverse NTT, its scale by n^-1
-        "tensor_intt": {"err": err_a, "bytes": 4 * 7 * Bt * L * n + tables,
-                        "muls": Bt * L * ((3 * MUL_VAR + MUL_CONST) * n + ntt_muls(n))},
+        "tensor_intt": {"err": err_a, "bytes": a_bytes, "muls": a_muls},
         "digit_relin": {"err": err_b},
         "digit_relin_raw": {"err": err_b},
     }
@@ -419,8 +439,7 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
         inv_name: (lambda: inv(n, pe.qs, rows5), lambda: inv_plain(n, pe.qs, rows5), None),
         fwd_name: (lambda: fwd(n, keep, rows6), lambda: fwd_plain(n, keep, rows6), None),
         "rescale_fwd": (lambda: rk.rescale_fwd(*args7), lambda: rk.rescale_fwd_plain(*args7),
-                        (4 * (G7 * (2 * L + K + 3) * n + 2 * L * n + n + L * (4 + 2 * K)),
-                         G7 * L * (MUL_CONST * (K + 2) * n + ntt))),
+                        rescale_cost(G7, L, K, n)),
     }
     res = {}
     for name, (kern, plain, cost) in calls.items():
@@ -602,42 +621,128 @@ def deep_path(card: str, tag: str, impl: str) -> dict:
     return {"launches": seen, "by_shape": by_shape, "level_ms": level_ms, "wall_s": wall}
 
 
-def grid_report(runs: dict, rng, clock_hz: float) -> dict:
-    """Kernels 5, 6, 8 and 9 at every shape a path launched them with and at
-    GRID_SHAPES, per (log2 n, order) of runs ({tag: result} of the paths
-    that ran there): checked, timed, with each path's launches by shape
-    ("by_path") and bound. Prints each kernel's shapes and its ranking,
-    launches x (ms - bound) summed over its shapes and the paths; also checks
-    GRID_SHAPES at n = 2^14. Returns {(log2 n, order): {(name, G, T):
-    record}}."""
-    grid = {}
-    for order in ("pallas", "mxu"):
-        grid_shape_phase(SMALL[0], order, representative_shapes(order), rng, reps=0)
+def shape_report(tag: str, runs: dict, rng, clock_hz: float, names, phase, extra) -> dict:
+    """Kernels names(order) at every shape a path launched them with and at
+    extra(order), per (log2 n, order) of runs ({tag: result} of the paths
+    that ran there), checked and timed by phase(log2 n, order, shapes, rng),
+    with each path's launches by shape ("by_path") and bound. Prints each
+    kernel's shapes and its ranking, launches x (ms - bound) summed over its
+    shapes and the paths. Returns {(log2 n, order): {key: record}}, keys
+    (name, *shape without n)."""
+    out = {}
     for (log_n, order), paths in runs.items():
         by_path = {}
-        for tag, r in paths.items():
-            for (name, G, T, n), c in r["by_shape"].items():
-                if n == 1 << log_n and name in grid_names(order):
-                    by_path.setdefault((name, G, T), {})[tag] = c
-        res = grid_shape_phase(log_n, order, representative_shapes(order) | set(by_path), rng)
+        for path, r in paths.items():
+            for key, c in r["by_shape"].items():
+                if key[-1] == 1 << log_n and key[0] in names(order):
+                    by_path.setdefault(key[:-1], {})[path] = c
+        res = phase(log_n, order, extra(order) | set(by_path), rng)
         for key, r in res.items():
             r["by_path"] = by_path.get(key, {})
             r["launches"] = sum(r["by_path"].values())
             r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["muls"], clock_hz)
-        grid[log_n, order] = res
-        for name in grid_names(order):
+        out[log_n, order] = res
+        for name in names(order):
             mine = sorted((k, r) for k, r in res.items() if k[0] == name)
             loss, graph_loss = (sum(r["launches"] * (r[key] - r["bound_ms"]) for _, r in mine)
                                 for key in ("ms", "graph_ms"))
-            print(f"[grid] n=2^{log_n} order={order} {name}: errors 0 at {len(mine)} shapes; "
+            print(f"[{tag}] n=2^{log_n} order={order} {name}: errors 0 at {len(mine)} shapes; "
                   f"launches over the paths {sum(r['launches'] for _, r in mine)}, sum of "
                   f"launches x (ms - bound) {loss:.4f} ms, x (graph_ms - bound) "
-                  f"{graph_loss:.4f} ms; "
-                  "[G,T]:launches@ms/graph_ms/bound_ms " + " ".join(
-                      f"[{G},{T}]:{r['launches']}@{r['ms']:.4f}/{r['graph_ms']:.4f}/"
-                      f"{r['bound_ms']:.4f}" for (_, G, T), r in mine), flush=True)
+                  f"{graph_loss:.4f} ms; shape:launches@ms/graph_ms/bound_ms " + " ".join(
+                      f"{list(k[1:])}:{r['launches']}@{r['ms']:.4f}/{r['graph_ms']:.4f}/"
+                      f"{r['bound_ms']:.4f}" for k, r in mine), flush=True)
+    return out
+
+
+def grid_report(runs: dict, rng, clock_hz: float) -> dict:
+    """Kernels 5, 6, 8 and 9 at every shape a path launched them with and at
+    GRID_SHAPES (shape_report, `[grid]` lines); also checks GRID_SHAPES at
+    n = 2^14."""
+    for order in ("pallas", "mxu"):
+        grid_shape_phase(SMALL[0], order, representative_shapes(order), rng, reps=0)
+    grid = shape_report("grid", runs, rng, clock_hz, grid_names, grid_shape_phase,
+                        representative_shapes)
     print(f"[grid] GRID_SHAPES at n=2^{SMALL[0]} in both orders: errors 0", flush=True)
     return grid
+
+
+# (Bt, L) of kernel A and (G, L, K) of kernel 7 at the shapes the paths give
+# them besides the deep chain's: mul_relin at the headline and at L = 16 (the
+# hybrid op), the hybrid op's joint rescale of its 16 products
+FUSED_SHAPES = {("tensor_intt", 16, 8), ("tensor_intt", 16, 16), ("rescale_fwd", 32, 16, 4)}
+
+
+def fused_inputs(log_n: int, key: tuple, rng, order: str):
+    """(kernel call, plain call) of kernel A ("tensor_intt", Bt, L) or 7
+    ("rescale_fwd", G, L, K) on random canonical inputs at n = 2^log_n, in a
+    slot order; 7's inputs are made as rescale_joint makes them."""
+    import torch
+
+    from alchemy_tpu_torch.backend.cuda import mul_relin as mr
+    from alchemy_tpu_torch.backend.cuda import rescale as rk
+    from alchemy_tpu_torch.backend.modarith import garner_digits, narrow, widen
+    from alchemy_tpu_torch.she import fast, hybrid
+
+    n = 1 << log_n
+    if key[0] == "tensor_intt":
+        _, Bt, L = key
+        qs = fast.FastParams.make(log_n, L).qs
+        args = (n, qs, random_residues(rng, qs, (Bt, 2, L, n)).cuda(),
+                random_residues(rng, qs, (Bt, 2, L, n)).cuda(), order)
+        return lambda: mr.tensor_intt(*args), lambda: mr.tensor_intt_plain(*args)
+    _, G, L, K = key
+    chain = fast.FastParams.make(log_n, L + K).qs
+    coeff = random_residues(rng, chain, (G, L + K, n)).cuda()
+    xs = garner_digits(widen(coeff[:, L:]), chain[L:])
+    is_neg, t, t_neg = hybrid._sign_terms(xs, chain[L:], 2)
+    args = (n, chain[:L], chain[L:], 2, coeff, narrow(torch.stack(xs, dim=1)),
+            is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32), order)
+    return lambda: rk.rescale_fwd(*args), lambda: rk.rescale_fwd_plain(*args)
+
+
+def fused_shape_phase(log_n: int, order: str, shapes, rng, reps: int = 20) -> dict:
+    """Kernels A and 7 against their plain versions at each shape of shapes
+    (("tensor_intt", Bt, L) or ("rescale_fwd", G, L, K)) in a slot order;
+    with reps > 0 each is timed, launched one by one (ms) and from a CUDA
+    graph (graph_ms), and so is its plain version (plain_ms). Returns {key:
+    {"err", "bytes", "muls"[, "ms", "graph_ms", "plain_ms"]}}."""
+    import torch
+
+    n = 1 << log_n
+    res = {}
+    for key in sorted(shapes):
+        kern, plain = fused_inputs(log_n, key, rng, order)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if isinstance(got, tuple):
+            err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        else:
+            err = max_abs_err(got, want)
+        check(err == 0, f"{key[0]} != plain at n=2^{log_n} order={order} on {list(key[1:])} "
+                        f"(max abs err {err})")
+        cost = tensor_cost(*key[1:], n) if key[0] == "tensor_intt" else rescale_cost(*key[1:], n)
+        r = res[key] = {"err": err, "bytes": cost[0], "muls": cost[1]}
+        if reps:
+            r["ms"] = device_ms(kern, reps)
+            r["graph_ms"] = graph_ms(kern, reps)
+            r["plain_ms"] = device_ms(plain, 3)
+        del got, want, kern, plain
+    return res
+
+
+def fused_report(runs: dict, rng, clock_hz: float) -> dict:
+    """Kernels A and 7 at every shape a path launched them with and at
+    FUSED_SHAPES (shape_report, `[fused]` lines); also checks them at
+    n = 2^14 in both orders."""
+    small = {("tensor_intt", 4, 4), ("tensor_intt", 1, 5), ("rescale_fwd", 2, 5, 3),
+             ("rescale_fwd", 4, 4, 2)}
+    for order in ("pallas", "mxu"):
+        fused_shape_phase(SMALL[0], order, small, rng, reps=0)
+    fused = shape_report("fused", runs, rng, clock_hz, lambda order: ("tensor_intt", "rescale_fwd"),
+                         fused_shape_phase, lambda order: FUSED_SHAPES)
+    print(f"[fused] A and 7 at n=2^{SMALL[0]} in both orders: errors 0", flush=True)
+    return fused
 
 
 def main() -> int:
@@ -695,6 +800,10 @@ def main() -> int:
                         (N2E16[0], "pallas"): {"n2e16": mp16, "hybrid16": h16},
                         (HEADLINE[0], "mxu"): {"mxu": mx, "mxu deep": mxd},
                         (N2E16[0], "mxu"): {}}, rng, clock_hz)
+    fused = fused_report({(HEADLINE[0], "pallas"): {"main": mp, "hybrid": hy, "deep": dp},
+                          (N2E16[0], "pallas"): {"n2e16": mp16, "hybrid16": h16},
+                          (HEADLINE[0], "mxu"): {"mxu": mx, "mxu deep": mxd},
+                          (N2E16[0], "mxu"): {}}, rng, clock_hz)
 
     def entry(name, n, replaces, source, launched, timed, *checked, order="pallas"):
         """One kernel's line at one slot order: times and bound from the
@@ -709,22 +818,30 @@ def main() -> int:
 
     n15, n16 = 1 << HEADLINE[0], 1 << N2E16[0]
     mr_tpu, rs_tpu, ntt_tpu = MUL_RELIN_TPU + ":", RESCALE_TPU + ":", NTT_TPU + ":"
-    grid_tpu = {"intt_grid": rs_tpu + "52", "ntt_grid": rs_tpu + "142",
-                "ntt2_grid": ntt_tpu + "211", "intt2_grid": ntt_tpu + "232"}
-    # kernels 5, 6, 8, 9: one entry per shape a path launched; `launches` is the
-    # count of the path that launched it most
-    grid_entries = [
-        {"name": name, "n": 1 << log_n, "order": order, "shape": [G, T, 1 << log_n],
-         "route": "cuda", "source": RESCALE_CU, "replaces": grid_tpu[name],
-         "path": top, "launches": r["by_path"][top], "launches_by_path": r["by_path"],
-         "max_abs_err": r["err"], "ms": r["ms"], "graph_ms": r["graph_ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None}
-        for (log_n, order), res in grid.items() for (name, G, T), r in sorted(res.items())
+    by_shape_tpu = {"intt_grid": (rs_tpu + "52", RESCALE_CU),
+                    "ntt_grid": (rs_tpu + "142", RESCALE_CU),
+                    "ntt2_grid": (ntt_tpu + "211", RESCALE_CU),
+                    "intt2_grid": (ntt_tpu + "232", RESCALE_CU),
+                    "tensor_intt": (mr_tpu + "232", MUL_RELIN_CU),
+                    "rescale_fwd": (rs_tpu + "206", RESCALE_CU)}
+    # kernels 5, 6, 8, 9, A and 7: one entry per shape a path launched (5, 6,
+    # 8, 9 [G, T, n]; A [Bt, L, n]; 7 [G, L, K, n]); `launches` is the count
+    # of the path that launched it most
+    shape_entries = [
+        {"name": key[0], "n": 1 << log_n, "order": order, "shape": [*key[1:], 1 << log_n],
+         "route": "cuda", "source": by_shape_tpu[key[0]][1],
+         "replaces": by_shape_tpu[key[0]][0], "path": top, "launches": r["by_path"][top],
+         "launches_by_path": r["by_path"], "max_abs_err": r["err"], "ms": r["ms"],
+         "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": None}
+        for table in (grid, fused) for (log_n, order), res in table.items()
+        for key, r in sorted(res.items())
         if r["by_path"] for top in [max(r["by_path"], key=r["by_path"].get)]]
     kernels = [
         entry("tensor_intt", n15, mr_tpu + "232", MUL_RELIN_CU, mp["launches"]["tensor_intt"],
               head["tensor_intt"], head, small),
+        entry("tensor_intt", n15, mr_tpu + "232", MUL_RELIN_CU, mx["launches"]["tensor_intt"],
+              head_mxu["tensor_intt"], head_mxu, order="mxu"),
         entry("digit_relin", n15, mr_tpu + "439", MUL_RELIN_CU, mp["launches"]["digit_relin"],
               head["digit_relin"], head, small),
         entry("digit_relin", n15, mr_tpu + "439", MUL_RELIN_CU, mx["launches"]["digit_relin"],
@@ -742,7 +859,7 @@ def main() -> int:
               h16["launches"]["hybrid_digit_relin"], h16_k["hybrid_digit_relin"], h16_k, h16_small),
         entry("rescale_fwd", n16, rs_tpu + "206", RESCALE_CU, h16["launches"]["rescale_fwd"],
               h16_k["rescale_fwd"], h16_k, h16_small),
-        *grid_entries,
+        *shape_entries,
     ]
     print(f"[summary] mul_relin ops/s (host clock): main {mp['ops_per_s']:.1f}, "
           f"n2e16 {mp16['ops_per_s']:.1f}, mxu {mx['ops_per_s']:.1f}; mul_relin_hybrid raw: "

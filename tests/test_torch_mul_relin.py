@@ -1,9 +1,8 @@
 """alchemy_tpu_torch kernels A and B (backend/cuda/mul_relin.py): the plain
 versions against the JAX package's mul_relin (exact equality), the host
 tables the CUDA kernels use against the 3-factor slot order, and the index
-schedules of the kernels (each limb split over two blocks; the
-register-blocked passes of B and 4, and of 5, 6, 8 and 9) emulated in
-numpy."""
+schedules of the kernels (each limb split over two blocks or four; the
+register-blocked passes of A, B, 4, 5, 6, 7, 8 and 9) emulated in numpy."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,10 +11,13 @@ import torch
 
 from alchemy_tpu.she import fast as jfast
 from alchemy_tpu_torch.backend.cuda import mul_relin as mr
+from alchemy_tpu_torch.backend.cuda import rescale as rk
+from alchemy_tpu_torch.backend.modarith import garner_digits, narrow, widen
 from alchemy_tpu_torch.backend.ntt2 import _pick_split
 from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3
 from alchemy_tpu_torch.convert import to_numpy, to_torch
 from alchemy_tpu_torch.she import fast as tfast
+from alchemy_tpu_torch.she import hybrid as thyb
 
 
 def _jax_state(log_n, L, Bt, shoup, seed):
@@ -119,10 +121,10 @@ def _bitrev_inverse(a, tw, q, split=0, part=0):
 
 
 def _split_forward(x, tw, q, slot_inv):
-    """Kernel 7's transform as it runs (rescale.cu rescale_fwd_kernel): block
-    `part` fuses the first stage into its load (zq.cuh forward_first_stage,
-    any uint32 x), runs the stages inside its half and writes slot
-    slot_inv[part·n/2 + j] from its word j → the row in slot order."""
+    """The forward NTT split over two blocks: block `part` fuses the first
+    stage into its load (any uint32 x), runs the stages inside its half and
+    writes slot slot_inv[part·n/2 + j] from its word j → the row in slot
+    order."""
     half = len(x) // 2
     u, v = x[:half] % q, x[half:] * tw[1] % q
     out = np.empty(len(x), dtype=np.int64)
@@ -132,10 +134,10 @@ def _split_forward(x, tw, q, slot_inv):
 
 
 def _split_inverse(y, tw, q, slot_inv, n_inv):
-    """Kernel A's inverse as it runs (mul_relin.cu tensor_intt_kernel): block
-    `part` gathers the slots slot_inv[part·n/2 + j], runs the stages inside
-    its half, and the cluster's last stage (zq.cuh inverse_last_stage) pairs
-    the halves and scales by n⁻¹ → natural-order coefficients."""
+    """The inverse NTT split over two blocks: block `part` gathers the slots
+    slot_inv[part·n/2 + j], runs the stages inside its half, and the
+    cluster's last stage pairs the halves and scales by n⁻¹ →
+    natural-order coefficients."""
     half = len(y) // 2
     u, v = (_bitrev_inverse(y[slot_inv[p * half:(p + 1) * half]], tw, q, 1, p) for p in (0, 1))
     return np.concatenate([(u + v) % q * n_inv % q, (u - v) % q * tw[1] % q * n_inv % q])
@@ -183,10 +185,10 @@ def test_kernel_tables_map_radix2_order_to_slot_order_full_size(log_n):
 
 @pytest.mark.parametrize("log_n", [10, 11, 12, 16])
 def test_split_schedule_matches_ntt3(log_n):
-    """The index logic of kernels A and 7 (two blocks per limb, the
-    slot_inv ownership, the fused first forward stage and the cross-half
-    last inverse stage) against ntt3/intt3 (exact), at 2^16 (the radix-4
-    slot order) and at small sizes."""
+    """The mathematics of a limb split over two blocks (the slot_inv
+    ownership, the fused first forward stage and the cross-half last
+    inverse stage) against ntt3/intt3 (exact), at 2^16 (the radix-4 slot
+    order) and at small sizes."""
     p = jfast.FastParams.make(log_n, 2)
     t = mr.kernel_tables(p.n, p.qs)
     rng = np.random.default_rng(log_n)
@@ -364,6 +366,20 @@ def _rb_inverse(y, tw, q, part, max_rl, own, split=1):
     return smem
 
 
+def _last_stages(a, inv, q, n_inv):
+    """The stages of the inverse NTT that cross the parts, scaled by n⁻¹, on
+    the parts a (each in natural order within the part): zq.cuh
+    inverse_last_stage for two, inverse_last_stages4 for four."""
+    if len(a) == 2:
+        got = np.concatenate([(a[0] + a[1]) % q, (a[0] - a[1]) % q * inv[1] % q])
+    else:
+        b0, b2 = (a[0] + a[1]) % q, (a[2] + a[3]) % q
+        b1, b3 = (a[0] - a[1]) % q * inv[2] % q, (a[2] - a[3]) % q * inv[3] % q
+        got = np.concatenate([(b0 + b2) % q, (b1 + b3) % q,
+                              (b0 - b2) % q * inv[1] % q, (b1 - b3) % q * inv[1] % q])
+    return got * n_inv % q
+
+
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
 @pytest.mark.parametrize("shape", sorted(GRID_SHAPES))
 @pytest.mark.parametrize("order", ["pallas", "mxu"])
@@ -409,15 +425,100 @@ def test_grid_kernel_schedule_matches_plain_ntt(log_n, order, shape, direction):
             n_inv = int(t["limbs"][li, 1])
             a = [_rb_inverse(x[li], inv, ql, part, max_rl, own[part], split)[_pad(np.arange(size))]
                  for part in range(parts)]
-            if split == 1:          # zq.cuh inverse_last_stage
-                got = np.concatenate([(a[0] + a[1]) % ql, (a[0] - a[1]) % ql * inv[1] % ql])
-            else:                   # zq.cuh inverse_last_stages4
-                b0, b2 = (a[0] + a[1]) % ql, (a[2] + a[3]) % ql
-                b1, b3 = (a[0] - a[1]) % ql * inv[2] % ql, (a[2] - a[3]) % ql * inv[3] % ql
-                got = np.concatenate([(b0 + b2) % ql, (b1 + b3) % ql,
-                                      (b0 - b2) % ql * inv[1] % ql, (b1 - b3) % ql * inv[1] % ql])
-            got = got * n_inv % ql
+            got = _last_stages(a, inv, ql, n_inv)
         assert np.array_equal(got, want[li])
+
+
+@pytest.mark.parametrize("shape", sorted(GRID_SHAPES))
+@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("log_n", [10, 11, 12, 16])
+def test_kernel_a_schedule_matches_plain(log_n, order, shape):
+    """Kernel A as it runs (mul_relin.cu tensor_intt_kernel, launched by
+    zq.cuh launch_grid in the launch shapes of 5 and 9) at each launch shape,
+    a limb over two blocks or four: each block walks its slots in slot order
+    (slot_own or slot_own4), computes the Karatsuba product of each slot,
+    writes c0 and c1 there and places c2 at its radix-2 index in the part;
+    then the inverse passes and the cluster's last stages → (c0, c1, c2c)
+    against `tensor_intt_plain` exactly, both orders. Every slot of c0 and
+    c1 is written once."""
+    _, max_rl, split = GRID_SHAPES[shape]
+    parts = 1 << split
+    p = jfast.FastParams.make(log_n, 2)
+    n, size = p.n, p.n >> split
+    t = mr.kernel_tables(n, p.qs, order)
+    rng = np.random.default_rng(log_n)
+    q = np.array(p.qs, dtype=np.int64)[:, None]
+    ct_a, ct_b = (rng.integers(0, 1 << 62, (1, 2, 2, n)) % q for _ in range(2))
+    want = [w.numpy() for w in mr.tensor_intt_plain(n, p.qs, torch.from_numpy(ct_a),
+                                                    torch.from_numpy(ct_b), order)]
+    own = t["slot_own" if split == 1 else "slot_own4"].astype(np.int64).reshape(parts, size)
+    slots = own & 0xFFFF
+    for li, ql in enumerate(p.qs):
+        (a0, a1), (b0, b1) = ct_a[0, :, li], ct_b[0, :, li]
+        inv = t["inv"][li, 0].astype(np.int64)
+        c0, c1 = np.full(n, -1, dtype=np.int64), np.full(n, -1, dtype=np.int64)
+        halves = []
+        for part in range(parts):
+            s = slots[part]
+            p0, p2 = a0[s] * b0[s] % ql, a1[s] * b1[s] % ql
+            cross = (a0[s] + a1[s]) % ql * ((b0[s] + b1[s]) % ql) % ql
+            assert (c0[s] == -1).all()
+            c0[s], c1[s] = p0, (cross - p0 - p2) % ql
+            c2 = np.full(n, -1, dtype=np.int64)          # only this block's slots
+            c2[s] = p2
+            halves.append(_rb_inverse(c2, inv, ql, part, max_rl, own[part], split)[_pad(np.arange(size))])
+        got = _last_stages(halves, inv, ql, int(t["limbs"][li, 1]))
+        for g, w in zip((c0, c1, got), want):
+            assert np.array_equal(g, w[0, li])
+
+
+#: stages a pass of kernel 7 at most, the first pass's too (rescale.cu
+#: RescaleSmall at n ≤ 2^15 and RescaleLarge at 2^16 differ only in threads,
+#: which the schedule does not depend on)
+RESCALE_MAX_RL = 3
+
+
+@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("log_n", [10, 11, 12, 16])
+def test_kernel_7_schedule_matches_plain(log_n, order):
+    """Kernel 7 as it runs (rescale.cu rescale_fwd_kernel): the prologue
+    (base extension of the dropped limbs' Garner digits in ascending k, the
+    sign corrections, ×P⁻¹, as the kernel's `rescaled` computes it) as the
+    load of the register-blocked forward passes, each block of the cluster
+    pair evaluating it on its own half, then each block's slots stored in
+    slot order → against `rescale_fwd_plain` exactly, both orders. Every
+    slot is written once."""
+    p = jfast.FastParams.make(log_n, 5)
+    n, half, zp = p.n, p.n // 2, 4
+    keep, drop = p.qs[:2], p.qs[2:]
+    rng = np.random.default_rng(log_n)
+    q = np.array(p.qs, dtype=np.int64)[:, None]
+    coeff = rng.integers(0, 1 << 62, (1, 5, n)) % q
+    xs = garner_digits(torch.from_numpy(coeff[:, 2:]), drop)
+    is_neg, tz, t_neg = (v.numpy()[0].astype(np.int64) for v in thyb._sign_terms(xs, drop, zp))
+    want = rk.rescale_fwd_plain(n, keep, drop, zp, narrow(torch.from_numpy(coeff)),
+                                narrow(torch.stack(xs, dim=1)), torch.from_numpy(is_neg[None]),
+                                torch.from_numpy(tz[None]), torch.from_numpy(t_neg[None]), order)
+    t = mr.kernel_tables(n, keep, order)
+    own = t["slot_own"].astype(np.int64).reshape(2, half)
+    slots, local = own & 0xFFFF, own >> 16
+    consts = rk.rescale_consts(keep, drop).astype(np.int64)
+    for j, qj in enumerate(keep):
+        c = consts[j]
+        v = np.zeros(n, dtype=np.int64)
+        for k in range(len(drop)):
+            v = (v + xs[k][0].numpy() * c[4 + k] % qj) % qj
+        v = np.where(is_neg != 0, (v - c[0]) % qj, v)
+        tc = np.where(t_neg != 0, qj - (zp - tz), tz)
+        delta = (v + tc * c[0] % qj) % qj
+        row = (coeff[0, j] - delta) % qj * c[2] % qj
+        fwd = t["fwd"][j, 0].astype(np.int64)
+        got = np.full(n, -1, dtype=np.int64)
+        for part in (0, 1):
+            smem = _rb_forward(row, fwd, qj, part, RESCALE_MAX_RL, RESCALE_MAX_RL, True)
+            assert (got[slots[part]] == -1).all()
+            got[slots[part]] = smem[_pad(local[part])]
+        assert np.array_equal(got, widen(want)[0, j].numpy())
 
 
 def test_wrappers_check_their_inputs():
@@ -525,6 +626,29 @@ def test_kernels_match_plain_on_the_card(log_n, L, Bt, order):
     assert torch.equal(mr.digit_relin(p.n, p.qs, *c, hb[0], ha[0], order), out)
     assert mr.LAUNCHES == {**before, "tensor_intt": before["tensor_intt"] + 1,
                            "digit_relin": before["digit_relin"] + 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("log_n,L,Bt", [(14, 3, 1), (15, 18, 1), (15, 8, 16), (16, 8, 4),
+                                        (16, 2, 20)])
+def test_kernel_a_launch_forms_match_plain_on_the_card(log_n, L, Bt, order):
+    """Kernel A at each launch form of zq.cuh launch_grid: a limb over a
+    cluster of four blocks ([1, 3, n]; [1, 18, n], the deep chain's first
+    level), over two in GridTwo ([16, 8, n] at 2^15: 256 blocks) and in
+    GridOne at 2^16 ([4, 8, n]: 32 limbs, more than the clusters of four the
+    card runs at once; [20, 2, n]: more than one wave of quarters)."""
+    _need_card()
+    p = tfast.FastParams.make(log_n, L)
+    rng = np.random.default_rng(log_n + L)
+    q = np.array(p.qs, dtype=np.int64)[:, None]
+    res = lambda shape: to_torch(rng.integers(0, 1 << 62, shape) % q, "cuda")
+    ct_a, ct_b = res((Bt, 2, L, p.n)), res((Bt, 2, L, p.n))
+    before = mr.LAUNCHES_BY_SHAPE.get(("tensor_intt", Bt, L, p.n), 0)
+    got = mr.tensor_intt(p.n, p.qs, ct_a, ct_b, order)
+    assert all(torch.equal(x, y)
+               for x, y in zip(got, mr.tensor_intt_plain(p.n, p.qs, ct_a, ct_b, order)))
+    assert mr.LAUNCHES_BY_SHAPE[("tensor_intt", Bt, L, p.n)] == before + 1
 
 
 @pytest.mark.cuda

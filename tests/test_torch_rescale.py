@@ -12,6 +12,7 @@ from alchemy_tpu.she import fast as jfast
 from alchemy_tpu.she import hybrid as jhyb
 from alchemy_tpu_torch.backend.cuda import build
 from alchemy_tpu_torch.backend.cuda import rescale as rk
+from alchemy_tpu_torch.backend.modarith import garner_digits, narrow, widen
 from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
 from alchemy_tpu_torch.convert import to_numpy, to_torch
 from alchemy_tpu_torch.she import fast as tfast
@@ -237,6 +238,30 @@ def test_kernels_5_6_match_plain_on_the_card_at_2e16(G, order):
     assert rk.LAUNCHES == {**before, inv_name: before[inv_name] + 1,
                            fwd_name: before[fwd_name] + 1}
     assert rk.LAUNCHES_BY_SHAPE[inv_name, G, 3, p.n] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("log_n,L,K,G", [(8, 3, 2, 2), (14, 5, 3, 2), (15, 16, 4, 2),
+                                         (15, 16, 4, 32), (16, 4, 2, 3)])
+def test_kernel_7_matches_plain_on_the_card(log_n, L, K, G, order):
+    """Kernel 7, its prologue split over a cluster pair, in both launch
+    shapes (512 threads at n ≤ 2^15, 1024 at 2^16; [2, 16, n] with K = 4 is
+    the deep chain's first level, [32, 16, n] the hybrid op's); at 2^8 the
+    2-factor order's rows are 2 words, and the slot-order store takes word
+    accesses. Inputs as rescale_joint makes them from canonical
+    coefficients."""
+    _need_card()
+    chain = tfast.FastParams.make(log_n, L + K).qs
+    keep, drop = chain[:L], chain[L:]
+    coeff = to_torch(_rows(tfast.FastParams(n=1 << log_n, qs=chain), G, seed=log_n), "cuda")
+    xs = garner_digits(widen(coeff[:, L:]), drop)
+    is_neg, t, t_neg = thyb._sign_terms(xs, drop, 2)
+    args = (1 << log_n, keep, drop, 2, coeff, narrow(torch.stack(xs, dim=1)),
+            is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32), order)
+    before = rk.LAUNCHES_BY_SHAPE.get(("rescale_fwd", G, L, K, 1 << log_n), 0)
+    assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
+    assert rk.LAUNCHES_BY_SHAPE[("rescale_fwd", G, L, K, 1 << log_n)] == before + 1
 
 
 @pytest.mark.cuda
