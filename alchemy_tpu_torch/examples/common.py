@@ -1,0 +1,55 @@
+"""Shared example infrastructure (`alchemy_tpu/examples/common.py`, reference
+examples/Common.hs): the plaintext ring tower H0..H5 and ciphertext tower
+H0'..H5' (Common.hs:41-54), the `decToCRT` linear function mapping the
+relative basis (rel. the largest common subring) to CRT slots
+(Common.hs:65-75), and the wall-clock timing harness (Common.hs:99-127).
+The chained switches `switch1..switch5` wait for the DSL.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from contextlib import contextmanager
+from functools import lru_cache
+
+from alchemy_tpu_torch.core.cyc import Cyc
+from alchemy_tpu_torch.nt.crtset import crt_set_relative
+from alchemy_tpu_torch.nt.factor import fgcd, totient
+from alchemy_tpu_torch.she.linear import LinearMap
+
+# plaintext ring indices (Common.hs:41-46)
+H0, H1, H2, H3, H4, H5 = 128, 448, 2912, 3640, 5460, 4095
+# corresponding ciphertext ring indices (Common.hs:49-54)
+H0p, H1p, H2p, H3p, H4p, H5p = 11648, 29120, 43680, 54600, 27300, 20475
+
+TOWER = [H0, H1, H2, H3, H4, H5]
+TOWER_P = [H0p, H1p, H2p, H3p, H4p, H5p]
+
+#: the M'Map of HomomRLWR.hs:29-35 / Tunnel.hs:26-32
+M_MAP = dict(zip(TOWER, TOWER_P))
+
+
+@lru_cache(maxsize=None)
+def dec_to_crt(r: int, s: int, pk: int, bk_name: str = "golden") -> LinearMap:
+    """Linear function mapping the relative basis (rel. e = FGCD r s) to the
+    relative CRT set of R_s (Common.hs:65-75): takes only as many CRT-set
+    elements as the relative dimension."""
+    from alchemy_tpu_torch.backend import get_backend
+
+    bk = get_backend(bk_name)
+    e = fgcd(r, s)
+    dim = totient(r) // totient(e)
+    crts = crt_set_relative(e, s, pk)
+    assert len(crts) >= dim, "not enough relative CRT elements (linearDec would fail)"
+    images = tuple(Cyc.from_coeffs(s, (pk,), c, bk) for c in crts[:dim])
+    return LinearMap(e=e, r=r, s=s, images=images)
+
+
+@contextmanager
+def timed(label: str, verbose: bool = True):
+    """Wall-clock phase timing (Common.hs:99-127 prints 'Wall time: %0.3fs')."""
+    t0 = _time.perf_counter()
+    yield
+    dt = _time.perf_counter() - t0
+    if verbose:
+        print(f"{label}Wall time: {dt:0.3f}s\n")

@@ -1,8 +1,8 @@
 """NTT-friendly primes, roots of unity and noise units (framework-free).
 
-A copy of `alchemy_tpu/nt/primes.py` (with the two helpers it takes from
-`alchemy_tpu/nt/factor.py`: `factorize` and `is_prime`), so that both
-packages build the same RNS chains and the same transform roots.
+A copy of `alchemy_tpu/nt/primes.py`, so that both packages build the same
+RNS chains and the same transform roots; `factorize` and `is_prime` come
+from `nt/factor.py`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -10,55 +10,10 @@ from __future__ import annotations
 import math
 from functools import lru_cache
 
+from alchemy_tpu_torch.nt.factor import factorize, is_prime
+
 #: "Bits" per noise unit (reference Noise.hs:153-155).
 PNOISE_UNIT = 6.1
-
-
-@lru_cache(maxsize=None)
-def factorize(n: int) -> tuple[tuple[int, int], ...]:
-    """Prime factorization of n >= 1 as a sorted tuple of (p, e) pairs
-    (alchemy_tpu/nt/factor.py:15)."""
-    if n < 1:
-        raise ValueError(f"factorize: n must be >= 1, got {n}")
-    out = []
-    m = n
-    d = 2
-    while d * d <= m:
-        if m % d == 0:
-            e = 0
-            while m % d == 0:
-                m //= d
-                e += 1
-            out.append((d, e))
-        d += 1 if d == 2 else 2
-    if m > 1:
-        out.append((m, 1))
-    return tuple(out)
-
-
-def is_prime(n: int) -> bool:
-    """Deterministic Miller-Rabin for n < 3.3e24 (alchemy_tpu/nt/factor.py:57)."""
-    if n < 2:
-        return False
-    for p in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
-        if n % p == 0:
-            return n == p
-    d = n - 1
-    r = 0
-    while d % 2 == 0:
-        d //= 2
-        r += 1
-    for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
-        x = pow(a, d, n)
-        if x in (1, n - 1):
-            continue
-        for _ in range(r - 1):
-            x = x * x % n
-            if x == n - 1:
-                break
-        else:
-            return False
-    return True
 
 
 def units_of_modulus(q: int) -> int:

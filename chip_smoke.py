@@ -29,6 +29,18 @@ just before it:
   [hybrid16] [hybrid] at n = 2^16 (L = 16, dnum = 4, K = 4, raw then Shoup
             hints, 16 ciphertexts).
 
+After them, one more phase with no CUDA kernel of its own:
+
+  [she]     HomomRLWR's ciphertext work through the general SHE layer
+            (`she/bgv.py`, `she/tunnel.py` on `backend/torch_backend.py`):
+            five ring tunnels H0′→…→H5′ with TrivGad at 6 and 5 limbs, then
+            at H5′ mul_public, mul, key_switch_quad with TrivGad and
+            HybridGad, mod_switch to 2 limbs, mod_switch_pt; every decryption
+            against the plaintext on the golden backend. Once on the checked
+            backend (each torch op on the card against golden numpy), once on
+            the torch backend for host ms and counts by op, and the device
+            time of one tunnel and one key switch (CUDA events, profiler).
+
 The first four run at impl="pallas", the 3-factor slot order. Kernels 5,
 6, 8 and 9 then run again, checked and timed, at every [G, T, n] a path
 launched them with (rescale.LAUNCHES_BY_SHAPE, read per path) and at
@@ -68,6 +80,10 @@ SMALL_HYBRID = (14, 5, 2)         # uneven digit groups (3, 2), K = 3
 HYBRID16 = (16, 16, 16)           # hybrid at n = 2^16: dnum = 4, K = 4, T = 20
 SMALL_HYBRID16 = (16, 5, 2)
 DEEP_DEPTH = 16
+# [she]: HomomRLWR's six moduli (alchemy_tpu/examples/homomrlwr.py:37-43), its
+# plaintext modulus Z_32 and Gaussian parameter 5.0
+SHE_ZQS = (1543651201, 689270401, 718099201, 720720001, 1556755201, 1567238401)
+SHE_ZP, SHE_R = 32, 5.0
 # (G, T) of the standalone transforms on [G, T, n] at the shapes the paths give
 # them. Forward (6/8): keygen, hints and encrypt at L = 8; the hybrid hint over
 # T = 20 limbs; the deep chain's rescale of one ciphertext; fast.rescale of a
@@ -621,6 +637,149 @@ def deep_path(card: str, tag: str, impl: str) -> dict:
     return {"launches": seen, "by_shape": by_shape, "level_ms": level_ms, "wall_s": wall}
 
 
+def she_run(bk) -> dict:
+    """HomomRLWR's ciphertext work through the port's general SHE layer on
+    backend bk: keys with variance 5.0/√φ(m′) per ring, a Z_32 plaintext of
+    R_{H0} encrypted at H0′ under SHE_ZQS, the five tunnels of `switch5`
+    along H0′→…→H5′ (the `dec_to_crt` maps, TrivGad; four at 6 limbs, the
+    fifth at 5 after a `mod_switch`), then at H5′ and 4 limbs `mul_public`
+    by an even plaintext, `mul`, `key_switch_quad` with TrivGad and again with
+    HybridGad, `mod_switch` to 2 limbs, `mod_switch_pt` and decrypt. Each
+    decryption is held against the plaintext evaluation on the port's golden
+    backend. Returns the host ms and the backend's counts by op, the checks,
+    and the last tunnel's and the TrivGad switch's inputs."""
+    import math
+    from collections import Counter
+
+    import numpy as np
+
+    from alchemy_tpu_torch.backend import golden_backend
+    from alchemy_tpu_torch.core.cyc import Cyc
+    from alchemy_tpu_torch.examples.common import TOWER, TOWER_P, dec_to_crt
+    from alchemy_tpu_torch.nt.factor import totient
+    from alchemy_tpu_torch.she import bgv
+    from alchemy_tpu_torch.she.gadget import HybridGad, TrivGad
+    from alchemy_tpu_torch.she.keys import SK
+    from alchemy_tpu_torch.she.tunnel import tunnel, tunnel_hint
+
+    gb = golden_backend()
+    tb = getattr(bk, "fast", bk)       # the TorchBackend (of a checked pair) with the counts
+    rng = np.random.default_rng(SEED)
+    qs, zp = SHE_ZQS, SHE_ZP
+    ops, ok = [], {}
+
+    def run(label, fn):
+        before = Counter(tb.counts)
+        out, ms = host_ms(fn)
+        ops.append((label, ms, dict(Counter(tb.counts) - before)))
+        return out
+
+    keys = {mp: SK.generate(mp, SHE_R / math.sqrt(totient(mp)), rng) for mp in TOWER_P}
+    coeffs = rng.integers(0, zp, totient(TOWER[0]))
+    pt = Cyc.from_coeffs(TOWER[0], (zp,), coeffs, gb)
+    ct = run("encrypt H0' L=6", lambda: bgv.encrypt(
+        keys[TOWER_P[0]], Cyc.from_coeffs(TOWER[0], (zp,), coeffs, bk), TOWER_P[0], qs, rng))
+    for i in range(5):
+        f = dec_to_crt(TOWER[i], TOWER[i + 1], zp)
+        if i == 4:
+            ct = run("mod_switch L=6→5", lambda: bgv.mod_switch(ct, qs[:5]))
+        ring = f"H{i}'→H{i + 1}' L={len(ct.qs)}"
+        hint = run(f"tunnel_hint {ring}", lambda: tunnel_hint(
+            f, keys[TOWER_P[i + 1]], keys[TOWER_P[i]], TrivGad(), ct.qs, zp, rng, bk))
+        ct_in = ct
+        ct = run(f"tunnel {ring}", lambda: tunnel(hint, ct_in))
+        pt = f.eval(pt)
+    sk = keys[TOWER_P[5]]
+    ct4 = run("mod_switch L=5→4", lambda: bgv.mod_switch(ct, qs[:4]))
+    ok["tunnels"] = run("decrypt H5' L=4", lambda: bgv.decrypt(sk, ct4)).equals(pt)
+    kc = 2 * rng.integers(0, zp // 2, totient(TOWER[5]))
+    k = Cyc.from_coeffs(TOWER[5], (zp,), kc, gb)
+    y = run("mul_public H5' L=4", lambda: bgv.mul_public(Cyc.from_coeffs(TOWER[5], (zp,), kc, bk), ct4))
+    prod = run("mul H5' L=4", lambda: bgv.mul(ct4, y))
+    want = pt * (k * pt)
+    hints, outs = {}, {}
+    for name, gad in (("TrivGad", TrivGad()), ("HybridGad", HybridGad())):
+        hints[name] = run(f"ks_hint {name} H5' L=4",
+                          lambda: bgv.ks_quad_circ_hint(sk, gad, qs[:4], zp, rng, bk))
+        outs[name] = run(f"key_switch_quad {name} H5' L=4",
+                         lambda: bgv.key_switch_quad(hints[name], prod))
+        ok[name] = bgv.decrypt(sk, outs[name]).equals(want)
+    down = run("mod_switch L=4→2", lambda: bgv.mod_switch(outs["TrivGad"], qs[:2]))
+    half = run("mod_switch_pt H5' L=2", lambda: bgv.mod_switch_pt(down))
+    wc = gb.to_numpy(want.to_pow().data)[0]
+    check(bool((wc % 2 == 0).all()), "[she] the product by an even plaintext is even")
+    want_half = Cyc.from_coeffs(TOWER[5], (zp // 2,), wc // 2, gb)
+    ok["mod_switch_pt"] = run("decrypt H5' L=2", lambda: bgv.decrypt(sk, half)).equals(want_half)
+    return {"ops": ops, "ok": ok, "tunnel": (hint, ct_in), "ks": (hints["TrivGad"], prod)}
+
+
+def profile_op(fn, calls: int) -> dict:
+    """Device launches, busy and span µs per call of fn() and its three
+    costliest kernels, over `calls` warm calls under torch.profiler."""
+    import torch
+
+    from alchemy_tpu_torch.examples.profile_mul_relin import _busy_us
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kernels), "[she] the profiler saw device time")
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    by_kernel: dict = {}
+    for e in kernels:
+        by_kernel[e.name[:48]] = by_kernel.get(e.name[:48], 0.0) + e.time_range.end - e.time_range.start
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:3]
+    span = max(b for _, b in spans) - min(a for a, _ in spans)
+    return {"launches": len(kernels) / calls, "busy_us": _busy_us(spans) / calls,
+            "span_us": span / calls, "top_us": [(k, v / calls) for k, v in top]}
+
+
+def she_phase(checked_bk, torch_bk, card: str) -> dict:
+    """[she]: she_run once on the checked backend (every TorchBackend op on
+    the card held bit for bit against golden numpy; a divergence raises),
+    then once on the torch backend alone for the times, counts and the
+    device time of one tunnel and one TrivGad key switch."""
+    from alchemy_tpu_torch.she import bgv
+    from alchemy_tpu_torch.she.tunnel import tunnel
+
+    t0 = time.perf_counter()
+    chk = she_run(checked_bk)
+    checked_s = time.perf_counter() - t0
+    check(all(chk["ok"].values()), f"[she] checked run: decryptions {chk['ok']}")
+    print(f"[she] checked run (torch on {card} against golden numpy, op by op): no divergence, "
+          f"decryptions {chk['ok']}, {checked_s:.2f} s wall", flush=True)
+    torch_bk.counts.clear()
+    t0 = time.perf_counter()
+    res = she_run(torch_bk)
+    torch_s = time.perf_counter() - t0
+    check(all(res["ok"].values()), f"[she] torch run: decryptions {res['ok']}")
+    print(f"[she] torch run: decryptions {res['ok']}, {torch_s:.2f} s wall; host ms and counts "
+          "by op (first call: matrix uploads included)", flush=True)
+    for label, ms, counts in res["ops"]:
+        print(f"[she]   {label}: {ms:.2f} ms, axis_matmul {counts.get('axis_matmul', 0)}, "
+              f"to_host {counts.get('to_host', 0)}, to_device {counts.get('to_device', 0)}, "
+              f"mat_upload {counts.get('mat_upload', 0)}", flush=True)
+    hint, ct_in = res["tunnel"]
+    hk, prod = res["ks"]
+    timed = {}
+    for name, fn in (("tunnel H4'→H5' L=5", lambda: tunnel(hint, ct_in)),
+                     ("key_switch_quad TrivGad H5' L=4", lambda: bgv.key_switch_quad(hk, prod))):
+        warm = [host_ms(fn)[1] for _ in range(3)]
+        timed[name] = {"host_ms": sum(warm) / 3, "event_ms": device_ms(fn, 5),
+                       **profile_op(fn, 3)}
+        t = timed[name]
+        print(f"[she] {name} warm: host {t['host_ms']:.3f} ms, CUDA events {t['event_ms']:.3f} ms, "
+              f"{t['launches']:.0f} launches, device busy {t['busy_us']:.1f} µs of a "
+              f"{t['span_us']:.1f} µs span; top kernels "
+              + ", ".join(f"{k} {v:.1f} µs" for k, v in t["top_us"]), flush=True)
+    return {"checked_s": checked_s, "torch_s": torch_s, "ops": res["ops"], "timed": timed}
+
+
 def shape_report(tag: str, runs: dict, rng, clock_hz: float, names, phase, extra) -> dict:
     """Kernels names(order) at every shape a path launched them with and at
     extra(order), per (log2 n, order) of runs ({tag: result} of the paths
@@ -796,6 +955,11 @@ def main() -> int:
     mx = main_path(rng, card, HEADLINE, "mxu", "mxu")
     mxd = deep_path(card, "mxu", "mxu")
     h16 = hybrid_path(rng, card, HYBRID16, "hybrid16", trivgad=False)
+    from alchemy_tpu_torch.backend import get_backend
+
+    she_bk = get_backend("torch")
+    check(she_bk.device.type == "cuda", f"[she] the torch backend is on {she_bk.device}")
+    she_phase(get_backend("checked"), she_bk, card)
     grid = grid_report({(HEADLINE[0], "pallas"): {"main": mp, "hybrid": hy, "deep": dp},
                         (N2E16[0], "pallas"): {"n2e16": mp16, "hybrid16": h16},
                         (HEADLINE[0], "mxu"): {"mxu": mx, "mxu deep": mxd},

@@ -151,6 +151,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import alchemy_tpu_torch.she.fast, alchemy_tpu_torch.she.hybrid\n"
         "import alchemy_tpu_torch.convert, alchemy_tpu_torch.examples.deep_circuit\n"
         "import alchemy_tpu_torch.backend.cuda.build, alchemy_tpu_torch.backend.cuda.rescale\n"
+        "import alchemy_tpu_torch.nt.factor, alchemy_tpu_torch.nt.crtset\n"
+        "import alchemy_tpu_torch.core.params, alchemy_tpu_torch.core.ring, alchemy_tpu_torch.core.cyc\n"
+        "import alchemy_tpu_torch.backend.golden, alchemy_tpu_torch.backend.torch_backend\n"
+        "import alchemy_tpu_torch.backend.checked\n"
+        "import alchemy_tpu_torch.she.ct, alchemy_tpu_torch.she.keys, alchemy_tpu_torch.she.gadget\n"
+        "import alchemy_tpu_torch.she.bgv, alchemy_tpu_torch.she.linear, alchemy_tpu_torch.she.tunnel\n"
+        "import alchemy_tpu_torch.she.convert, alchemy_tpu_torch.examples.common\n"
+        "from alchemy_tpu_torch.backend import get_backend\n"
+        "from alchemy_tpu_torch.backend.torch_backend import TorchBackend\n"
+        "from alchemy_tpu_torch.examples.common import dec_to_crt\n"
+        "dec_to_crt(128, 448, 32); TorchBackend('cpu'); get_backend('golden')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alchemy_tpu'))\n"
         "assert not bad, bad\n"
     )
