@@ -61,5 +61,20 @@ def root_of_unity(m: int, q: int) -> int:
         raise ValueError(f"q={q} is not ≡ 1 mod m={m}; no m-th root of unity")
     g = primitive_root(q)
     w = pow(g, (q - 1) // m, q)
-    assert pow(w, m, q) == 1 and pow(w, m // factorize(m)[0][0], q) != 1
+    assert pow(w, m, q) == 1 and pow(w, m // p_smallest(m), q) != 1
     return w
+
+
+def p_smallest(m: int) -> int:
+    return factorize(m)[0][0]
+
+
+def validate_moduli_for_ring(m: int, qs: list[int]) -> None:
+    """Every ciphertext modulus must be ≡ 1 (mod m) to support the CRT
+    transform of the m-th cyclotomic ring."""
+    for q in qs:
+        if (q - 1) % m != 0:
+            raise ValueError(
+                f"modulus {q} is not NTT-friendly for cyclotomic index {m} "
+                f"(need q ≡ 1 mod {m})"
+            )

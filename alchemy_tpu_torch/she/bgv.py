@@ -58,14 +58,17 @@ def embed_pt(pt: Cyc, m_prime: int, qs: tuple[int, ...], scale: int = 1,
                out_bk.asarray(gb.to_numpy(emb.data), emb.qs), out_bk)
 
 
-def twace_int_host(arr: np.ndarray, m: int, m_sub: int) -> np.ndarray:
-    """Exact integer twace R_m → R_{m_sub} on signed host coefficients."""
+def twace_int_host(arr: np.ndarray, m: int, m_sub: int, p: int) -> np.ndarray:
+    """Exact integer twace R_m → R_{m_sub} on signed host coefficients,
+    reduced mod p: int64 in [0, p). The values stay Python ints until the
+    reduction, so an error term past 2^63 decrypts (the JAX package's int64
+    cast raises there)."""
     ring, sub = get_ring(m), get_ring(m_sub)
     x = arr.astype(object).reshape(ring.shape)
     for ax, f in enumerate(ring.factors):
         M = twace_factor_matrix(f.p, f.e, sub.factor_exponent(f.p)).astype(object)
         x = np.moveaxis(np.tensordot(M, np.moveaxis(x, ax, 0), axes=(1, 0)), 0, ax)
-    return np.asarray([int(v) for v in x.reshape(-1)], dtype=np.int64)
+    return np.asarray([int(v) % p for v in x.reshape(-1)], dtype=np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -111,9 +114,9 @@ def decrypt(sk: SK, ct: CT) -> Cyc:
     """Recover µ ∈ R_m over Z_p: twace(centered error term mod p)/scale."""
     e = error_term_int(sk, ct)
     p = ct.zp
-    e_sub = twace_int_host(e, ct.m_prime, ct.m)
+    e_sub = twace_int_host(e, ct.m_prime, ct.m, p)
     inv_scale = pow(ct.scale % p, -1, p)
-    return Cyc.from_coeffs(ct.m, (p,), (e_sub % p) * inv_scale % p, ct.bk)
+    return Cyc.from_coeffs(ct.m, (p,), e_sub * inv_scale % p, ct.bk)
 
 
 # ---------------------------------------------------------------------------

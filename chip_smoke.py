@@ -29,7 +29,7 @@ just before it:
   [hybrid16] [hybrid] at n = 2^16 (L = 16, dnum = 4, K = 4, raw then Shoup
             hints, 16 ciphertexts).
 
-After them, one more phase with no CUDA kernel of its own:
+After them, two more phases with no CUDA kernel of their own:
 
   [she]     HomomRLWR's ciphertext work through the general SHE layer
             (`she/bgv.py`, `she/tunnel.py` on `backend/torch_backend.py`):
@@ -40,6 +40,14 @@ After them, one more phase with no CUDA kernel of its own:
             backend (each torch op on the card against golden numpy), once on
             the torch backend for host ms and counts by op, and the device
             time of one tunnel and one key switch (CUDA events, profiler).
+  [examples] the three shipped examples (Arithmetic, Tunnel, HomomRLWR)
+            through the port's DSL and interpreters: `all_main` on the
+            checked backend and on the torch backend; each example's
+            keygen + pt2ct + encrypt, encrypted evaluation and decrypt timed
+            on the torch backend with its counts; the strict error-rate logs
+            of Arithmetic and Tunnel equal between the two backends (device
+            probe against host probe on every probed ciphertext); one warm
+            HomomRLWR evaluation timed (host, CUDA events, profiler).
 
 The first four run at impl="pallas", the 3-factor slot order. Kernels 5,
 6, 8 and 9 then run again, checked and timed, at every [G, T, n] a path
@@ -84,6 +92,8 @@ DEEP_DEPTH = 16
 # plaintext modulus Z_32 and Gaussian parameter 5.0
 SHE_ZQS = (1543651201, 689270401, 718099201, 720720001, 1556755201, 1567238401)
 SHE_ZP, SHE_R = 32, 5.0
+# [examples]: the seed each example's `run` defaults to
+EXAMPLE_SEEDS = {"Arithmetic": 42, "Tunnel": 0, "HomomRLWR": 0}
 # (G, T) of the standalone transforms on [G, T, n] at the shapes the paths give
 # them. Forward (6/8): keygen, hints and encrypt at L = 8; the hybrid hint over
 # T = 20 limbs; the deep chain's rescale of one ciphertext; fast.rescale of a
@@ -644,10 +654,12 @@ def she_run(bk) -> dict:
     along H0′→…→H5′ (the `dec_to_crt` maps, TrivGad; four at 6 limbs, the
     fifth at 5 after a `mod_switch`), then at H5′ and 4 limbs `mul_public`
     by an even plaintext, `mul`, `key_switch_quad` with TrivGad and again with
-    HybridGad, `mod_switch` to 2 limbs, `mod_switch_pt` and decrypt. Each
-    decryption is held against the plaintext evaluation on the port's golden
-    backend. Returns the host ms and the backend's counts by op, the checks,
-    and the last tunnel's and the TrivGad switch's inputs."""
+    HybridGad, `mod_switch` to 2 limbs, `mod_switch_pt` and decrypt; one
+    more decryption at H4′ and 6 limbs after the fourth tunnel, whose error
+    term is past 2^63 (the JAX package's int64 twace overflows there).
+    Each decryption is held against the plaintext evaluation on the port's
+    golden backend. Returns the host ms and the backend's counts by op, the
+    checks, and the last tunnel's and the TrivGad switch's inputs."""
     import math
     from collections import Counter
 
@@ -689,6 +701,11 @@ def she_run(bk) -> dict:
         ct_in = ct
         ct = run(f"tunnel {ring}", lambda: tunnel(hint, ct_in))
         pt = f.eval(pt)
+        if i == 3:     # H4' at 6 limbs: the error term passes 2^63 here
+            bits = max(abs(int(v)) for v in bgv.error_term_int(keys[TOWER_P[4]], ct)).bit_length()
+            check(bits > 63, f"[she] the error term at H4' L=6 has {bits} bits, not past 2^63")
+            ok["decrypt L=6"] = run("decrypt H4' L=6", lambda: bgv.decrypt(
+                keys[TOWER_P[4]], ct)).equals(pt)
     sk = keys[TOWER_P[5]]
     ct4 = run("mod_switch L=5→4", lambda: bgv.mod_switch(ct, qs[:4]))
     ok["tunnels"] = run("decrypt H5' L=4", lambda: bgv.decrypt(sk, ct4)).equals(pt)
@@ -728,7 +745,7 @@ def profile_op(fn, calls: int) -> dict:
             fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(bool(kernels), "[she] the profiler saw device time")
+    check(bool(kernels), "the profiler saw device time")
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     by_kernel: dict = {}
     for e in kernels:
@@ -778,6 +795,170 @@ def she_phase(checked_bk, torch_bk, card: str) -> dict:
               f"{t['span_us']:.1f} µs span; top kernels "
               + ", ".join(f"{k} {v:.1f} µs" for k, v in t["top_us"]), flush=True)
     return {"checked_s": checked_s, "torch_s": torch_s, "ops": res["ops"], "timed": timed}
+
+
+def example_steps(name: str, bk) -> dict:
+    """One example's run (`alchemy_tpu_torch/examples/`, at the seed its
+    `run` defaults to) on backend bk, split into its phases: "compile"
+    (KeysHints keygen, pt2ct with its hints, encrypting the arguments: the
+    examples' "Generating function" phase), "eval" (the encrypted
+    evaluation: strict `eval_with_error_rates` for Arithmetic and Tunnel,
+    `mul_public` then `eval_ir` for HomomRLWR, as its `run` does) and
+    "decrypt", each in host ms; the backend's counts during the evaluation;
+    the error-rate log; whether the decryption equals the plaintext
+    evaluation; and what a warm rerun needs."""
+    from collections import Counter
+
+    import numpy as np
+
+    from alchemy_tpu_torch.core.cyc import Cyc
+    from alchemy_tpu_torch.examples import arithmetic, common, homomrlwr, tunnel
+    from alchemy_tpu_torch.interp.error_writer import eval_with_error_rates
+    from alchemy_tpu_torch.interp.eval import eval_ir
+    from alchemy_tpu_torch.interp.keys_hints import KeysHints
+    from alchemy_tpu_torch.interp.pt2ct import pt2ct
+    from alchemy_tpu_torch.nt.factor import totient
+    from alchemy_tpu_torch.she import bgv
+    from alchemy_tpu_torch.she.gadget import BaseBGad, TrivGad
+
+    tb = getattr(bk, "fast", bk)
+    seed = EXAMPLE_SEEDS[name]
+    rng = np.random.default_rng(seed)
+
+    def rand_pt(m, zp):
+        return Cyc.from_coeffs(m, (zp,), rng.integers(0, zp, totient(m)), bk)
+
+    if name == "Arithmetic":
+        mod, expr, r, gad = arithmetic, arithmetic.addMul, 3.0, TrivGad()
+        pts = [rand_pt(mod.M, mod.ZP), rand_pt(mod.M, mod.ZP)]
+        want = eval_ir(expr, *pts)
+    elif name == "Tunnel":
+        mod, expr, r, gad = tunnel, common.switch(3, tunnel.ZP, bk), 3.0, BaseBGad(2)
+        pts = [rand_pt(common.H0, mod.ZP)]
+        want = eval_ir(expr, *pts)
+    else:
+        mod, expr, r, gad = homomrlwr, homomrlwr.ring_round(bk), 5.0, TrivGad()
+        pts = [rand_pt(common.H0, mod.ZP_IN)]
+        a = rand_pt(common.H0, mod.ZP_IN)
+        want = eval_ir(expr, pts[0] * a)
+
+    def compile_():
+        ctx = KeysHints(r, seed=seed, bk=bk)
+        compiled = pt2ct(expr, res_ty=mod.PT, m_map=mod.M_MAP if name == "Arithmetic"
+                         else common.M_MAP, zqs=mod.ZQS, gad=gad, ctx=ctx)
+        return ctx, compiled, [compiled.encrypt_arg(pt, i) for i, pt in enumerate(pts)]
+
+    (ctx, compiled, args), compile_ms = host_ms(compile_)
+    if name == "HomomRLWR":
+        def evaluate():
+            return eval_ir(compiled.ir, bgv.mul_public(a, args[0])), []
+    else:
+        def evaluate():
+            return eval_with_error_rates(compiled.ir, ctx, *args, strict=True)
+    before = Counter(tb.counts)
+    (result, log), eval_ms = host_ms(evaluate)
+    counts = dict(Counter(tb.counts) - before)
+    dec, decrypt_ms = host_ms(lambda: compiled.decrypt(result))
+    return {"compile_ms": compile_ms, "eval_ms": eval_ms, "decrypt_ms": decrypt_ms,
+            "counts": counts, "log": log, "ok": dec.equals(want), "evaluate": evaluate,
+            "ctx": ctx, "args": args, "result": result}
+
+
+def op_times(fn) -> dict:
+    """{primitive: [calls, host ms]} of one call of fn(), which evaluates a
+    compiled program with `interp/eval.py`: each primitive's value is
+    wrapped for the call so that its last application is timed, ended by a
+    synchronize (the op's device work counts to the op)."""
+    import importlib
+
+    ev = importlib.import_module("alchemy_tpu_torch.interp.eval")   # the package exports `eval`
+    plain = ev._prim_value
+    arity = {"add_": 2, "mul_": 2, "cons_": 2, "pair_": 2}
+    out: dict = {}
+
+    def timed(name, f, left):
+        def call(x):
+            if left > 1:
+                return timed(name, f(x), left - 1)
+            y, ms = host_ms(lambda: f(x))
+            rec = out.setdefault(name, [0, 0.0])
+            rec[0] += 1
+            rec[1] += ms
+            return y
+        return call
+
+    def prim_value(name, payload):
+        v = plain(name, payload)
+        return timed(name, v, arity.get(name, 1)) if callable(v) else v
+
+    ev._prim_value = prim_value
+    try:
+        fn()
+    finally:
+        ev._prim_value = plain
+    return out
+
+
+def examples_phase(checked_bk, torch_bk, card: str) -> dict:
+    """[examples]: `all_main` on the checked backend (every TorchBackend op on
+    the card against golden numpy) and on the torch backend; each example's
+    phases on the torch backend (example_steps); Arithmetic's and Tunnel's
+    strict error-rate logs on both backends, which must be equal: the torch
+    run probes on the device (she/noise_probe.py), the checked run on the
+    host (bgv.error_rate), on the same ciphertexts; the device probe against
+    the host probe on Tunnel's argument and result; one warm HomomRLWR
+    evaluation timed."""
+    from alchemy_tpu_torch.examples import all_main
+    from alchemy_tpu_torch.she import bgv, noise_probe
+
+    t0 = time.perf_counter()
+    check(all_main.main(checked_bk), "[examples] all_main on the checked backend")
+    print(f"[examples] checked run: all_main (torch on {card} against golden numpy, op by op): "
+          f"3 PASS, no divergence, {time.perf_counter() - t0:.2f} s wall", flush=True)
+    t0 = time.perf_counter()
+    check(all_main.main(torch_bk), "[examples] all_main on the torch backend")
+    print(f"[examples] torch run: all_main: 3 PASS, {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    checked = {name: example_steps(name, checked_bk) for name in ("Arithmetic", "Tunnel")}
+    runs = {}
+    for name in EXAMPLE_SEEDS:
+        st = runs[name] = example_steps(name, torch_bk)
+        check(st["ok"], f"[examples] {name} on the torch backend decrypts to the plaintext")
+        c = st["counts"]
+        print(f"[examples] {name} on torch: PASS; keygen + pt2ct + encrypt "
+              f"{st['compile_ms']:.2f} ms, encrypted evaluation {st['eval_ms']:.2f} ms, decrypt "
+              f"{st['decrypt_ms']:.2f} ms; evaluation counts: axis_matmul "
+              f"{c.get('axis_matmul', 0)}, to_host {c.get('to_host', 0)}, to_device "
+              f"{c.get('to_device', 0)}, mat_upload {c.get('mat_upload', 0)}", flush=True)
+    for name, chk in checked.items():
+        check(chk["ok"], f"[examples] {name} on the checked backend decrypts to the plaintext")
+        log = runs[name]["log"]
+        check(log == chk["log"], f"[examples] {name}: torch log {log} != checked log {chk['log']}")
+        print(f"[examples] {name} strict error-rate log: {len(log)} entries, equal on the torch "
+              f"(device probe) and checked (host probe) runs; max rate "
+              f"{max(rate for _, rate in log):.3g}", flush=True)
+    check(all(rate < 0.01 for _, rate in runs["Tunnel"]["log"]),
+          "[examples] every rate of Tunnel's log is below 0.01")
+    tun = runs["Tunnel"]
+    for ct in (*tun["args"], tun["result"]):
+        sk = tun["ctx"].lookup_key(ct.m_prime)
+        check(noise_probe.error_rate_device(sk, ct) == bgv.error_rate(sk, ct),
+              f"[examples] device probe = host probe at m'={ct.m_prime}")
+    print("[examples] device probe = host probe on Tunnel's argument and result (phi up to "
+          "11520) and, through the logs, on every probed ciphertext", flush=True)
+    fn = runs["HomomRLWR"]["evaluate"]
+    warm = [host_ms(fn)[1] for _ in range(3)]
+    t = {"host_ms": sum(warm) / 3, "event_ms": device_ms(fn, 3), **profile_op(fn, 2),
+         "by_op": op_times(fn)}
+    print(f"[examples] HomomRLWR encrypted evaluation warm ({card}): host {t['host_ms']:.3f} ms, "
+          f"CUDA events {t['event_ms']:.3f} ms, {t['launches']:.0f} launches, device busy "
+          f"{t['busy_us']:.1f} µs of a {t['span_us']:.1f} µs span; top kernels "
+          + ", ".join(f"{k} {v:.1f} µs" for k, v in t["top_us"]), flush=True)
+    print("[examples] HomomRLWR evaluation by op (host ms, a synchronize after each op): "
+          + ", ".join(f"{k} {n}x {ms:.2f}" for k, (n, ms) in
+                      sorted(t["by_op"].items(), key=lambda kv: -kv[1][1])), flush=True)
+    return {"runs": {k: {f: v[f] for f in ("compile_ms", "eval_ms", "decrypt_ms", "counts")}
+                     for k, v in runs.items()}, "warm": t}
 
 
 def shape_report(tag: str, runs: dict, rng, clock_hz: float, names, phase, extra) -> dict:
@@ -960,6 +1141,7 @@ def main() -> int:
     she_bk = get_backend("torch")
     check(she_bk.device.type == "cuda", f"[she] the torch backend is on {she_bk.device}")
     she_phase(get_backend("checked"), she_bk, card)
+    examples_phase(get_backend("checked"), she_bk, card)
     grid = grid_report({(HEADLINE[0], "pallas"): {"main": mp, "hybrid": hy, "deep": dp},
                         (N2E16[0], "pallas"): {"n2e16": mp16, "hybrid16": h16},
                         (HEADLINE[0], "mxu"): {"mxu": mx, "mxu deep": mxd},

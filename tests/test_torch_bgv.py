@@ -22,6 +22,7 @@ from alchemy_tpu.she import tunnel as jtun
 from alchemy_tpu.she.keys import SK as JSK
 from alchemy_tpu.she.linear import LinearMap as JLinearMap
 from alchemy_tpu_torch import convert
+from alchemy_tpu_torch.backend import golden_backend as tgolden
 from alchemy_tpu_torch.backend.torch_backend import TorchBackend
 from alchemy_tpu_torch.core.cyc import Cyc as TCyc
 from alchemy_tpu_torch.examples import common as tcommon
@@ -282,3 +283,41 @@ def test_backend_entry_points_default_to_the_card():
         else:
             with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
                 call()
+
+
+def _with_big_error(ns, bk, k_coeffs, seed):
+    """A ciphertext of a random plaintext whose error term has p·k_coeffs
+    added (c0 += p·k, the plaintext unchanged), with its key and plaintext."""
+    rng, qs, sk = _setup(ns, bk, seed=seed)
+    a = _rand_pt(ns, bk, rng)
+    ct = ns.bgv.encrypt(sk, a, MP, qs, rng)
+    lift = np.stack([np.array([P * k % q for k in k_coeffs], dtype=np.int64) for q in qs])
+    c0 = ct.comps[0] + ns.Cyc.from_coeffs(MP, qs, lift, bk)
+    return sk, ct.with_comps((c0, ct.comps[1])), a
+
+
+def test_decrypt_past_2_63_returns_the_plaintext():
+    """An error term with coefficients above 2^63 (and below Q/2 ≈ 2^86) at
+    m = 4, m′ = 32 and 3 limbs: the port's `decrypt` reduces the twaced
+    integers mod p before any int64 cast and returns the plaintext, where
+    the JAX package's `twace_int_host` raises OverflowError."""
+    big = [(1 << 63) // P + 12345 * (i + 1) for i in range(totient(MP))]
+    jsk, jct, _ = _with_big_error(JAX, jgolden(), big, seed=21)
+    with pytest.raises(OverflowError):
+        jbgv.decrypt(jsk, jct)
+    for bk in (TorchBackend(device="cpu"), tgolden()):
+        sk, ct, a = _with_big_error(PORT, bk, big, seed=21)
+        assert _state(ct) == _state(jct)
+        assert max(abs(int(v)) for v in tbgv.error_term_int(sk, ct)) > 1 << 63
+        assert tbgv.decrypt(sk, ct).equals(a)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_decrypt_below_2_63_matches_jax(seed):
+    """Seeded random error terms below 2^63: both packages decrypt equally."""
+    rng = np.random.default_rng(100 + seed)
+    k = [int(v) for v in rng.integers(-(1 << 59), 1 << 59, totient(MP))]
+    jsk, jct, ja = _with_big_error(JAX, jgolden(), k, seed=seed)
+    sk, ct, a = _with_big_error(PORT, TorchBackend(device="cpu"), k, seed=seed)
+    want, got = jbgv.decrypt(jsk, jct), tbgv.decrypt(sk, ct)
+    assert _state(got) == _state(want) and got.equals(a) and want.equals(ja)

@@ -162,6 +162,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from alchemy_tpu_torch.backend.torch_backend import TorchBackend\n"
         "from alchemy_tpu_torch.examples.common import dec_to_crt\n"
         "dec_to_crt(128, 448, 32); TorchBackend('cpu'); get_backend('golden')\n"
+        "import alchemy_tpu_torch.lang, alchemy_tpu_torch.lang.ir, alchemy_tpu_torch.lang.dsl\n"
+        "import alchemy_tpu_torch.lang.rescale_tree, alchemy_tpu_torch.interp\n"
+        "import alchemy_tpu_torch.interp.accumulator, alchemy_tpu_torch.interp.noise\n"
+        "import alchemy_tpu_torch.interp.infer, alchemy_tpu_torch.interp.pprint\n"
+        "import alchemy_tpu_torch.interp.size, alchemy_tpu_torch.interp.dup\n"
+        "import alchemy_tpu_torch.interp.params_print, alchemy_tpu_torch.interp.keys_hints\n"
+        "import alchemy_tpu_torch.interp.pt2ct, alchemy_tpu_torch.interp.eval\n"
+        "import alchemy_tpu_torch.interp.error_writer, alchemy_tpu_torch.she.noise_probe\n"
+        "import alchemy_tpu_torch.examples.arithmetic, alchemy_tpu_torch.examples.tunnel\n"
+        "import alchemy_tpu_torch.examples.homomrlwr, alchemy_tpu_torch.examples.all_main\n"
+        "from alchemy_tpu_torch.examples.arithmetic import M_MAP, PT, ZQS, addMul\n"
+        "from alchemy_tpu_torch.interp.keys_hints import KeysHints\n"
+        "from alchemy_tpu_torch.interp.pt2ct import pt2ct\n"
+        "from alchemy_tpu_torch.she.gadget import TrivGad\n"
+        "pt2ct(addMul, res_ty=PT, m_map=M_MAP, zqs=ZQS, gad=TrivGad(),\n"
+        "      ctx=KeysHints(3.0, bk=TorchBackend('cpu')))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alchemy_tpu'))\n"
         "assert not bad, bad\n"
     )
