@@ -29,8 +29,9 @@ block's slots in slot order through `slot_own`; A (like 5 and 9) spreads a
 limb over four blocks on grids that fit one wave of the card. The kernels
 work in the bit-reversed order of a radix-2 NTT; `kernel_tables` maps it to
 the slot order at their boundaries, which is the `order` argument of every
-wrapper: "pallas", the 3-factor order of `backend/ntt3.py`, or "mxu", the
-2-factor order of `backend/ntt2.py` (`FastParams.impl`). See
+wrapper: "pallas", the 3-factor order of `backend/ntt3.py`, "mxu", the
+2-factor order of `backend/ntt2.py`, or "vpu", the bit-reversed order of
+`backend/ntt.py` (`FastParams.order`). See
 `csrc/mul_relin.cu` for what bounds them.
 
 Each wrapper takes the plain PyTorch version for CPU tensors only; for CUDA
@@ -58,6 +59,7 @@ from alchemy_tpu_torch.backend.modarith import (
     shoup_const,
     widen,
 )
+from alchemy_tpu_torch.backend.ntt import intt_vpu, ntt_vpu, ntt_vpu_bcast
 from alchemy_tpu_torch.backend.ntt2 import _pick_split, intt2, ntt2, ntt2_bcast
 from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3, ntt3_bcast, psi_powers
 
@@ -99,11 +101,12 @@ def _with_shoup(w: np.ndarray, q: int) -> np.ndarray:
 
 #: the slot orders the kernels take at their boundaries, with the plain
 #: transforms of each: (forward, inverse, forward of each row under every limb)
-ORDERS = {"pallas": (ntt3, intt3, ntt3_bcast), "mxu": (ntt2, intt2, ntt2_bcast)}
+ORDERS = {"pallas": (ntt3, intt3, ntt3_bcast), "mxu": (ntt2, intt2, ntt2_bcast),
+          "vpu": (ntt_vpu, intt_vpu, ntt_vpu_bcast)}
 
 
 def plain_transforms(order: str):
-    """(ntt, intt, ntt_bcast) of a slot order, "pallas" or "mxu"."""
+    """(ntt, intt, ntt_bcast) of a slot order, "pallas", "mxu" or "vpu"."""
     if order not in ORDERS:
         raise ValueError(f"slot order {order!r}: want one of {sorted(ORDERS)}")
     return ORDERS[order]
@@ -114,18 +117,25 @@ def slot_tables(n: int, order: str) -> tuple[np.ndarray, np.ndarray]:
     """(slot_ct, slot_inv), [n] int32 each. Slot s holds x(ψ^{2K+1}) with
     K = k1 + A·k3 + A·r·k2 for s = k1·(B·r) + k3·B + k2 in the 3-factor
     order ("pallas"), K = k1 + n1·k2 for s = k1·n2 + k2 in the 2-factor
-    order ("mxu"); a radix-2 NTT leaves that value at index bitrev(K), which
-    is slot_ct[s]. slot_inv is its inverse, radix-2 index → slot: a block
-    holding half h of a limb owns the slots slot_inv[h·n/2 : (h+1)·n/2]."""
+    order ("mxu"), K = bitrev(s) in the radix-2 order ("vpu"); a radix-2 NTT
+    leaves that value at index bitrev(K), which is slot_ct[s]. slot_inv is
+    its inverse, radix-2 index → slot: a block holding half h of a limb owns
+    the slots slot_inv[h·n/2 : (h+1)·n/2]."""
     plain_transforms(order)
     s = np.arange(n, dtype=np.int64)
+    bits = n.bit_length() - 1
     if order == "pallas":
         A, B, r = _split3(n)
         K = s // (B * r) + A * ((s % (B * r)) // B) + A * r * (s % B)
-    else:
+    elif order == "mxu":
         n1, n2 = _pick_split(n)
         K = s // n2 + n1 * (s % n2)
-    slot_ct = _bitrev(K, n.bit_length() - 1).astype(np.int32)
+    else:
+        # `ntt_negacyclic` is itself a ψ-twisted radix-2 DIF NTT whose output
+        # stays bit-reversed (ntt.py:1-13), the kernels' own order: slot s
+        # holds x(ψ^{2·bitrev(s)+1}), so slot_ct is the identity
+        K = _bitrev(s, bits)
+    slot_ct = _bitrev(K, bits).astype(np.int32)
     slot_inv = np.empty(n, dtype=np.int32)
     slot_inv[slot_ct] = s
     return slot_ct, slot_inv

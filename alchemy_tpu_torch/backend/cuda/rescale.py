@@ -24,6 +24,11 @@ them as a 4-step NTT of bf16 digit-plane matmuls on its matrix unit; here
 they are the split radix-2 NTT of kernels 5 and 6 run with the 2-factor
 slot table: the same values x(ψ^{2K+1}), in the same slots.
 
+`ntt_vpu_grid` and `intt_vpu_grid`: kernels 6 and 5 with the radix-2 slot
+table of `backend/ntt.py` (`FastParams(impl="vpu")`), the counterparts of
+`alchemy_tpu/backend/ntt.py:149 ntt_negacyclic` and `:173 intt_negacyclic`,
+which the JAX package computes in jnp, with no Pallas kernel.
+
 Same structure as kernels A, B and 4 (`mul_relin.py`): two blocks per (limb,
 row), each with half of the limb in shared memory (n ≤ 2^16); every kernel
 runs B's register-blocked passes (5 and 9 their inverse mirror) and takes
@@ -61,13 +66,16 @@ from alchemy_tpu_torch.backend.modarith import (
     qcol,
     widen,
 )
+from alchemy_tpu_torch.backend.ntt import intt_vpu, ntt_vpu
 from alchemy_tpu_torch.backend.ntt2 import intt2, ntt2
 from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
 
 #: launches of each kernel since the last `reset_launches()`
-LAUNCHES = {"intt_grid": 0, "ntt_grid": 0, "rescale_fwd": 0, "intt2_grid": 0, "ntt2_grid": 0}
+LAUNCHES = {"intt_grid": 0, "ntt_grid": 0, "rescale_fwd": 0, "intt2_grid": 0, "ntt2_grid": 0,
+            "intt_vpu_grid": 0, "ntt_vpu_grid": 0}
 #: launches of each kernel by shape since the last `reset_launches()`:
-#: {(name, G, T, n): count} for the standalone transforms (5, 6, 8, 9) and
+#: {(name, G, T, n): count} for the standalone transforms (5, 6, 8, 9 and the
+#: vpu order's) and
 #: {("rescale_fwd", G, L, K, n): count} for kernel 7
 LAUNCHES_BY_SHAPE: dict[tuple, int] = {}
 
@@ -101,6 +109,16 @@ def intt2_grid_plain(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tens
 def ntt2_grid_plain(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
     """Plain kernel 8: [G, T, n] int32 → [G, T, n] int32."""
     return narrow(ntt2(widen(x), n, qs))
+
+
+def intt_vpu_grid_plain(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
+    """Plain kernel 5 in the vpu order: [G, T, n] int32 → [G, T, n] int32."""
+    return narrow(intt_vpu(widen(x), n, qs))
+
+
+def ntt_vpu_grid_plain(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
+    """Plain kernel 6 in the vpu order: [G, T, n] int32 → [G, T, n] int32."""
+    return narrow(ntt_vpu(widen(x), n, qs))
 
 
 @lru_cache(maxsize=None)
@@ -187,13 +205,30 @@ def ntt2_grid(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
     return _grid("ntt2_grid", "ntt_grid", "mxu", n, qs, x, ntt2_grid_plain)
 
 
+def intt_vpu_grid(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
+    """Kernel 5 in the vpu order: rows x [G, T, n] (int32, bit-reversed slot
+    order, any uint32) → natural-order coefficients [G, T, n], canonical."""
+    return _grid("intt_vpu_grid", "intt_grid", "vpu", n, qs, x, intt_vpu_grid_plain)
+
+
+def ntt_vpu_grid(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
+    """Kernel 6 in the vpu order: coefficient rows x [G, T, n] (int32, any
+    uint32) → the bit-reversed slot order [G, T, n], canonical."""
+    return _grid("ntt_vpu_grid", "ntt_grid", "vpu", n, qs, x, ntt_vpu_grid_plain)
+
+
+#: (forward, inverse) standalone transforms of each slot order, kernels and plain
+_GRID = {"pallas": ((ntt3_grid, intt3_grid), (ntt3_grid_plain, intt3_grid_plain)),
+         "mxu": ((ntt2_grid, intt2_grid), (ntt2_grid_plain, intt2_grid_plain)),
+         "vpu": ((ntt_vpu_grid, intt_vpu_grid), (ntt_vpu_grid_plain, intt_vpu_grid_plain))}
+
+
 def grid_transforms(order: str, plain: bool = False):
     """(forward, inverse) standalone transforms of a slot order: kernels 6
-    and 5 ("pallas") or 8 and 9 ("mxu"), or their plain versions."""
+    and 5 ("pallas"), 8 and 9 ("mxu"), 6 and 5 with the radix-2 table
+    ("vpu"), or their plain versions."""
     plain_transforms(order)
-    if order == "mxu":
-        return (ntt2_grid_plain, intt2_grid_plain) if plain else (ntt2_grid, intt2_grid)
-    return (ntt3_grid_plain, intt3_grid_plain) if plain else (ntt3_grid, intt3_grid)
+    return _GRID[order][plain]
 
 
 @lru_cache(maxsize=None)

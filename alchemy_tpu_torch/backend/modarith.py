@@ -136,11 +136,18 @@ def _extend_consts(chain: tuple[int, ...], targets: tuple[int, ...]):
     return np.array([[p % q for q in targets] for p in pi], dtype=np.int64)
 
 
+@lru_cache(maxsize=None)
+def _extend_weights(chain: tuple[int, ...], targets: tuple[int, ...], device: str):
+    """`_extend_consts` on `device`, uploaded once (a captured CUDA graph may
+    not copy from the host)."""
+    return torch.from_numpy(_extend_consts(chain, targets)).to(device)
+
+
 def extend_digits(xs, chain: tuple[int, ...], targets: tuple[int, ...]):
     """Residues of V = Σ_k x_k·π_k modulo every target limb: K digit
     tensors [..., n] (int64, any uint32) → [..., T, n] (hybrid.py:117)."""
     dev = xs[0].device
-    w = torch.from_numpy(_extend_consts(tuple(chain), tuple(targets))).to(dev)
+    w = _extend_weights(tuple(chain), tuple(targets), str(dev))
     q = qcol(targets, dev)
     out = None
     for k, x in enumerate(xs):

@@ -36,6 +36,21 @@ def lift_pt_centered(pt: Cyc) -> np.ndarray:
     return np.where(arr > p // 2, arr - p, arr)
 
 
+class PublicPT(Cyc):
+    """A public plaintext that keeps its embeddings: `embed_pt` computes
+    each (m′, qs, scale, backend) once and hands the same device element back
+    afterwards. `interp/jit_exec.py` puts these in place of the payloads of
+    addPublic_/mulPublic_, so that a captured program copies nothing between
+    host and device (the JAX package embeds them once at trace time,
+    jit_exec.py:78)."""
+
+    __slots__ = ("embeddings",)
+
+    def __init__(self, pt: Cyc):
+        super().__init__(pt.ring, pt.qs, pt.basis, pt.data, pt.bk)
+        self.embeddings: dict = {}
+
+
 def embed_pt(pt: Cyc, m_prime: int, qs: tuple[int, ...], scale: int = 1,
              out_bk=None) -> Cyc:
     """Embed scale·(plaintext mod p) into R_{m'} over the ciphertext chain,
@@ -43,19 +58,24 @@ def embed_pt(pt: Cyc, m_prime: int, qs: tuple[int, ...], scale: int = 1,
 
     Computed entirely on the golden (numpy) backend — the plaintext is a
     compile-time constant — then re-homed to `out_bk` (defaults to the
-    plaintext's)."""
+    plaintext's); a `PublicPT` keeps the result."""
     from alchemy_tpu_torch.backend import golden_backend
 
-    gb = golden_backend()
     out_bk = out_bk or pt.bk
     p = pt.qs[0]
+    key = (m_prime, tuple(qs), scale % p, out_bk)
+    if isinstance(pt, PublicPT) and key in pt.embeddings:
+        return pt.embeddings[key]
+    gb = golden_backend()
     pt_g = Cyc(pt.ring, pt.qs, pt.basis, gb.asarray(pt.bk.to_numpy(pt.data), pt.qs), gb)
     scaled = pt_g.scalar_mul(scale % p)
     lifted = lift_pt_centered(scaled)
     small = Cyc.from_coeffs(pt.m, qs, np.stack([lifted % q for q in qs]), gb)
     emb = small.embed(m_prime).to_pow()
-    return Cyc(emb.ring, emb.qs, emb.basis,
-               out_bk.asarray(gb.to_numpy(emb.data), emb.qs), out_bk)
+    out = Cyc(emb.ring, emb.qs, emb.basis, out_bk.asarray(gb.to_numpy(emb.data), emb.qs), out_bk)
+    if isinstance(pt, PublicPT):
+        pt.embeddings[key] = out
+    return out
 
 
 def twace_int_host(arr: np.ndarray, m: int, m_sub: int, p: int) -> np.ndarray:

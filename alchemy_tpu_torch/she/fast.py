@@ -1,17 +1,21 @@
 """BGV on power-of-two rings, NTT-domain ciphertexts [..., 2, L, n] — port
-of `alchemy_tpu/she/fast.py` at `impl="mxu"` (the 2-factor slot order of
-`backend/ntt2.py`, the JAX package's default) and `impl="pallas"` (the
-3-factor slot order of `backend/ntt3.py`).
+of `alchemy_tpu/she/fast.py` at every `impl` the JAX package takes: "mxu"
+(the 2-factor slot order of `backend/ntt2.py`, the JAX package's default),
+"mxu8" (the JAX package's int8 digit planes of the same transform: the same
+slot order and residues, so the port runs it as "mxu"), "pallas" (the
+3-factor slot order of `backend/ntt3.py`) and "vpu" (the bit-reversed order
+of the radix-2 NTT, `backend/ntt.py`).
 
 Residues are int32 tensors holding canonical uint32 values (< q < 2^31);
 Shoup companions are carried as their int32 bit pattern. Sampling stays
 host numpy from the caller's `np.random.Generator`, in the same order as
 the JAX package, so one seed gives bit-identical keys, hints and
-ciphertexts at either impl. Every function takes an explicit device or
+ciphertexts at every impl. Every function takes an explicit device or
 follows the device of its tensors. The standalone transforms `_ntt_p` /
-`_intt_p` run CUDA kernels 8 and 9 ("mxu") or 6 and 5 ("pallas") on the
-card and their plain versions on the CPU; `mul_relin` runs through CUDA
-kernels A and B, in the slot order of `impl`, on the card.
+`_intt_p` run CUDA kernels 8 and 9 ("mxu"), or 6 and 5 ("pallas", and
+"vpu" with its own slot table) on the card and their plain versions on the
+CPU; `mul_relin` runs through CUDA kernels A and B, in the slot order of
+`impl`, on the card.
 """
 
 from __future__ import annotations
@@ -37,13 +41,17 @@ from alchemy_tpu_torch.she.keys import gaussian_coeffs, uniform_residues
 
 #: the NTT slot order of `FastParams`, as in the JAX package (fast.py:35)
 DEFAULT_NTT_IMPL = "mxu"
+#: every `impl` of the JAX package's `FastParams` and its slot order: "mxu8"
+#: computes the 2-factor transform with int8 planes (ntt_mxu.py:177), exactly
+IMPLS = {**{order: order for order in ORDERS}, "mxu8": "mxu"}
 
 
 @dataclass(frozen=True)
 class FastParams:
     """Ring size n (a power of two), RNS chain qs (all ≡ 1 mod 2n), the
-    plaintext modulus zp and the NTT slot order impl (fast.py:47): "mxu"
-    (2-factor, `backend/ntt2.py`) or "pallas" (3-factor, `backend/ntt3.py`)."""
+    plaintext modulus zp and the NTT implementation impl (fast.py:47): "mxu"
+    or "mxu8" (2-factor, `backend/ntt2.py`), "pallas" (3-factor,
+    `backend/ntt3.py`) or "vpu" (radix-2, `backend/ntt.py`)."""
 
     n: int
     qs: tuple[int, ...]
@@ -51,8 +59,13 @@ class FastParams:
     impl: str = DEFAULT_NTT_IMPL
 
     def __post_init__(self):
-        if self.impl not in ORDERS:
-            raise ValueError(f"impl={self.impl!r}: the port has {sorted(ORDERS)}")
+        if self.impl not in IMPLS:
+            raise ValueError(f"impl={self.impl!r}: the port has {sorted(IMPLS)}")
+
+    @property
+    def order(self) -> str:
+        """The slot order of impl, which the kernels and plain transforms take."""
+        return IMPLS[self.impl]
 
     @staticmethod
     def make(log_n: int, nlimb: int, zp: int = 2, bits: int = 30,
@@ -75,16 +88,16 @@ def _uniform(rng: np.random.Generator, qs, n: int, device) -> torch.Tensor:
 
 def _ntt_p(p: FastParams, x: torch.Tensor) -> torch.Tensor:
     """Forward NTT of int32 rows [..., L, n] → int32 slot order of p.impl
-    (fast.py:82): kernel 8 ("mxu") or 6 ("pallas") for CUDA tensors, its
-    plain version (`ntt2` / `ntt3`) for CPU ones."""
+    (fast.py:82): kernel 8 ("mxu") or 6 ("pallas", "vpu") for CUDA tensors,
+    its plain version (`ntt2`, `ntt3`, `ntt_vpu`) for CPU ones."""
     g = x.reshape(-1, len(p.qs), p.n).contiguous()
-    return grid_transforms(p.impl)[0](p.n, p.qs, g).reshape(x.shape)
+    return grid_transforms(p.order)[0](p.n, p.qs, g).reshape(x.shape)
 
 
 def _intt_p(p: FastParams, x: torch.Tensor) -> torch.Tensor:
     """Inverse of `_ntt_p` (fast.py:103): kernel 9 or 5 for CUDA tensors."""
     g = x.reshape(-1, len(p.qs), p.n).contiguous()
-    return grid_transforms(p.impl)[1](p.n, p.qs, g).reshape(x.shape)
+    return grid_transforms(p.order)[1](p.n, p.qs, g).reshape(x.shape)
 
 
 def keygen(p: FastParams, rng: np.random.Generator, variance: float = 1.0,
@@ -231,9 +244,9 @@ def mul_relin(p: FastParams, ct_a: torch.Tensor, ct_b: torch.Tensor,
     L = len(p.qs)
     shape = (-1, 2, L, p.n)
     c0, c1, c2c = tensor_intt(p.n, p.qs, ct_a.reshape(shape).contiguous(),
-                              ct_b.reshape(shape).contiguous(), p.impl)
+                              ct_b.reshape(shape).contiguous(), p.order)
     hint_b, hint_a = (kernel_hint(h, (L, L, p.n)) for h in (hint_b, hint_a))
-    out = digit_relin(p.n, p.qs, c0, c1, c2c, hint_b, hint_a, p.impl)
+    out = digit_relin(p.n, p.qs, c0, c1, c2c, hint_b, hint_a, p.order)
     return out.reshape(*lead, *out.shape[1:])
 
 

@@ -91,7 +91,7 @@ def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, plain: bool) ->
     if p.zp & (p.zp - 1) or p.zp > (1 << 16):
         # the mod-zp sums of `_sign_terms` multiply two values < zp
         raise ValueError("rescale_joint requires a power-of-two zp <= 2^16")
-    intt = grid_transforms(p.impl, plain)[1]
+    intt = grid_transforms(p.order, plain)[1]
     fwd = rescale_fwd_plain if plain else rescale_fwd
     qs = tuple(p.qs)
     keep, drop = qs[:-k_drop], qs[-k_drop:]
@@ -100,7 +100,7 @@ def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, plain: bool) ->
     xs = garner_digits(widen(coeff[:, len(keep):]), drop)
     is_neg, t, t_neg = _sign_terms(xs, drop, p.zp)
     out = fwd(p.n, keep, drop, p.zp, coeff, narrow(torch.stack(xs, dim=1)),
-              is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32), p.impl)
+              is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32), p.order)
     return out.reshape(*lead, len(keep), p.n)
 
 
@@ -224,9 +224,9 @@ def _mul_relin_hybrid(hk: HybridKS, ct_a, ct_b, hint_b, hint_a, tensor, digit_st
     lead = ct_a.shape[:-3]
     shape = (-1, 2, L, n)
     c0, c1, c2c = tensor(n, p.qs, ct_a.reshape(shape).contiguous(),
-                         ct_b.reshape(shape).contiguous(), p.impl)
+                         ct_b.reshape(shape).contiguous(), p.order)
     hint_b, hint_a = (kernel_hint(h, (hk.dnum, len(pe.qs), n)) for h in (hint_b, hint_a))
-    t01 = digit_stage(n, pe.qs, hk.groups, garner_pack(hk, c2c), hint_b, hint_a, p.impl)
+    t01 = digit_stage(n, pe.qs, hk.groups, garner_pack(hk, c2c), hint_b, hint_a, p.order)
     r01 = widen(rescale(pe, t01, len(hk.ps)))            # [2, Bt, L, n]
     q = qcol(p.qs, c0.device)
     out = torch.stack([_add_mod(widen(c0), r01[0], q), _add_mod(widen(c1), r01[1], q)], dim=1)

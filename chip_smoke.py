@@ -49,6 +49,26 @@ After them, two more phases with no CUDA kernel of their own:
             probe against host probe on every probed ciphertext); one warm
             HomomRLWR evaluation timed (host, CUDA events, profiler).
 
+Then [resume] (after [hybrid16]), and [jit] and [checkpoint] (after
+[examples]):
+
+  [resume]  the depth-16 chain of [deep] in the JAX package's test order,
+            impl="vpu" (the radix-2 order of `backend/ntt.py`: kernels A, 4,
+            7, and 5 and 6 with the vpu tables): a process stops before level
+            8, saves its state (`examples/deep_circuit.py` `save_state`) and
+            dies by SIGKILL; a fresh process resumes it on the card and
+            decrypts the whole chain; then one uninterrupted run, per-level ms.
+            Before the paths, [vpu] holds A, B, 4, 7 and the transforms in that
+            order against their plain versions (4 and 7 timed at DEEP).
+  [jit]     Arithmetic, Tunnel (strict ERW) and HomomRLWR from [examples]
+            through `interp/jit_exec.py`, one CUDA graph each: build s,
+            replay ms per call (host clock and CUDA events), launches, the
+            eager ms beside it; bit-identical to eager evaluation, equal logs,
+            no copy in a call, outputs not aliased, a strict overflow raising.
+  [checkpoint] HomomRLWR's compiled program saved (`she/serialize.py`),
+            loaded in a fresh process on the card, evaluated eagerly and as a
+            graph, decrypted against the plaintext; bytes, save and load s.
+
 The first four run at impl="pallas", the 3-factor slot order. Kernels 5,
 6, 8 and 9 then run again, checked and timed, at every [G, T, n] a path
 launched them with (rescale.LAUNCHES_BY_SHAPE, read per path) and at
@@ -77,6 +97,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED = 0
 HEADLINE = (15, 8, 16)            # log2 n, limbs, ciphertexts per batch
@@ -101,9 +122,19 @@ EXAMPLE_SEEDS = {"Arithmetic": 42, "Tunnel": 0, "HomomRLWR": 0}
 # of the batch; rescale_joint of the hybrid op at Bt = 16.
 GRID_SHAPES = {"forward": ((1, 8), (1, 20), (2, 16), (32, 7)),
                "inverse": ((1, 8), (2, 16), (32, 8), (32, 20))}
+# the slot orders of `FastParams.order`: 3-factor, 2-factor, radix-2
+ORDERS = ("pallas", "mxu", "vpu")
+# [resume]: the depth-16 chain at DEEP's ring stops before this level, dies by
+# SIGKILL, and a fresh process finishes it
+RESUME_STOP = 8
+# [jit]: calls timed per example
+JIT_CALLS = 20
+# state files of [resume] and [checkpoint], inside the checkout (build/ is git-ignored)
+WORK = Path(__file__).resolve().parent / "build" / "chip_smoke"
 MUL_RELIN_TPU = "alchemy_tpu/backend/pallas/mul_relin_pallas.py"
 RESCALE_TPU = "alchemy_tpu/backend/pallas/rescale_pallas.py"
 NTT_TPU = "alchemy_tpu/backend/pallas/ntt_pallas.py"
+VPU_NTT = "alchemy_tpu/backend/ntt.py"       # ntt_negacyclic :149, intt_negacyclic :173 (jnp)
 MUL_RELIN_CU = "alchemy_tpu_torch/backend/cuda/csrc/mul_relin.cu"
 RESCALE_CU = "alchemy_tpu_torch/backend/cuda/csrc/rescale.cu"
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
@@ -319,8 +350,9 @@ def fmt(res: dict) -> str:
 
 def grid_names(order: str) -> tuple[str, str]:
     """Launch counters of the (inverse, forward) standalone transforms of a
-    slot order: kernels 5 and 6, or 9 and 8."""
-    return ("intt2_grid", "ntt2_grid") if order == "mxu" else ("intt_grid", "ntt_grid")
+    slot order: kernels 5 and 6, 9 and 8, or 5 and 6 with the vpu tables."""
+    return {"mxu": ("intt2_grid", "ntt2_grid"), "vpu": ("intt_vpu_grid", "ntt_vpu_grid"),
+            "pallas": ("intt_grid", "ntt_grid")}[order]
 
 
 def grid_kernel_phase(log_n: int, L: int, Bt: int, rng, order: str = "pallas") -> dict:
@@ -533,7 +565,7 @@ def main_path(rng, card: str, config: tuple[int, int, int], tag: str, impl: str)
     seen, by_shape = launches(), shape_launches()
     inv_name, fwd_name = grid_names(impl)
     check(all(seen[k] > 0 for k in ("tensor_intt", "digit_relin", inv_name, fwd_name))
-          and sum(seen[k] for k in (*grid_names("mxu"), *grid_names("pallas"))) ==
+          and sum(seen[k] for order in ORDERS for k in grid_names(order)) ==
           seen[inv_name] + seen[fwd_name], f"kernel launches on the {tag} path: {seen}")
     # the first call also pays the caching allocator's cudaMalloc of its int64 temporaries
     _, resc_ms = host_ms(lambda: fast.rescale(p, out, 1))
@@ -849,6 +881,8 @@ def example_steps(name: str, bk) -> dict:
         return ctx, compiled, [compiled.encrypt_arg(pt, i) for i, pt in enumerate(pts)]
 
     (ctx, compiled, args), compile_ms = host_ms(compile_)
+    # the compiled program's own arguments: HomomRLWR's is mul_public(a, enc s)
+    inputs = [bgv.mul_public(a, args[0])] if name == "HomomRLWR" else args
     if name == "HomomRLWR":
         def evaluate():
             return eval_ir(compiled.ir, bgv.mul_public(a, args[0])), []
@@ -861,7 +895,8 @@ def example_steps(name: str, bk) -> dict:
     dec, decrypt_ms = host_ms(lambda: compiled.decrypt(result))
     return {"compile_ms": compile_ms, "eval_ms": eval_ms, "decrypt_ms": decrypt_ms,
             "counts": counts, "log": log, "ok": dec.equals(want), "evaluate": evaluate,
-            "ctx": ctx, "args": args, "result": result}
+            "ctx": ctx, "args": args, "result": result, "compiled": compiled,
+            "inputs": inputs, "want": want}
 
 
 def op_times(fn) -> dict:
@@ -958,7 +993,241 @@ def examples_phase(checked_bk, torch_bk, card: str) -> dict:
           + ", ".join(f"{k} {n}x {ms:.2f}" for k, (n, ms) in
                       sorted(t["by_op"].items(), key=lambda kv: -kv[1][1])), flush=True)
     return {"runs": {k: {f: v[f] for f in ("compile_ms", "eval_ms", "decrypt_ms", "counts")}
-                     for k, v in runs.items()}, "warm": t}
+                     for k, v in runs.items()}, "warm": t, "steps": runs}
+
+
+def copies(tb) -> dict:
+    """The copies between host and device a TorchBackend counted so far."""
+    return {k: tb.counts[k] for k in ("to_host", "to_device", "mat_upload")}
+
+
+def child(code: str, timeout: float = 600) -> subprocess.CompletedProcess:
+    """Run `code` in a fresh Python process at the root of the checkout."""
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=WORK.parents[1], timeout=timeout)
+
+
+def last_json(out: str) -> dict:
+    return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+
+def vpu_checks(rng) -> dict:
+    """[vpu]: kernels A and B, the standalone transforms (5 and 6 with the
+    vpu tables), 4 and 7 in the vpu order against their plain versions at
+    the small shapes, then 4 and 7 timed at DEEP."""
+    res = {"small": kernel_phase(*SMALL, rng, timed=False, order="vpu"),
+           "grid16": grid_kernel_phase(*SMALL_N2E16, rng, order="vpu"),
+           "hybrid_small": hybrid_kernel_phase(*SMALL_HYBRID, rng, timed=False, order="vpu"),
+           "deep": hybrid_kernel_phase(*DEEP, rng, timed=True, order="vpu")}
+    print("[vpu] A, B, 4, 7 and the standalone transforms in the vpu order bit-identical to "
+          "plain", flush=True)
+    return res
+
+
+RESUME_STOP_CHILD = """
+import os, sys
+from alchemy_tpu_torch.examples.deep_circuit import run
+out = run(log_n={log_n}, depth={depth}, impl="vpu", ks="hybrid", device={device!r},
+          verbose=False, stop_at_level={stop}, state_path={path!r})
+assert out == (None, {stop}), out
+sys.stdout.flush()
+os.kill(os.getpid(), 9)
+"""
+
+RESUME_CHILD = """
+import json, time
+from alchemy_tpu_torch.backend.cuda import mul_relin as mr, rescale as rk
+from alchemy_tpu_torch.examples.deep_circuit import run
+t0 = time.perf_counter()
+ok, ct, level_ms = run(resume=True, state_path={path!r}, device={device!r}, verbose=False)
+print(json.dumps({{"ok": ok, "levels": len(level_ms), "wall_s": time.perf_counter() - t0,
+                  "device": str(ct.device), "launches": {{**mr.LAUNCHES, **rk.LAUNCHES}}}}))
+"""
+
+
+def resume_phase(card: str, device: str = "cuda") -> dict:
+    """[resume]: the depth-16 chain at n = 2^15 (18 limbs, hybrid, impl
+    "vpu") stops before level RESUME_STOP in one process, which saves its
+    state and dies by SIGKILL; a fresh process resumes it on the card and
+    decrypts the whole chain; then one uninterrupted run in this process
+    (deep_path, the launch counts of the path)."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / "deep_state.npz"
+    path.unlink(missing_ok=True)
+    args = dict(log_n=DEEP[0], depth=DEEP_DEPTH, stop=RESUME_STOP, path=str(path),
+                device=device)
+    t0 = time.perf_counter()
+    first = child(RESUME_STOP_CHILD.format(**args))
+    stop_s = time.perf_counter() - t0
+    check(first.returncode == -9 and path.exists(),
+          f"[resume] the stopped run: rc {first.returncode}, state file {path.exists()}: "
+          f"{first.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    second = child(RESUME_CHILD.format(**args))
+    resume_s = time.perf_counter() - t0
+    check(second.returncode == 0, f"[resume] the resumed run: {second.stderr[-2000:]}")
+    got = last_json(second.stdout)
+    want_launched = ("tensor_intt", "hybrid_digit_relin", *grid_names("vpu"), "rescale_fwd")
+    check(got["ok"] and got["levels"] == DEEP_DEPTH - RESUME_STOP
+          and got["device"].startswith(device)
+          and all(got["launches"][k] > 0 for k in want_launched),
+          f"[resume] the resumed chain: {got}")
+    print(f"[resume] n=2^{DEEP[0]} depth={DEEP_DEPTH} hybrid impl=vpu: stopped before level "
+          f"{RESUME_STOP} and killed (rc {first.returncode}, {stop_s:.2f} s, state "
+          f"{path.stat().st_size} bytes), resumed in a fresh process on {got['device']}: PASS "
+          f"({got['levels']} levels in {got['wall_s']:.2f} s, {resume_s:.2f} s with the "
+          f"process); launches {got['launches']}", flush=True)
+    path.unlink()
+    res = deep_path(card, "resume", "vpu")
+    res.update(stop_s=stop_s, resume_s=resume_s, resumed=got)
+    return res
+
+
+def jit_phase(steps: dict, tb, card: str, device: str = "cuda") -> dict:
+    """[jit]: each example's compiled program (from [examples]: the same
+    keys, hints and arguments) through `jit_compile`, a CUDA graph, with the
+    strict ERW probe for Arithmetic and Tunnel: the build's host s; every
+    output component and the error-rate log equal to eager evaluation; the
+    decryption equal to the plaintext; no copy between host and device in a
+    call; a second call on other inputs (the first negated) leaves the first
+    output as it was;
+    a ciphertext whose c0 is uniform raises NoiseOverflowError in a strict
+    program; then JIT_CALLS calls timed on the host clock and between CUDA
+    events, the launches per call (profiler), and the same program's warm
+    eager evaluation on the host clock."""
+    import numpy as np
+    import torch
+
+    from alchemy_tpu_torch.core.cyc import Cyc
+    from alchemy_tpu_torch.interp.error_writer import NoiseOverflowError, eval_with_error_rates
+    from alchemy_tpu_torch.interp.eval import eval_ir
+    from alchemy_tpu_torch.interp.jit_exec import jit_compile
+    from alchemy_tpu_torch.she import bgv
+    from alchemy_tpu_torch.she.keys import uniform_residues
+
+    rng = np.random.default_rng(SEED)
+    res = {}
+    for name, st in steps.items():
+        compiled, ctx, inputs = st["compiled"], st["ctx"], st["inputs"]
+        probe = name != "HomomRLWR"
+
+        def eager():
+            if probe:
+                return eval_with_error_rates(compiled.ir, ctx, *inputs, strict=True)
+            return eval_ir(compiled.ir, *inputs), []
+
+        def split(r):
+            return r if probe else (r, [])
+
+        j, build_ms = host_ms(lambda: jit_compile(
+            compiled, inputs, **({"noise_probe": ctx, "strict": True} if probe else {})))
+        check(device != "cuda" or j.graph is not None, f"[jit] {name}: no CUDA graph")
+        ref, ref_log = eager()
+        got, log = split(j(*inputs))
+        check([(c.m, c.qs, c.basis) for c in got.comps] == [(c.m, c.qs, c.basis)
+                                                            for c in ref.comps]
+              and all(torch.equal(a.data, b.data) for a, b in zip(got.comps, ref.comps)),
+              f"[jit] {name}: the replay != eager eval_ir")
+        check(log == ref_log, f"[jit] {name}: log {log} != eager {ref_log}")
+        check(compiled.decrypt(got).equals(st["want"]), f"[jit] {name}: decrypt != plaintext")
+        kept = [c.data.clone() for c in got.comps]
+        negated = [bgv.neg(inputs[0]), *inputs[1:]]
+        before = copies(tb)
+        other, _ = split(j(*negated))
+        check(copies(tb) == before, f"[jit] {name}: a call copied: {before} -> {copies(tb)}")
+        check(all(torch.equal(c.data, k) for c, k in zip(got.comps, kept))
+              and not all(torch.equal(a.data, b.data) for a, b in zip(got.comps, other.comps)),
+              f"[jit] {name}: a second call changed the first output")
+        drill = "no strict probe"
+        if probe:
+            c0 = inputs[0].comps[0]
+            bad0 = Cyc.from_coeffs(c0.m, c0.qs, uniform_residues(rng, c0.qs, c0.ring.phi),
+                                   tb).to_basis(c0.basis)
+            try:
+                j(inputs[0].with_comps((bad0, *inputs[0].comps[1:])), *inputs[1:])
+                drill = None
+            except NoiseOverflowError as e:
+                drill = f"raised ({str(e)[:60]}...)"
+            check(drill is not None, f"[jit] {name}: uniform c0 returned a ciphertext")
+        fn = lambda: j(*inputs)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(JIT_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        r = res[name] = {"build_ms": build_ms,
+                         "host_ms": (time.perf_counter() - t0) * 1e3 / JIT_CALLS,
+                         "event_ms": device_ms(fn, JIT_CALLS), **profile_op(fn, 3),
+                         "eager_ms": sum(host_ms(eager)[1] for _ in range(3)) / 3}
+        print(f"[jit] {name} ({card}): CUDA graph built in {build_ms / 1e3:.3f} s (warm-up + "
+              f"capture); bit-identical to eager eval_ir, log equal ({len(log)} entries), "
+              f"decrypts to the plaintext, no copy in a call, outputs not aliased, strict drill "
+              f"{drill}; per call over {JIT_CALLS}: host {r['host_ms']:.3f} ms, CUDA events "
+              f"{r['event_ms']:.3f} ms, {r['launches']:.0f} launches, busy {r['busy_us']:.1f} µs "
+              f"of {r['span_us']:.1f}; eager warm host {r['eager_ms']:.3f} ms", flush=True)
+    return res
+
+
+CHECKPOINT_CHILD = """
+import json, time
+import numpy as np
+import torch
+from alchemy_tpu_torch.backend.torch_backend import TorchBackend
+from alchemy_tpu_torch.interp.eval import eval_ir
+from alchemy_tpu_torch.interp.jit_exec import jit_compile
+from alchemy_tpu_torch.she.serialize import load_checkpoint
+t0 = time.perf_counter()
+compiled, cts = load_checkpoint({path!r}{bk})
+if {device!r} == "cuda":
+    torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+arg, saved = cts["arg"], cts["result"]
+eager = eval_ir(compiled.ir, arg)
+j = jit_compile(compiled, [arg])
+got = j(arg)
+want = np.load({want!r})
+same = all(torch.equal(a.data, b.data) for x in (eager, got) for a, b in zip(x.comps, saved.comps))
+decs = [compiled.decrypt(x) for x in (saved, eager, got)]
+print(json.dumps({{"load_s": load_s, "device": str(arg.comps[0].data.device),
+                  "graph": j.graph is not None, "same": same,
+                  "ok": [bool(np.array_equal(d.bk.to_numpy(d.to_pow().data), want)) for d in decs]}}))
+"""
+
+
+def checkpoint_phase(st: dict, tb, device: str = "cuda") -> dict:
+    """[checkpoint]: HomomRLWR's compiled program (keys, hints, schedule)
+    saved with its argument and eager result (`she/serialize.py`), loaded in
+    a fresh process on the card, evaluated eagerly and through jit_compile:
+    both equal the saved result, and the three decrypt to the plaintext."""
+    import numpy as np
+
+    from alchemy_tpu_torch.she.serialize import save_checkpoint
+
+    WORK.mkdir(parents=True, exist_ok=True)
+    path, want = WORK / "homomrlwr_ckpt.npz", WORK / "homomrlwr_want.npy"
+    _, save_ms = host_ms(lambda: save_checkpoint(
+        st["compiled"], path, cts={"arg": st["inputs"][0], "result": st["result"]}))
+    np.save(want, tb.to_numpy(st["want"].to_pow().data))
+    nbytes = path.stat().st_size
+    t0 = time.perf_counter()
+    out = child(CHECKPOINT_CHILD.format(
+        path=str(path), want=str(want), device=device,
+        bk="" if device == "cuda" else f", bk=TorchBackend({device!r})"))
+    child_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"[checkpoint] the loading process: {out.stderr[-2000:]}")
+    got = last_json(out.stdout)
+    check(got["device"].startswith(device) and got["same"] and all(got["ok"])
+          and (got["graph"] or device != "cuda"), f"[checkpoint] {got}")
+    print(f"[checkpoint] HomomRLWR's compiled program: {nbytes} bytes, saved in "
+          f"{save_ms / 1e3:.2f} s, loaded in a fresh process on {got['device']} in "
+          f"{got['load_s']:.2f} s ({child_s:.2f} s with the process, its eager run and its "
+          "CUDA graph): eager and graph results equal the saved one, all three decrypt to the "
+          "plaintext", flush=True)
+    path.unlink()
+    want.unlink()
+    return {"bytes": nbytes, "save_s": save_ms / 1e3, "load_s": got["load_s"],
+            "child_s": child_s}
 
 
 def shape_report(tag: str, runs: dict, rng, clock_hz: float, names, phase, extra) -> dict:
@@ -999,11 +1268,11 @@ def grid_report(runs: dict, rng, clock_hz: float) -> dict:
     """Kernels 5, 6, 8 and 9 at every shape a path launched them with and at
     GRID_SHAPES (shape_report, `[grid]` lines); also checks GRID_SHAPES at
     n = 2^14."""
-    for order in ("pallas", "mxu"):
+    for order in ORDERS:
         grid_shape_phase(SMALL[0], order, representative_shapes(order), rng, reps=0)
     grid = shape_report("grid", runs, rng, clock_hz, grid_names, grid_shape_phase,
                         representative_shapes)
-    print(f"[grid] GRID_SHAPES at n=2^{SMALL[0]} in both orders: errors 0", flush=True)
+    print(f"[grid] GRID_SHAPES at n=2^{SMALL[0]} in every order: errors 0", flush=True)
     return grid
 
 
@@ -1077,11 +1346,11 @@ def fused_report(runs: dict, rng, clock_hz: float) -> dict:
     n = 2^14 in both orders."""
     small = {("tensor_intt", 4, 4), ("tensor_intt", 1, 5), ("rescale_fwd", 2, 5, 3),
              ("rescale_fwd", 4, 4, 2)}
-    for order in ("pallas", "mxu"):
+    for order in ORDERS:
         fused_shape_phase(SMALL[0], order, small, rng, reps=0)
     fused = shape_report("fused", runs, rng, clock_hz, lambda order: ("tensor_intt", "rescale_fwd"),
                          fused_shape_phase, lambda order: FUSED_SHAPES)
-    print(f"[fused] A and 7 at n=2^{SMALL[0]} in both orders: errors 0", flush=True)
+    print(f"[fused] A and 7 at n=2^{SMALL[0]} in every order: errors 0", flush=True)
     return fused
 
 
@@ -1129,6 +1398,7 @@ def main() -> int:
                  **hybrid_kernel_phase(*SMALL_HYBRID, rng, timed=False, order="mxu")}
     h16_k = hybrid_kernel_phase(*HYBRID16, rng, timed=True)
     h16_small = hybrid_kernel_phase(*SMALL_HYBRID16, rng, timed=False)
+    vpu = vpu_checks(rng)
     mp = main_path(rng, card, HEADLINE, "main", "pallas")
     mp16 = main_path(rng, card, N2E16, "n2e16", "pallas")
     hy = hybrid_path(rng, card, DEEP, "hybrid", trivgad=True)
@@ -1136,20 +1406,24 @@ def main() -> int:
     mx = main_path(rng, card, HEADLINE, "mxu", "mxu")
     mxd = deep_path(card, "mxu", "mxu")
     h16 = hybrid_path(rng, card, HYBRID16, "hybrid16", trivgad=False)
+    rs = resume_phase(card)
+    print(f"[resume] uninterrupted depth-{DEEP_DEPTH} chain in the vpu order: {rs['wall_s']:.2f} s "
+          f"(host clock) against [deep] pallas {dp['wall_s']:.2f} s and mxu {mxd['wall_s']:.2f} s",
+          flush=True)
     from alchemy_tpu_torch.backend import get_backend
 
     she_bk = get_backend("torch")
     check(she_bk.device.type == "cuda", f"[she] the torch backend is on {she_bk.device}")
     she_phase(get_backend("checked"), she_bk, card)
-    examples_phase(get_backend("checked"), she_bk, card)
-    grid = grid_report({(HEADLINE[0], "pallas"): {"main": mp, "hybrid": hy, "deep": dp},
-                        (N2E16[0], "pallas"): {"n2e16": mp16, "hybrid16": h16},
-                        (HEADLINE[0], "mxu"): {"mxu": mx, "mxu deep": mxd},
-                        (N2E16[0], "mxu"): {}}, rng, clock_hz)
-    fused = fused_report({(HEADLINE[0], "pallas"): {"main": mp, "hybrid": hy, "deep": dp},
-                          (N2E16[0], "pallas"): {"n2e16": mp16, "hybrid16": h16},
-                          (HEADLINE[0], "mxu"): {"mxu": mx, "mxu deep": mxd},
-                          (N2E16[0], "mxu"): {}}, rng, clock_hz)
+    ex = examples_phase(get_backend("checked"), she_bk, card)
+    jit = jit_phase(ex["steps"], she_bk, card)
+    checkpoint_phase(ex["steps"]["HomomRLWR"], she_bk)
+    runs = {(HEADLINE[0], "pallas"): {"main": mp, "hybrid": hy, "deep": dp},
+            (N2E16[0], "pallas"): {"n2e16": mp16, "hybrid16": h16},
+            (HEADLINE[0], "mxu"): {"mxu": mx, "mxu deep": mxd},
+            (N2E16[0], "mxu"): {}, (HEADLINE[0], "vpu"): {"resume": rs}}
+    grid = grid_report(runs, rng, clock_hz)
+    fused = fused_report(runs, rng, clock_hz)
 
     def entry(name, n, replaces, source, launched, timed, *checked, order="pallas"):
         """One kernel's line at one slot order: times and bound from the
@@ -1169,7 +1443,9 @@ def main() -> int:
                     "ntt2_grid": (ntt_tpu + "211", RESCALE_CU),
                     "intt2_grid": (ntt_tpu + "232", RESCALE_CU),
                     "tensor_intt": (mr_tpu + "232", MUL_RELIN_CU),
-                    "rescale_fwd": (rs_tpu + "206", RESCALE_CU)}
+                    "rescale_fwd": (rs_tpu + "206", RESCALE_CU),
+                    "ntt_vpu_grid": (VPU_NTT + ":149", RESCALE_CU),
+                    "intt_vpu_grid": (VPU_NTT + ":173", RESCALE_CU)}
     # kernels 5, 6, 8, 9, A and 7: one entry per shape a path launched (5, 6,
     # 8, 9 [G, T, n]; A [Bt, L, n]; 7 [G, L, K, n]); `launches` is the count
     # of the path that launched it most
@@ -1205,12 +1481,20 @@ def main() -> int:
               h16["launches"]["hybrid_digit_relin"], h16_k["hybrid_digit_relin"], h16_k, h16_small),
         entry("rescale_fwd", n16, rs_tpu + "206", RESCALE_CU, h16["launches"]["rescale_fwd"],
               h16_k["rescale_fwd"], h16_k, h16_small),
+        entry("hybrid_digit_relin", n15, mr_tpu + "807", MUL_RELIN_CU,
+              rs["launches"]["hybrid_digit_relin"], vpu["deep"]["hybrid_digit_relin"],
+              vpu["deep"], vpu["hybrid_small"], order="vpu"),
+        entry("rescale_fwd", n15, rs_tpu + "206", RESCALE_CU, rs["launches"]["rescale_fwd"],
+              vpu["deep"]["rescale_fwd"], vpu["deep"], vpu["hybrid_small"], order="vpu"),
         *shape_entries,
     ]
     print(f"[summary] mul_relin ops/s (host clock): main {mp['ops_per_s']:.1f}, "
           f"n2e16 {mp16['ops_per_s']:.1f}, mxu {mx['ops_per_s']:.1f}; mul_relin_hybrid raw: "
           f"hybrid {hy['raw'][0]:.1f}, hybrid16 {h16['raw'][0]:.1f}; deep circuit s: pallas "
-          f"{dp['wall_s']:.2f}, mxu {mxd['wall_s']:.2f}", flush=True)
+          f"{dp['wall_s']:.2f}, mxu {mxd['wall_s']:.2f}, vpu {rs['wall_s']:.2f}; [resume] after "
+          f"SIGKILL: PASS; [jit] HomomRLWR replay {jit['HomomRLWR']['host_ms']:.3f} ms host, "
+          f"{jit['HomomRLWR']['event_ms']:.3f} ms events against eager "
+          f"{jit['HomomRLWR']['eager_ms']:.3f} ms host", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

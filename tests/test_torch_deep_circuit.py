@@ -1,6 +1,13 @@
 """alchemy_tpu_torch.examples.deep_circuit: the depth-D squaring chain
 passes, and its final ciphertext equals the same chain run through the JAX
-package's functions from the same seed (exact equality)."""
+package's functions from the same seed (exact equality); its checkpoint
+survives a SIGKILL and resumes in a fresh process, and a state file written
+by either package resumes in the other."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +20,8 @@ from alchemy_tpu.she import hybrid as jhyb
 from alchemy_tpu.she.keys import gaussian_coeffs
 from alchemy_tpu_torch.convert import to_numpy
 from alchemy_tpu_torch.examples import deep_circuit as tdeep
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _jax_chain(log_n, depth, ks, seed=0, impl="pallas"):
@@ -64,6 +73,69 @@ def test_square_chain_oracle_matches_jax():
                               jdeep.expected_square_chain_mod2(msg, n, depth))
     with pytest.raises(ValueError):
         tdeep.run(log_n=5, depth=1, verbose=False, ks="bgv")
+
+
+def test_deep_circuit_kill_and_resume(tmp_path):
+    """The recovery drill of tests/test_checkpoint.py:156 in the port: a
+    process checkpoints the chain before level 3 and dies by SIGKILL; a
+    fresh process resumes from the state file (given without its suffix),
+    runs the remaining levels and decrypts the whole chain."""
+    state = str(tmp_path / "deep_state")
+    phase1 = (
+        "import os\n"
+        "from alchemy_tpu_torch.examples.deep_circuit import run\n"
+        "out = run(log_n=7, depth=6, impl='vpu', verbose=False, device='cpu',"
+        f" stop_at_level=3, state_path={state!r})\n"
+        "assert out == (None, 3), out\n"
+        "os.kill(os.getpid(), 9)\n"
+    )
+    out1 = subprocess.run([sys.executable, "-c", phase1], capture_output=True, text=True,
+                          cwd=REPO, timeout=300)
+    assert out1.returncode == -9, (out1.returncode, out1.stderr)
+    assert os.path.exists(state + ".npz")
+    phase2 = (
+        "from alchemy_tpu_torch.examples.deep_circuit import run\n"
+        f"ok, ct, level_ms = run(resume=True, state_path={state!r}, verbose=False, device='cpu')\n"
+        "assert ok and len(level_ms) == 3 and tuple(ct.shape) == (2, 2, 128), (ok, level_ms)\n"
+        "print('RESUME_PASS')\n"
+    )
+    out2 = subprocess.run([sys.executable, "-c", phase2], capture_output=True, text=True,
+                          cwd=REPO, timeout=300)
+    assert out2.returncode == 0, out2.stderr
+    assert "RESUME_PASS" in out2.stdout
+
+
+@pytest.mark.parametrize("impl,ks", [("vpu", "hybrid"), ("mxu", "trivgad")])
+def test_state_files_resume_across_packages(tmp_path, impl, ks):
+    """From one seed both packages save the same state before level 2 (the
+    same keys, equal arrays); the JAX package's file resumes in the port and
+    the port's in the JAX package, each to PASS."""
+    jst, tst = str(tmp_path / "jax_state.npz"), str(tmp_path / "port_state")
+    assert jdeep.run(log_n=5, depth=4, impl=impl, ks=ks, verbose=False, stop_at_level=2,
+                     state_path=jst) == (None, 2)
+    assert tdeep.run(log_n=5, depth=4, impl=impl, ks=ks, verbose=False, device="cpu",
+                     stop_at_level=2, state_path=tst) == (None, 2)
+    a, b = np.load(jst), np.load(tst + ".npz")
+    assert set(a.files) == set(b.files)
+    for k in a.files:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    ok, ct, level_ms = tdeep.run(resume=True, state_path=jst, verbose=False, device="cpu")
+    assert ok and len(level_ms) == 2 and ct.shape == (2, 2, 32)
+    assert jdeep.run(resume=True, state_path=tst + ".npz", verbose=False) == (True, 4)
+
+
+def test_checkpoint_arguments_are_checked(tmp_path):
+    with pytest.raises(ValueError, match="state_path"):
+        tdeep.run(log_n=5, depth=2, verbose=False, device="cpu", stop_at_level=1)
+    with pytest.raises(ValueError, match="state_path"):
+        tdeep.run(resume=True, verbose=False, device="cpu")
+    tdeep.run(log_n=5, depth=3, verbose=False, device="cpu", stop_at_level=1,
+              state_path=tmp_path / "s.npz")
+    st = dict(np.load(tmp_path / "s.npz"))
+    st["ct"] = st["ct"][:, :1]
+    np.savez(tmp_path / "bad.npz", **st)
+    with pytest.raises(ValueError, match="state ct"):
+        tdeep.run(resume=True, state_path=tmp_path / "bad", verbose=False, device="cpu")
 
 
 @pytest.mark.cuda

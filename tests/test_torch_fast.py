@@ -258,8 +258,12 @@ def test_rescale_matches_jax_mxu():
 
 
 def test_impl_is_checked():
-    assert tfast.FastParams.make(10, 3, impl="pallas").impl == "pallas"
-    for impl in ("vpu", "mxu8"):
+    """Every impl of the JAX package's FastParams is accepted, with the slot
+    order the kernels take; anything else raises."""
+    for impl, order in (("pallas", "pallas"), ("mxu", "mxu"), ("mxu8", "mxu"), ("vpu", "vpu")):
+        p = tfast.FastParams.make(10, 3, impl=impl)
+        assert (p.impl, p.order) == (impl, order)
+    for impl in ("radix4", "MXU"):
         with pytest.raises(ValueError, match="impl"):
             tfast.FastParams.make(10, 3, impl=impl)
 

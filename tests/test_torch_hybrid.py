@@ -299,7 +299,7 @@ def test_mul_relin_hybrid_on_the_card_matches_jax(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("log_n,L,Bt,order", [(16, 5, 2, "pallas"), (16, 16, 2, "pallas"),
-                                              (15, 5, 2, "mxu")])
+                                              (15, 5, 2, "mxu"), (15, 5, 2, "vpu")])
 def test_kernels_4_and_7_match_plain_on_the_card_split(log_n, L, Bt, order):
     """Kernels 4 and 7 with two blocks per limb, at 2^16 and in the
     2-factor slot order; L = 5 gives uneven groups 3 + 2, K = 3."""

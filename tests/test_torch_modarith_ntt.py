@@ -176,8 +176,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from alchemy_tpu_torch.interp.keys_hints import KeysHints\n"
         "from alchemy_tpu_torch.interp.pt2ct import pt2ct\n"
         "from alchemy_tpu_torch.she.gadget import TrivGad\n"
-        "pt2ct(addMul, res_ty=PT, m_map=M_MAP, zqs=ZQS, gad=TrivGad(),\n"
-        "      ctx=KeysHints(3.0, bk=TorchBackend('cpu')))\n"
+        "import alchemy_tpu_torch.interp.jit_exec, alchemy_tpu_torch.she.serialize\n"
+        "import alchemy_tpu_torch.backend.ntt\n"
+        "from alchemy_tpu_torch.core.cyc import Cyc\n"
+        "from alchemy_tpu_torch.examples.arithmetic import M, ZP\n"
+        "from alchemy_tpu_torch.interp.jit_exec import jit_compile\n"
+        "bk = TorchBackend('cpu')\n"
+        "compiled = pt2ct(addMul, res_ty=PT, m_map=M_MAP, zqs=ZQS, gad=TrivGad(),\n"
+        "                 ctx=KeysHints(3.0, bk=bk))\n"
+        "pt = Cyc.constant(M, (ZP,), 1, bk)\n"
+        "args = [compiled.encrypt_arg(pt, 0), compiled.encrypt_arg(pt, 1)]\n"
+        "jit_compile(compiled, args)(*args)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alchemy_tpu'))\n"
         "assert not bad, bad\n"
     )

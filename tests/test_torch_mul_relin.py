@@ -277,14 +277,15 @@ def _rb_forward(x, tw, q, part, max_rl, first_rl, pair, split=1):
 
 
 @pytest.mark.parametrize("shape", sorted(RB_SHAPES))
-@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
 @pytest.mark.parametrize("log_n", [10, 11, 12, 16])
 def test_register_blocked_schedule_matches_plain_ntt(log_n, order, shape):
     """The schedule of kernels B and 4 at each launch shape (register-blocked
     passes, the cross-half stage in the first pass's load or across the
     cluster, the hint loop's slot-order gather through `slot_own`) against
     ntt3 ("pallas") and ntt2 ("mxu") exactly, at 2^16 and at small sizes.
-    Every slot has one owner thread, the same at every digit; a thread's four
+    (and ntt_vpu, "vpu"). Every slot has one owner thread, the same at every
+    digit; a thread's four
     elements are four consecutive slots from a multiple of 4, and the 128
     elements of a warp consecutive slots (from n = 2^14 on; runs of a row of
     the slot order below)."""
@@ -382,7 +383,7 @@ def _last_stages(a, inv, q, n_inv):
 
 @pytest.mark.parametrize("direction", ["forward", "inverse"])
 @pytest.mark.parametrize("shape", sorted(GRID_SHAPES))
-@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
 @pytest.mark.parametrize("log_n", [10, 11, 12, 16])
 def test_grid_kernel_schedule_matches_plain_ntt(log_n, order, shape, direction):
     """The schedule of kernels 6/8 (forward: register-blocked passes from the
@@ -390,7 +391,8 @@ def test_grid_kernel_schedule_matches_plain_ntt(log_n, order, shape, direction):
     block's slots stored in slot order, four consecutive slots a thread) and
     5/9 (inverse: the slot-order gather, the inverse passes, the cluster's
     last stages scaled by n⁻¹) at each launch shape, a limb over two blocks
-    or four, against ntt3/intt3 ("pallas") and ntt2/intt2 ("mxu") exactly.
+    or four, against ntt3/intt3 ("pallas"), ntt2/intt2 ("mxu") and
+    ntt_vpu/intt_vpu ("vpu") exactly.
     Every slot is written or read once, in quads of four consecutive slots
     from a multiple of 4."""
     _, max_rl, split = GRID_SHAPES[shape]
@@ -430,7 +432,7 @@ def test_grid_kernel_schedule_matches_plain_ntt(log_n, order, shape, direction):
 
 
 @pytest.mark.parametrize("shape", sorted(GRID_SHAPES))
-@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
 @pytest.mark.parametrize("log_n", [10, 11, 12, 16])
 def test_kernel_a_schedule_matches_plain(log_n, order, shape):
     """Kernel A as it runs (mul_relin.cu tensor_intt_kernel, launched by
@@ -439,7 +441,7 @@ def test_kernel_a_schedule_matches_plain(log_n, order, shape):
     (slot_own or slot_own4), computes the Karatsuba product of each slot,
     writes c0 and c1 there and places c2 at its radix-2 index in the part;
     then the inverse passes and the cluster's last stages → (c0, c1, c2c)
-    against `tensor_intt_plain` exactly, both orders. Every slot of c0 and
+    against `tensor_intt_plain` exactly, in each order. Every slot of c0 and
     c1 is written once."""
     _, max_rl, split = GRID_SHAPES[shape]
     parts = 1 << split
@@ -478,7 +480,7 @@ def test_kernel_a_schedule_matches_plain(log_n, order, shape):
 RESCALE_MAX_RL = 3
 
 
-@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
 @pytest.mark.parametrize("log_n", [10, 11, 12, 16])
 def test_kernel_7_schedule_matches_plain(log_n, order):
     """Kernel 7 as it runs (rescale.cu rescale_fwd_kernel): the prologue
@@ -486,7 +488,7 @@ def test_kernel_7_schedule_matches_plain(log_n, order):
     sign corrections, ×P⁻¹, as the kernel's `rescaled` computes it) as the
     load of the register-blocked forward passes, each block of the cluster
     pair evaluating it on its own half, then each block's slots stored in
-    slot order → against `rescale_fwd_plain` exactly, both orders. Every
+    slot order → against `rescale_fwd_plain` exactly, in each order. Every
     slot is written once."""
     p = jfast.FastParams.make(log_n, 5)
     n, half, zp = p.n, p.n // 2, 4
@@ -541,7 +543,7 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         mr._kernel_device(1 << 15, torch.device("meta"))
     with pytest.raises(ValueError, match="slot order"):
-        mr.tensor_intt(p.n, p.qs, good, good, order="vpu")
+        mr.tensor_intt(p.n, p.qs, good, good, order="radix4")
     # kernels B and 4 read rows 16 bytes at a time: a view off a 16-byte boundary is refused
     row = torch.zeros(8, dtype=torch.int32)
     mr._aligned(row, None)
@@ -604,7 +606,7 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
 @pytest.mark.parametrize("log_n,L,Bt", [(8, 2, 2), (14, 3, 2), (15, 8, 2), (16, 3, 2)])
 def test_kernels_match_plain_on_the_card(log_n, L, Bt, order):
     """At 2^8 the 2-factor order's rows are 2 words: B's hint loop takes its
@@ -629,7 +631,7 @@ def test_kernels_match_plain_on_the_card(log_n, L, Bt, order):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
 @pytest.mark.parametrize("log_n,L,Bt", [(14, 3, 1), (15, 18, 1), (15, 8, 16), (16, 8, 4),
                                         (16, 2, 20)])
 def test_kernel_a_launch_forms_match_plain_on_the_card(log_n, L, Bt, order):

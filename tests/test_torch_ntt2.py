@@ -143,7 +143,7 @@ def test_kernels_8_and_9_stay_off_the_card_and_check_inputs(monkeypatch):
     assert rk.grid_transforms("mxu") == (rk.ntt2_grid, rk.intt2_grid)
     assert rk.grid_transforms("pallas", plain=True) == (rk.ntt3_grid_plain, rk.intt3_grid_plain)
     with pytest.raises(ValueError):
-        rk.grid_transforms("vpu")
+        rk.grid_transforms("radix4")
 
 
 @pytest.mark.cuda

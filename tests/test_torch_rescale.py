@@ -190,11 +190,12 @@ def _need_card():
 
 def _grid_names(order):
     """Launch counters of the (inverse, forward) transforms of a slot order."""
-    return ("intt2_grid", "ntt2_grid") if order == "mxu" else ("intt_grid", "ntt_grid")
+    return {"mxu": ("intt2_grid", "ntt2_grid"), "vpu": ("intt_vpu_grid", "ntt_vpu_grid"),
+            "pallas": ("intt_grid", "ntt_grid")}[order]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
 @pytest.mark.parametrize("log_n,L,G", [(14, 5, 1), (14, 5, 3), (15, 20, 1), (15, 20, 2),
                                        (15, 20, 4)])
 def test_kernels_5_6_7_match_plain_on_the_card(log_n, L, G, order):
@@ -221,7 +222,7 @@ def test_kernels_5_6_7_match_plain_on_the_card(log_n, L, G, order):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
 @pytest.mark.parametrize("G", [1, 8, 12])
 def test_kernels_5_6_match_plain_on_the_card_at_2e16(G, order):
     """n = 2^16 (one 1024-thread block an SM) in both slot orders: a limb
@@ -241,7 +242,7 @@ def test_kernels_5_6_match_plain_on_the_card_at_2e16(G, order):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("order", ["pallas", "mxu"])
+@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
 @pytest.mark.parametrize("log_n,L,K,G", [(8, 3, 2, 2), (14, 5, 3, 2), (15, 16, 4, 2),
                                          (15, 16, 4, 32), (16, 4, 2, 3)])
 def test_kernel_7_matches_plain_on_the_card(log_n, L, K, G, order):
