@@ -15,6 +15,10 @@ canonical residues, as the kernels in this order do. On canonical input they
 return the JAX functions' residues. These transforms are the plain versions
 of the standalone kernels in this order and of the vpu order of kernels A,
 B, 4 and 7.
+
+`cyclic_ntt_stages` / `cyclic_intt_stages` (ntt.py:102, :125) are the bare
+radix-2 cyclic stages over the last axis with caller-given per-limb tables,
+the local stages of the distributed 4-step NTT (`parallel/dist.py`).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from alchemy_tpu_torch.backend.modarith import _add_mod, _sub_mod
 from alchemy_tpu_torch.backend.ntt3 import psi_powers
 
 
@@ -101,3 +106,38 @@ def ntt_vpu_bcast(x: torch.Tensor, n: int, qs: tuple[int, ...]) -> torch.Tensor:
     L, n]; rows may be unreduced uint32 (the digit path of fast.py:369-374,
     which reduces the broadcast rows mod each limb, then transforms)."""
     return ntt_vpu(x.unsqueeze(-2).expand(*x.shape[:-1], len(qs), n), n, qs)
+
+
+def cyclic_ntt_stages(x: torch.Tensor, stages, q: torch.Tensor) -> torch.Tensor:
+    """Radix-2 DIF cyclic NTT over the last axis of int64 x [..., L, size]
+    (natural order in, bit-reversed out), `cyclic_ntt_stages` of ntt.py:102:
+    `stages[s]` is the (W, WS) pair of twiddles [L, size >> (s + 1)] with
+    their Shoup companions and q is [L, 1]. Each Shoup product is computed
+    as the exact int64 product mod q, which it equals for every uint32
+    input; sums and differences wrap at 32 bits as the uint32 lanes do, so
+    every uint32 input gives the JAX function's output."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    q3 = q[..., None, :]
+    for s in range(n.bit_length() - 1):
+        xs = x.reshape(*lead, 1 << s, 2, n >> (s + 1))
+        a, b = xs[..., 0, :], xs[..., 1, :]
+        bot = _sub_mod(a, b, q3) * stages[s][0][..., None, :] % q3
+        x = torch.stack([_add_mod(a, b, q3), bot], dim=-2).reshape(*lead, n)
+    return x
+
+
+def cyclic_intt_stages(x: torch.Tensor, inv_stages, q: torch.Tensor, n_inv=None) -> torch.Tensor:
+    """Inverse of `cyclic_ntt_stages` (bit-reversed in, natural out),
+    `cyclic_intt_stages` of ntt.py:125; with n_inv, a (w, ws) pair [L, 1],
+    it folds in the scale by 1/n."""
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    q3 = q[..., None, :]
+    for s in reversed(range(n.bit_length() - 1)):
+        xs = x.reshape(*lead, 1 << s, 2, n >> (s + 1))
+        a, bw = xs[..., 0, :], xs[..., 1, :] * inv_stages[s][0][..., None, :] % q3
+        x = torch.stack([_add_mod(a, bw, q3), _sub_mod(a, bw, q3)], dim=-2).reshape(*lead, n)
+    if n_inv is not None:
+        x = x * n_inv[0] % q
+    return x

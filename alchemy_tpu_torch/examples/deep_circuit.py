@@ -24,6 +24,7 @@ in a fresh process and checks the whole chain:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from dataclasses import replace
@@ -62,6 +63,18 @@ def save_state(path: str, *, log_n: int, depth: int, level: int, ct: torch.Tenso
              s_int=np.asarray(s_int), msg=np.asarray(msg), impl=str(impl), ks=ks)
 
 
+def resume_impl(stored: str, impl: str | None = None) -> str:
+    """The slot order in which a state file resumes: the file's own impl;
+    where the file holds "" (the JAX package writes the caller's impl, so
+    "" when its caller named none), the caller's impl, else
+    ALCHEMY_NTT_IMPL when set, else the default "mxu" — the JAX package's
+    reading of "" (deep_circuit.py:73-75 through fast.py:35). An impl that
+    names another slot order than a non-empty stored one raises ValueError."""
+    if stored and impl is not None and fast.IMPLS.get(impl) != fast.IMPLS.get(stored):
+        raise ValueError(f"impl={impl!r}: the state file was saved in impl={stored!r}")
+    return stored or impl or os.environ.get("ALCHEMY_NTT_IMPL") or fast.DEFAULT_NTT_IMPL
+
+
 def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
         impl: str | None = None, ks: str = "trivgad", device="cuda",
         stop_at_level: int | None = None, state_path: str | None = None,
@@ -74,16 +87,17 @@ def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
 
     With stop_at_level and state_path, the chain saves its state before that
     level (`save_state`) and returns (None, level). With resume, it loads the
-    state from state_path (log_n, depth, impl, ks and the seed's key and
-    message come from the file; the other arguments but device and verbose
-    are not read), reseeds from OS entropy, runs the remaining levels on
-    `device` and checks the whole chain."""
+    state from state_path (log_n, depth, ks and the seed's key and message
+    come from the file; the other arguments but impl, device and verbose are
+    not read), reseeds from OS entropy, runs the remaining levels on
+    `device` and checks the whole chain. The slot order of a resumed chain is
+    the file's impl (`resume_impl`)."""
     if (stop_at_level is not None or resume) and state_path is None:
         raise ValueError("stop_at_level and resume need a state_path")
     if resume:
         st = np.load(npz_path(state_path), allow_pickle=False)
         log_n, depth, level0 = int(st["log_n"]), int(st["depth"]), int(st["level"])
-        impl, ks = str(st["impl"]) or None, str(st["ks"])
+        impl, ks = resume_impl(str(st["impl"]), impl), str(st["ks"])
         s_int, msg = st["s_int"], st["msg"]
         rng = np.random.default_rng()        # OS entropy: never replay the saved run's
     else:

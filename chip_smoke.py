@@ -69,6 +69,32 @@ Then [resume] (after [hybrid16]), and [jit] and [checkpoint] (after
             loaded in a fresh process on the card, evaluated eagerly and as a
             graph, decrypted against the plaintext; bytes, save and load s.
 
+Then the mesh path (`parallel/`; the world's ranks are processes, the
+local stages of the distributed NTT are torch ops, no kernel of their own):
+
+  [dist]    one NCCL rank, mesh (1, 1, 1), at the headline width (n = 2^15,
+            L = 8, Bt = 16, n1 = 2^7): make_dist_ntt (a2a and ring, round
+            trips), make_dist_mul_relin (digit and row hint placements, a2a
+            and ring), make_dist_rescale, and make_dist_mul_relin_hybrid at
+            L = 16 (dnum = 4, K = 4), each through the layout bridge
+            (single-chip inverse NTT, the (j2, j1) storage order, the dist
+            forward NTT) bit-identical to fast.mul_relin, fast.rescale and
+            hybrid.mul_relin_hybrid, the products decrypted; host ms a call
+            and collectives a call by group.
+  [dist2]   two gloo ranks sharing the card (NCCL refuses two ranks on one
+            GPU): make_dist_mul_relin on [dist]'s inputs with the mesh
+            (1, 1, 2), then (1, 2, 1), bit-identical to [dist]; the bytes the
+            comm helpers stage through host memory for gloo are printed.
+  [pipeline] make_pipeline_chain at n = 2^15, depth 16, L0 = 18, 4
+            micro-batches of 2: S = 1 on the one-rank world in the "pallas"
+            order (kernels A, B, 5, 6) and in the "mxu" order (A, B, 8, 9),
+            S = 2 on two gloo ranks sharing the card ("mxu"); each
+            bit-identical to the sequential chain of fast.mul_relin +
+            fast.rescale (S = 2 also to S = 1), the last level decrypted.
+            Kernel B is checked and timed at the pipeline's shape
+            [2, 18, n] in both orders; A and 5/6/8/9 join the by-shape
+            reports with the path tags "pipeline" and "pipeline S=2".
+
 The first four run at impl="pallas", the 3-factor slot order. Kernels 5,
 6, 8 and 9 then run again, checked and timed, at every [G, T, n] a path
 launched them with (rescale.LAUNCHES_BY_SHAPE, read per path) and at
@@ -89,6 +115,10 @@ graph, `launches_by_path`, each path's own count, and `path`, the path whose
 count `launches` is (the one that launched the shape most).
 
     python3 chip_smoke.py        # from the root of a checkout, one GPU
+
+On a host with four cards, `python3 chip_smoke.py --cards 4` runs only the
+mesh checks across them, on four NCCL ranks, one a card: [dist4] ([dist]'s
+checks on the mesh (1, 2, 2)) and [pipeline4] (the chain with S = 4).
 """
 
 from __future__ import annotations
@@ -1230,6 +1260,551 @@ def checkpoint_phase(st: dict, tb, device: str = "cuda") -> dict:
             "child_s": child_s}
 
 
+# [dist], [dist2], [pipeline]: the mesh path (parallel/). [dist] and [dist2]
+# run at HEADLINE with the 4-step NTT split n = n1·n2, n1 = 2^(log2 n // 2),
+# the hybrid op at DEEP; [pipeline] is the deep chain of PIPE
+PIPE = (15, 18, 16, 4, 2)         # log2 n, L0, depth, micro-batches M, mb
+PIPE_SEED = 11
+DIST_CALLS = 3
+# a hang or a dead rank of [dist2] or [pipeline] S=2 fails the script
+RANK_TIMEOUT_S = 600
+DIST_TPU = "alchemy_tpu/parallel/dist.py"
+
+
+def dist_layout(cfg):
+    """(to, back): index maps from coefficient order to the 4-step NTT's
+    (j2, j1) storage order and back."""
+    import numpy as np
+
+    j2, j1 = np.divmod(np.arange(cfg.p.n), cfg.n1)
+    to = j1 * cfg.n2 + j2
+    back = np.empty_like(to)
+    back[to] = np.arange(cfg.p.n)
+    return to, back
+
+
+def dist_bridge(p, cfg, mesh, fwd, x):
+    """int32 [..., L, n] in p's NTT slot order → the dist NTT domain: the
+    single-chip inverse NTT, the (j2, j1) storage order, the dist forward NTT
+    on the one-rank mesh."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from alchemy_tpu_torch.parallel.dist import NTT_PLACEMENTS
+    from alchemy_tpu_torch.she import fast
+
+    to, _ = dist_layout(cfg)
+    stored = fast._intt_p(p, x)[..., torch.from_numpy(to).to(x.device)]
+    rows = distribute_tensor(stored.reshape(-1, *x.shape[-2:]).contiguous(), mesh,
+                             NTT_PLACEMENTS, src_data_rank=None)
+    return fwd(rows).full_tensor().reshape(x.shape)
+
+
+def dist_unbridge(p, cfg, mesh, inv, x):
+    """The dist NTT domain → int32 coefficients [..., L, n] (natural order)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from alchemy_tpu_torch.parallel.dist import NTT_PLACEMENTS
+
+    _, back = dist_layout(cfg)
+    rows = distribute_tensor(x.reshape(-1, *x.shape[-2:]).contiguous(), mesh, NTT_PLACEMENTS,
+                             src_data_rank=None)
+    return inv(rows).full_tensor().reshape(x.shape)[..., torch.from_numpy(back).to(x.device)]
+
+
+def sync() -> None:
+    """Wait for the card where there is one (the ranks of [dist2] and
+    [pipeline] also run on the CPU, in a rehearsal)."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def dist_calls(fn, calls: int) -> tuple[float, dict, dict]:
+    """(host ms per call over `calls` calls after one warm-up, collective
+    calls per call by (op, axis), bytes staged through host per call)."""
+    from alchemy_tpu_torch.parallel import dist as D
+
+    fn()
+    sync()
+    D.reset_collectives()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    per = {f"{op}@{axis}": c // calls for (op, axis), c in D.COLLECTIVES.items()}
+    staged = {f"{op}@{axis}": c // calls for (op, axis), c in D.STAGED_BYTES.items()}
+    return ms, per, staged
+
+
+def dist_phase(rng, card: str, device: str = "cuda") -> dict:
+    """[dist]: the mesh path on one rank (NCCL on the card), mesh (1, 1, 1),
+    at HEADLINE and DEEP (`dist_checks`). Leaves the one-rank world
+    initialised for [pipeline]."""
+    from alchemy_tpu_torch.parallel.mesh import make_mesh
+    from alchemy_tpu_torch.parallel.multihost import init_multihost
+
+    init_multihost(backend="nccl" if device == "cuda" else "gloo")
+    return dist_checks(rng, card, make_mesh((1, 1, 1), device), device, "[dist]", HEADLINE, DEEP)
+
+
+def dist_checks(rng, card: str, mesh, device: str, tag: str, headline: tuple, deep: tuple) -> dict:
+    """The mesh path on `mesh` (run on every rank of it) at `headline` in
+    the "pallas" order: make_dist_ntt (a2a and ring, round trip),
+    make_dist_mul_relin (digit and row placements, a2a and ring),
+    make_dist_rescale, and make_dist_mul_relin_hybrid at `deep`'s chain,
+    each through the layout bridge bit-identical to the single-chip
+    fast.mul_relin / fast.rescale / hybrid.mul_relin_hybrid, the products
+    decrypted; host ms a call after. The dist ops launch no kernel of the
+    port (their local stages are torch ops): the counters are read around
+    them. Rank 0 prints."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import torch.distributed
+    from torch.distributed.tensor import distribute_tensor
+
+    from alchemy_tpu_torch.parallel import dist as D
+    from alchemy_tpu_torch.she import fast, hybrid
+
+    say = print if torch.distributed.get_rank() == 0 else (lambda *a, **k: None)
+    log_n, L, Bt = headline
+    p = fast.FastParams.make(log_n, L, zp=2, impl="pallas")
+    n1 = 1 << (log_n // 2)
+    cfg = D.DistConfig(p=p, n1=n1, n2=p.n // n1)
+    t0 = time.perf_counter()
+    D.dist_tables(cfg)
+    tables_s = time.perf_counter() - t0
+    fwd, inv = D.make_dist_ntt(cfg, mesh)
+    fwd_r, inv_r = D.make_dist_ntt(cfg, mesh, strategy="ring")
+
+    s = fast.keygen(p, rng, device=device)
+    hb, ha = fast.relin_hint(p, s, rng)
+    m1, m2 = rng.integers(0, p.zp, (Bt, p.n)), rng.integers(0, p.zp, (Bt, p.n))
+    ct_a = torch.stack([fast.encrypt(p, s, m, rng) for m in m1])
+    ct_b = torch.stack([fast.encrypt(p, s, m, rng) for m in m2])
+    want = fast.mul_relin(p, ct_a, ct_b, hb, ha)
+    want_down = fast.rescale(p, want, 1)
+    d_a, d_b, d_hb, d_ha = (dist_bridge(p, cfg, mesh, fwd, x) for x in (ct_a, ct_b, hb, ha))
+
+    def dt(x, placements=D.CT_PLACEMENTS):
+        return distribute_tensor(x.contiguous(), mesh, placements, src_data_rank=None)
+
+    rows = dt(d_a.reshape(-1, L, p.n), D.NTT_PLACEMENTS)
+    reset_launches()
+    y, y_r = fwd(rows), fwd_r(rows)
+    check(torch.equal(y.to_local(), y_r.to_local()), f"{tag} ring forward NTT != a2a")
+    for f_inv in (inv, inv_r):
+        check(torch.equal(f_inv(y).to_local(), rows.to_local()), f"{tag} NTT round trip")
+    hints = {"digit": (dt(d_hb, D.HINT_PLACEMENTS), dt(d_ha, D.HINT_PLACEMENTS)),
+             "row": (dt(d_hb, D.ROW_HINT_PLACEMENTS), dt(d_ha, D.ROW_HINT_PLACEMENTS))}
+    runs = {f"{placement} {strategy}": (D.make_dist_mul_relin(cfg, mesh, strategy, placement),
+                                        hints[placement])
+            for placement in ("digit", "row") for strategy in ("a2a", "ring")}
+    cta, ctb = dt(d_a), dt(d_b)
+    outs = {k: run(cta, ctb, *h).full_tensor() for k, (run, h) in runs.items()}
+    out = outs["digit a2a"]
+    check(all(torch.equal(o, out) for o in outs.values()), f"{tag} placements/strategies differ")
+    rescale = D.make_dist_rescale(cfg, mesh, active=L)
+    down = rescale(dt(out)).full_tensor()
+    sync()
+    seen = launches()
+    check(not any(seen.values()), f"{tag} the dist ops launched kernels: {seen}")
+
+    coeff = dist_unbridge(p, cfg, mesh, inv, out)
+    check(torch.equal(coeff, fast._intt_p(p, want)),
+          f"{tag} make_dist_mul_relin != fast.mul_relin through the bridge")
+    p7 = replace(p, qs=p.qs[:-1])
+    coeff_down = dist_unbridge(p, cfg, mesh, inv, down)
+    check(torch.equal(coeff_down[..., :L - 1, :], fast._intt_p(p7, want_down))
+          and not coeff_down[..., L - 1, :].any(),
+          f"{tag} make_dist_rescale != fast.rescale through the bridge")
+    prods = fast._ntt_p(p, coeff)
+    downs = fast._ntt_p(p7, coeff_down[..., :L - 1, :].contiguous())
+    for i in range(Bt):
+        w = negacyclic_mod2(m1[i], m2[i])
+        check(np.array_equal(fast.decrypt(p, s, prods[i]), w), f"{tag} decrypt of product {i}")
+        check(np.array_equal(fast.decrypt(p7, s[:-1], downs[i]), w),
+              f"{tag} decrypt of rescaled product {i}")
+
+    # hybrid key-switching at DEEP's chain (L = 16, dnum = 4, K = 4, T = 20)
+    hk = hybrid.HybridKS.make(fast.FastParams.make(deep[0], deep[1], zp=2, impl="pallas"))
+    ph, pe = hk.p, hk.pe
+    cfg_h = D.DistConfig(p=ph, n1=n1, n2=ph.n // n1)
+    cfg_e = D.DistConfig(p=pe, n1=n1, n2=ph.n // n1)
+    fwd_h, inv_h = D.make_dist_ntt(cfg_h, mesh)
+    fwd_e, _ = D.make_dist_ntt(cfg_e, mesh)
+    sh, (hhb, hha) = hybrid.hybrid_keygen_hint(hk, rng, device=device)
+    h1, h2 = rng.integers(0, ph.zp, (Bt, ph.n)), rng.integers(0, ph.zp, (Bt, ph.n))
+    hct_a = torch.stack([fast.encrypt(ph, sh, m, rng) for m in h1])
+    hct_b = torch.stack([fast.encrypt(ph, sh, m, rng) for m in h2])
+    want_h = hybrid.mul_relin_hybrid(hk, hct_a, hct_b, hhb, hha)
+    dh_a, dh_b = (dist_bridge(ph, cfg_h, mesh, fwd_h, x) for x in (hct_a, hct_b))
+    dh_hb, dh_ha = (dist_bridge(pe, cfg_e, mesh, fwd_e, x) for x in (hhb, hha))
+    run_h = D.make_dist_mul_relin_hybrid(hk, cfg_h, mesh)
+    hargs = (dt(dh_a), dt(dh_b), dt(dh_hb, D.HINT_PLACEMENTS), dt(dh_ha, D.HINT_PLACEMENTS))
+    reset_launches()
+    out_h = run_h(*hargs).full_tensor()
+    sync()
+    seen_h = launches()
+    check(not any(seen_h.values()), f"{tag} the hybrid dist op launched kernels: {seen_h}")
+    coeff_h = dist_unbridge(ph, cfg_h, mesh, inv_h, out_h)
+    check(torch.equal(coeff_h, fast._intt_p(ph, want_h)),
+          f"{tag} make_dist_mul_relin_hybrid != hybrid.mul_relin_hybrid through the bridge")
+    prods_h = fast._ntt_p(ph, coeff_h)
+    for i in range(Bt):
+        check(np.array_equal(fast.decrypt(ph, sh, prods_h[i]), negacyclic_mod2(h1[i], h2[i])),
+              f"{tag} decrypt of hybrid product {i}")
+    say(f"{tag} {mesh.size()} rank(s), {torch.distributed.get_backend()}, mesh "
+        f"{tuple(mesh.shape)}, n=2^{log_n} n1={n1} L={L} Bt={Bt}: NTT a2a = ring, round trips "
+        "exact; make_dist_mul_relin (digit/row x a2a/ring) and make_dist_rescale bit-identical "
+        "to fast.mul_relin / fast.rescale through the bridge; make_dist_mul_relin_hybrid at "
+        f"L={deep[1]} dnum={hk.dnum} K={len(hk.ps)} bit-identical to hybrid.mul_relin_hybrid; "
+        f"{Bt} products of each decrypt; kernel launches in the dist ops "
+        f"{sum(seen.values()) + sum(seen_h.values())} (local stages are torch ops); "
+        f"dist_tables {tables_s:.3f} s", flush=True)
+
+    res = {"tables_s": tables_s, "inputs": [x.cpu() for x in (d_a, d_b, d_hb, d_ha)],
+           "out": out.cpu(), "cfg": (p.n, p.qs, p.impl, n1)}
+    timed = {"ntt fwd a2a": lambda: fwd(rows), "ntt fwd ring": lambda: fwd_r(rows),
+             **{f"mul_relin {k}": (lambda r=run, h=h: r(cta, ctb, *h)) for k, (run, h) in runs.items()},
+             "rescale": lambda: rescale(dt(out)),
+             "mul_relin_hybrid": lambda: run_h(*hargs)}
+    for name, fn in timed.items():
+        ms, per, staged = dist_calls(fn, DIST_CALLS)
+        res[name] = {"ms": ms, "collectives": per, "staged": staged}
+        rate = "" if name.startswith("ntt") or name == "rescale" else f" = {Bt * 1e3 / ms:.1f} ops/s"
+        say(f"{tag} {name}: {ms:.2f} ms per call of {Bt} ciphertexts{rate} (host clock, "
+            f"{DIST_CALLS} calls) on {card}; collectives per call {per}", flush=True)
+    return res
+
+
+def dist2_rank(shape, cfg_args, d_a, d_b, d_hb, d_ha, calls: int, device: str = "cuda"):
+    """One of the two ranks of [dist2]: make_dist_mul_relin (digit, a2a) on
+    the mesh `shape` on the card over the world's gloo group; returns the
+    full product (read back through a CPU mesh of the same ranks), host ms
+    per call, collectives and staged bytes per call, on rank 0."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from alchemy_tpu_torch.parallel import dist as D
+    from alchemy_tpu_torch.parallel.mesh import make_mesh
+    from alchemy_tpu_torch.she import fast
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    mesh, cpu_mesh = make_mesh(shape, device), make_mesh(shape, "cpu")
+    n, qs, impl, n1 = cfg_args
+    cfg = D.DistConfig(p=fast.FastParams(n=n, qs=qs, zp=2, impl=impl), n1=n1, n2=n // n1)
+    run = D.make_dist_mul_relin(cfg, mesh)
+
+    def dt(x, placements):
+        return distribute_tensor(x.to(device), mesh, placements, src_data_rank=None)
+
+    args = (dt(d_a, D.CT_PLACEMENTS), dt(d_b, D.CT_PLACEMENTS), dt(d_hb, D.HINT_PLACEMENTS),
+            dt(d_ha, D.HINT_PLACEMENTS))
+    out = run(*args)
+    full = DTensor.from_local(out.to_local().cpu(), cpu_mesh, D.CT_PLACEMENTS,
+                              run_check=False).full_tensor()
+    ms, per, staged = dist_calls(lambda: run(*args), calls)
+    return (full, ms, per, staged) if dist.get_rank() == 0 else None
+
+
+def dist2_phase(dp: dict, card: str, world, device: str = "cuda") -> dict:
+    """[dist2]: the two ranks of `world` sharing the card in one gloo world
+    (NCCL refuses two ranks on one GPU), make_dist_mul_relin on [dist]'s
+    inputs with the mesh (1, 1, 2) ('coeff' across the ranks) and then
+    (1, 2, 1) ('limb' across them); each product bit-identical to
+    [dist]'s. The comm helpers stage each CUDA tensor a gloo collective
+    moves through host memory, and the bytes are printed."""
+    import torch
+
+    res = {}
+    for shape in ((1, 1, 2), (1, 2, 1)):
+        full, ms, per, staged = world.run(dist2_rank, shape, dp["cfg"], *dp["inputs"],
+                                          DIST_CALLS, device)[0]
+        check(torch.equal(full, dp["out"]), f"[dist2] mesh {shape} != [dist]")
+        Bt = full.shape[0]
+        res[str(shape)] = {"ms": ms, "collectives": per, "staged": staged}
+        print(f"[dist2] two gloo ranks on one card, mesh {shape}: make_dist_mul_relin "
+              f"bit-identical to [dist]; {ms:.2f} ms per call of {Bt} ciphertexts = "
+              f"{Bt * 1e3 / ms:.1f} ops/s (host clock, {DIST_CALLS} calls) on {card}; "
+              f"collectives per call {per}; host staging by the comm helpers (gloo moves "
+              f"CUDA tensors through host memory) {staged} bytes per call", flush=True)
+    return res
+
+
+def pipeline_inputs(pipe: tuple, device: str) -> dict:
+    """The inputs of the chain `pipe` (PIPE) from PIPE_SEED, in the "pallas"
+    order: params p, the padded hints per level on device, the sequential
+    reference's (params, hb, ha) per level, ciphertexts [M·mb, 2, L0, n],
+    messages, secret key coefficients."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from alchemy_tpu_torch.she import fast
+    from alchemy_tpu_torch.she.keys import gaussian_coeffs
+
+    log_n, L0, depth, M, mb = pipe
+    p = fast.FastParams.make(log_n, L0, zp=2, impl="pallas")
+    rng = np.random.default_rng(PIPE_SEED)
+    s_int = gaussian_coeffs(rng, 1.0, p.n)
+
+    def key_at(pp):
+        return fast._ntt_p(pp, fast._residues(s_int, pp.qs, device))
+
+    hints, ref = [], []
+    cur = p
+    for level in range(depth):
+        act = L0 - level
+        hb, ha = fast.relin_hint(cur, key_at(cur), rng)
+        pad = []
+        for h in (hb, ha):
+            full = torch.zeros((L0, L0, p.n), dtype=torch.int32, device=device)
+            full[:act, :act] = h
+            pad.append(full)
+        hints.append(tuple(pad))
+        ref.append((cur, hb, ha))
+        cur = replace(cur, qs=cur.qs[:-1])
+    msgs = rng.integers(0, 2, (M * mb, p.n))
+    cts = torch.stack([fast.encrypt(p, key_at(p), m, rng) for m in msgs])
+    return {"p": p, "hints": hints, "ref": ref, "cts": cts, "msgs": msgs, "s_int": s_int}
+
+
+def in_order(inp: dict, impl: str) -> dict:
+    """pipeline_inputs carried into the slot order of impl (inverse NTT in
+    the "pallas" order, forward NTT in impl's: the same ring elements)."""
+    from dataclasses import replace
+
+    from alchemy_tpu_torch.she import fast
+
+    def conv(pp, x):
+        return fast._ntt_p(replace(pp, impl=impl), fast._intt_p(pp, x))
+
+    p = inp["p"]
+    return {**inp, "p": replace(p, impl=impl),
+            "hints": [(conv(p, hb), conv(p, ha)) for hb, ha in inp["hints"]],
+            "ref": [(replace(pp, impl=impl), conv(pp, hb), conv(pp, ha))
+                    for pp, hb, ha in inp["ref"]],
+            "cts": conv(p, inp["cts"])}
+
+
+def pipeline_run(mesh, p, hints, cts, pipe: tuple) -> dict:
+    """make_pipeline_chain of `pipe` on `mesh` (axis 'stage'): this rank's
+    launches and by-shape launches of one run after a warm-up, host s of
+    the chain, hint bytes, and the chain's result on the last stage."""
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from alchemy_tpu_torch.parallel import dist as D
+    from alchemy_tpu_torch.parallel.mesh import check_device_type
+    from alchemy_tpu_torch.parallel.pipeline import make_pipeline_chain
+
+    check_device_type(mesh.device_type)
+    run = make_pipeline_chain(p, mesh, hints, mb=pipe[4], n_micro=pipe[3])
+    x = distribute_tensor(cts.to(mesh.device_type), mesh, [Shard(0)], src_data_rank=None)
+    run(x)                                                  # warm-up
+    sync()
+    reset_launches()
+    D.reset_collectives()
+    t0 = time.perf_counter()
+    out = run(x)
+    sync()
+    wall = time.perf_counter() - t0
+    hb, ha, _ = run._hint_args
+    last = mesh.get_local_rank() == mesh.size() - 1
+    return {"launches": launches(), "by_shape": shape_launches(), "wall_s": wall,
+            "collectives": {f"{op}@{a}": c for (op, a), c in D.COLLECTIVES.items()},
+            "staged": sum(D.STAGED_BYTES.values()),
+            "hint_bytes": hb.numel() * 4 + ha.numel() * 4,
+            "out": out.to_local()[0].cpu() if last else None}
+
+
+def pipeline2_rank(pipe: tuple, qs, impl: str, hints, cts, device: str = "cuda") -> dict:
+    """A rank of [pipeline] S=2: the stage mesh (2,) on the card over the
+    world's gloo group; hints and ciphertexts come from the script's
+    process (CPU tensors; each stage uploads its own levels)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from alchemy_tpu_torch.she import fast
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    p = fast.FastParams(n=1 << pipe[0], qs=tuple(qs), zp=2, impl=impl)
+    mesh = init_device_mesh(device, (2,), mesh_dim_names=("stage",))
+    return pipeline_run(mesh, p, hints, cts, pipe)
+
+
+def pipeline_phase(card: str, world, device: str = "cuda") -> dict:
+    """[pipeline]: make_pipeline_chain of PIPE (log2 n, L0 limbs, depth, M
+    micro-batches of mb ciphertexts): S = 1 on the one-rank world of
+    [dist] in the "pallas" order (kernels A, B, 5, 6) and in the "mxu"
+    order (A, B, 8, 9), then S = 2 in the "mxu" order on the two gloo ranks
+    of `world`, sharing the card. Each is bit-identical to the sequential
+    chain of fast.mul_relin + fast.rescale (S = 2 also to S = 1), the
+    padded rows stay zero, and the last level decrypts to the squaring
+    chain."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from alchemy_tpu_torch.examples.deep_circuit import expected_square_chain_mod2
+    from alchemy_tpu_torch.she import fast
+
+    log_n, L0, depth, M, mb = PIPE
+    stage = init_device_mesh(device, (1,), mesh_dim_names=("stage",))
+    act = L0 - depth
+    res = {}
+    t0 = time.perf_counter()
+    base = pipeline_inputs(PIPE, device)
+    inputs_s = time.perf_counter() - t0
+    for impl in ("pallas", "mxu"):
+        inp = in_order(base, impl)
+        p, cts = inp["p"], inp["cts"]
+        t0 = time.perf_counter()
+        cur = cts
+        for pp, hb, ha in inp["ref"]:
+            cur = fast.rescale(pp, fast.mul_relin(pp, cur, cur, hb, ha), 1)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        final = replace(inp["ref"][-1][0], qs=inp["ref"][-1][0].qs[:-1])
+        key = fast._ntt_p(final, fast._residues(inp["s_int"], final.qs, device))
+        for i, m in enumerate(inp["msgs"]):
+            check(np.array_equal(fast.decrypt(final, key, cur[i]),
+                                 expected_square_chain_mod2(m, p.n, depth)),
+                  f"[pipeline] sequential chain decrypt {i}")
+        r = pipeline_run(stage, p, inp["hints"], cts, PIPE)
+        out = r["out"].to(cur.device)
+        check(torch.equal(out[:, :, :act], cur) and not out[:, :, act:].any(),
+              f"[pipeline] S=1 impl={impl} != the sequential chain")
+        grid = grid_names(impl)
+        check(all(r["launches"][k] > 0 for k in ("tensor_intt", "digit_relin", *grid)),
+              f"[pipeline] S=1 impl={impl} launches {r['launches']}")
+        r.update(seq_s=seq_s, out=out.cpu())
+        res[f"S1 {impl}"] = r
+        print(f"[pipeline] S=1 impl={impl} n=2^{log_n} depth={depth} L0={L0} "
+              f"M={M} mb={mb}: bit-identical to the sequential chain ({seq_s:.2f} s), "
+              f"{M * mb} products decrypt to the squaring chain; {r['wall_s']:.3f} s "
+              f"per chain (host clock) on {card}; launches {r['launches']}", flush=True)
+    t0 = time.perf_counter()
+    hints_cpu = [(hb.cpu(), ha.cpu()) for hb, ha in inp["hints"]]
+    ranks = world.run(pipeline2_rank, PIPE, p.qs, "mxu", hints_cpu, cts.cpu(), device)
+    s2_s = time.perf_counter() - t0
+    out2 = ranks[1]["out"]
+    check(torch.equal(out2, res["S1 mxu"]["out"]), "[pipeline] S=2 != S=1")
+    tot = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    by_shape = {}
+    for r in ranks:
+        for k, c in r["by_shape"].items():
+            by_shape[k] = by_shape.get(k, 0) + c
+    check(all(r["launches"]["tensor_intt"] > 0 and r["launches"]["digit_relin"] > 0
+              for r in ranks), f"[pipeline] S=2 launches {[r['launches'] for r in ranks]}")
+    res["S2 mxu"] = {"launches": tot, "by_shape": by_shape, "ranks": ranks, "call_s": s2_s,
+                     "wall_s": max(r["wall_s"] for r in ranks)}
+    print(f"[pipeline] S=2 impl=mxu, two gloo ranks on one card: bit-identical to S=1; "
+          f"{res['S2 mxu']['wall_s']:.3f} s per chain (host clock, slower stage) on {card}; "
+          f"hint bytes per rank {[r['hint_bytes'] for r in ranks]} (S=1: "
+          f"{res['S1 mxu']['hint_bytes']}); collectives per rank "
+          f"{[r['collectives'] for r in ranks]}; host staging by the comm helpers "
+          f"{[r['staged'] for r in ranks]} bytes; launches per rank "
+          f"{[r['launches'] for r in ranks]}; inputs {inputs_s:.1f} s, S=2 call {s2_s:.1f} s",
+          flush=True)
+    return res
+
+
+def cards4_rank(headline: tuple, deep: tuple, pipe: tuple, device: str = "cuda") -> dict:
+    """A rank of `--cards 4`: `dist_checks` on the mesh (1, 2, 2) ('limb'
+    and 'coeff' across cards), then the pipelined chain of `pipe` with
+    S = 4 in the "mxu" order; the last stage holds it against the
+    sequential chain and decrypts it. Returns this rank's readings."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import torch.distributed
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from alchemy_tpu_torch.examples.deep_circuit import expected_square_chain_mod2
+    from alchemy_tpu_torch.parallel.mesh import make_mesh
+    from alchemy_tpu_torch.she import fast
+
+    card = torch.cuda.get_device_name() if device == "cuda" else "cpu"
+    rank = torch.distributed.get_rank()
+    d = dist_checks(np.random.default_rng(SEED), card, make_mesh((1, 2, 2), device), device,
+                    "[dist4]", headline, deep)
+    inp = in_order(pipeline_inputs(pipe, device), "mxu")
+    r = pipeline_run(init_device_mesh(device, (4,), mesh_dim_names=("stage",)), inp["p"],
+                     inp["hints"], inp["cts"], pipe)
+    if rank == 3:
+        cur = inp["cts"]
+        for pp, hb, ha in inp["ref"]:
+            cur = fast.rescale(pp, fast.mul_relin(pp, cur, cur, hb, ha), 1)
+        act = pipe[1] - pipe[2]
+        out = r["out"].to(cur.device)
+        check(torch.equal(out[:, :, :act], cur) and not out[:, :, act:].any(),
+              "[pipeline4] S=4 != the sequential chain")
+        final = replace(inp["ref"][-1][0], qs=inp["ref"][-1][0].qs[:-1])
+        key = fast._ntt_p(final, fast._residues(inp["s_int"], final.qs, device))
+        for i, m in enumerate(inp["msgs"]):
+            check(np.array_equal(fast.decrypt(final, key, cur[i]),
+                                 expected_square_chain_mod2(m, inp["p"].n, pipe[2])),
+                  f"[pipeline4] decrypt {i}")
+    r.pop("out")
+    r.pop("by_shape")
+    return {"card": card, "dist": {k: v for k, v in d.items() if isinstance(v, dict)},
+            "pipeline": r}
+
+
+def cards4() -> int:
+    """`python3 chip_smoke.py --cards 4`, on a host with four cards: four
+    NCCL ranks, one a card, run [dist4] (the [dist] checks on the mesh
+    (1, 2, 2)) and [pipeline4] (PIPE with S = 4, "mxu"); prints the readings
+    and the contract's last line with count 4."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        print("chip_smoke --cards 4: needs four CUDA devices", file=sys.stderr)
+        return 1
+    from alchemy_tpu_torch.backend.cuda import build
+    from alchemy_tpu_torch.parallel.multihost import LocalWorld
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    build.library()
+    t0 = time.perf_counter()
+    with LocalWorld(4, backend="nccl", timeout=RANK_TIMEOUT_S) as world:
+        ranks = world.run(cards4_rank, HEADLINE, DEEP, PIPE)
+    Bt = HEADLINE[2]
+    d = ranks[0]["dist"]
+    print(f"[summary] four NCCL ranks, one a card, {time.perf_counter() - t0:.1f} s: [dist4] mesh "
+          f"(1, 2, 2) ops/s (host clock): mul_relin digit a2a "
+          f"{Bt * 1e3 / d['mul_relin digit a2a']['ms']:.1f}, ring "
+          f"{Bt * 1e3 / d['mul_relin digit ring']['ms']:.1f}, row a2a "
+          f"{Bt * 1e3 / d['mul_relin row a2a']['ms']:.1f}, hybrid "
+          f"{Bt * 1e3 / d['mul_relin_hybrid']['ms']:.1f}, rescale {d['rescale']['ms']:.2f} ms; "
+          f"[pipeline4] S=4 mxu {max(r['pipeline']['wall_s'] for r in ranks):.3f} s per chain, "
+          f"hint bytes per rank {[r['pipeline']['hint_bytes'] for r in ranks]}, launches per rank "
+          f"{[r['pipeline']['launches'] for r in ranks]}, collectives per rank "
+          f"{[r['pipeline']['collectives'] for r in ranks]}; cards {[r['card'] for r in ranks]}",
+          flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": ranks[0]["card"],
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def shape_report(tag: str, runs: dict, rng, clock_hz: float, names, phase, extra) -> dict:
     """Kernels names(order) at every shape a path launched them with and at
     extra(order), per (log2 n, order) of runs ({tag: result} of the paths
@@ -1418,9 +1993,25 @@ def main() -> int:
     ex = examples_phase(get_backend("checked"), she_bk, card)
     jit = jit_phase(ex["steps"], she_bk, card)
     checkpoint_phase(ex["steps"]["HomomRLWR"], she_bk)
-    runs = {(HEADLINE[0], "pallas"): {"main": mp, "hybrid": hy, "deep": dp},
+    dist = dist_phase(rng, card)
+    from alchemy_tpu_torch.parallel.multihost import LocalWorld
+
+    t0 = time.perf_counter()
+    with LocalWorld(2, backend="gloo", timeout=RANK_TIMEOUT_S) as pair:
+        print(f"[dist2] two gloo ranks started in {time.perf_counter() - t0:.1f} s", flush=True)
+        dist2 = dist2_phase(dist, card, pair)
+        pl = pipeline_phase(card, pair)
+    import torch.distributed
+
+    torch.distributed.destroy_process_group()
+    # kernels A and B at the pipeline's shape [mb, L0, n] in both orders
+    pipe_k = {order: kernel_phase(PIPE[0], PIPE[1], PIPE[4], rng, timed=True, order=order)
+              for order in ("pallas", "mxu")}
+    runs = {(HEADLINE[0], "pallas"): {"main": mp, "hybrid": hy, "deep": dp,
+                                      "pipeline": pl["S1 pallas"]},
             (N2E16[0], "pallas"): {"n2e16": mp16, "hybrid16": h16},
-            (HEADLINE[0], "mxu"): {"mxu": mx, "mxu deep": mxd},
+            (HEADLINE[0], "mxu"): {"mxu": mx, "mxu deep": mxd, "pipeline": pl["S1 mxu"],
+                                   "pipeline S=2": pl["S2 mxu"]},
             (N2E16[0], "mxu"): {}, (HEADLINE[0], "vpu"): {"resume": rs}}
     grid = grid_report(runs, rng, clock_hz)
     fused = fused_report(runs, rng, clock_hz)
@@ -1487,6 +2078,15 @@ def main() -> int:
         entry("rescale_fwd", n15, rs_tpu + "206", RESCALE_CU, rs["launches"]["rescale_fwd"],
               vpu["deep"]["rescale_fwd"], vpu["deep"], vpu["hybrid_small"], order="vpu"),
         *shape_entries,
+        *[{**entry("digit_relin", 1 << PIPE[0], mr_tpu + "439", MUL_RELIN_CU,
+                   by_path["pipeline"], pipe_k[order]["digit_relin_raw"], pipe_k[order],
+                   order=order),
+           "shape": [PIPE[4], PIPE[1], 1 << PIPE[0]], "path": "pipeline",
+           "launches_by_path": by_path}
+          for order, by_path in (
+              ("pallas", {"pipeline": pl["S1 pallas"]["launches"]["digit_relin"]}),
+              ("mxu", {"pipeline": pl["S1 mxu"]["launches"]["digit_relin"],
+                       "pipeline S=2": pl["S2 mxu"]["launches"]["digit_relin"]}))],
     ]
     print(f"[summary] mul_relin ops/s (host clock): main {mp['ops_per_s']:.1f}, "
           f"n2e16 {mp16['ops_per_s']:.1f}, mxu {mx['ops_per_s']:.1f}; mul_relin_hybrid raw: "
@@ -1494,7 +2094,16 @@ def main() -> int:
           f"{dp['wall_s']:.2f}, mxu {mxd['wall_s']:.2f}, vpu {rs['wall_s']:.2f}; [resume] after "
           f"SIGKILL: PASS; [jit] HomomRLWR replay {jit['HomomRLWR']['host_ms']:.3f} ms host, "
           f"{jit['HomomRLWR']['event_ms']:.3f} ms events against eager "
-          f"{jit['HomomRLWR']['eager_ms']:.3f} ms host", flush=True)
+          f"{jit['HomomRLWR']['eager_ms']:.3f} ms host; [dist] one NCCL rank ops/s (host "
+          f"clock): mul_relin digit a2a {HEADLINE[2] * 1e3 / dist['mul_relin digit a2a']['ms']:.1f}, "
+          f"row a2a {HEADLINE[2] * 1e3 / dist['mul_relin row a2a']['ms']:.1f}, hybrid "
+          f"{HEADLINE[2] * 1e3 / dist['mul_relin_hybrid']['ms']:.1f}, rescale "
+          f"{dist['rescale']['ms']:.2f} ms; [dist2] two gloo ranks, mul_relin ops/s: mesh (1, 1, 2) "
+          f"{HEADLINE[2] * 1e3 / dist2['(1, 1, 2)']['ms']:.1f}, (1, 2, 1) "
+          f"{HEADLINE[2] * 1e3 / dist2['(1, 2, 1)']['ms']:.1f}; [pipeline] s per depth-"
+          f"{PIPE[2]} chain of {PIPE[3] * PIPE[4]} ciphertexts: S=1 pallas "
+          f"{pl['S1 pallas']['wall_s']:.3f}, S=1 mxu {pl['S1 mxu']['wall_s']:.3f}, S=2 mxu "
+          f"{pl['S2 mxu']['wall_s']:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
@@ -1504,4 +2113,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cards4() if sys.argv[1:] == ["--cards", "4"] else main())

@@ -124,6 +124,38 @@ def test_state_files_resume_across_packages(tmp_path, impl, ks):
     assert jdeep.run(resume=True, state_path=tst + ".npz", verbose=False) == (True, 4)
 
 
+def test_jax_state_file_without_impl_resumes_in_its_order(tmp_path, monkeypatch):
+    """A JAX state file saved by `run(impl=None)` holds impl "" and its slot
+    order is its process's ALCHEMY_NTT_IMPL (here "vpu"): the port resumes it
+    the way the JAX package does, from that variable, to PASS; an explicit
+    impl overrides it; an impl that names another order than a non-empty
+    stored one raises."""
+    jst = str(tmp_path / "jax_state.npz")
+    save = ("from alchemy_tpu.examples.deep_circuit import run\n"
+            f"assert run(log_n=5, depth=4, ks='trivgad', verbose=False, stop_at_level=2, "
+            f"state_path={jst!r}) == (None, 2)\n")
+    env = {**os.environ, "ALCHEMY_NTT_IMPL": "vpu", "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", save], capture_output=True, text=True,
+                         cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert str(np.load(jst)["impl"]) == ""
+    monkeypatch.setenv("ALCHEMY_NTT_IMPL", "vpu")
+    assert jdeep.run(resume=True, state_path=jst, verbose=False) == (True, 4)
+    ok, ct, level_ms = tdeep.run(resume=True, state_path=jst, verbose=False, device="cpu")
+    assert ok and len(level_ms) == 2 and ct.shape == (2, 2, 32)
+    monkeypatch.delenv("ALCHEMY_NTT_IMPL")
+    ok, _, _ = tdeep.run(resume=True, state_path=jst, impl="vpu", verbose=False, device="cpu")
+    assert ok
+    assert tdeep.resume_impl("") == "mxu" and tdeep.resume_impl("", "pallas") == "pallas"
+    tst = str(tmp_path / "port_state")
+    tdeep.run(log_n=5, depth=4, impl="vpu", verbose=False, device="cpu", stop_at_level=2,
+              state_path=tst)
+    assert str(np.load(tst + ".npz")["impl"]) == "vpu"
+    with pytest.raises(ValueError, match="saved in impl='vpu'"):
+        tdeep.run(resume=True, state_path=tst, impl="pallas", verbose=False, device="cpu")
+    assert tdeep.resume_impl("mxu8", "mxu") == "mxu8"
+
+
 def test_checkpoint_arguments_are_checked(tmp_path):
     with pytest.raises(ValueError, match="state_path"):
         tdeep.run(log_n=5, depth=2, verbose=False, device="cpu", stop_at_level=1)

@@ -187,6 +187,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pt = Cyc.constant(M, (ZP,), 1, bk)\n"
         "args = [compiled.encrypt_arg(pt, 0), compiled.encrypt_arg(pt, 1)]\n"
         "jit_compile(compiled, args)(*args)\n"
+        "import alchemy_tpu_torch, alchemy_tpu_torch.nt, alchemy_tpu_torch.she\n"
+        "import alchemy_tpu_torch.parallel, alchemy_tpu_torch.parallel.dist\n"
+        "import alchemy_tpu_torch.parallel.pipeline, alchemy_tpu_torch.parallel.multihost\n"
+        "import alchemy_tpu_torch.parallel.dryrun, torch\n"
+        "assert not torch.cuda.is_initialized()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alchemy_tpu'))\n"
         "assert not bad, bad\n"
     )
