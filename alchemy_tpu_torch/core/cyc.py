@@ -290,7 +290,7 @@ class Cyc:
             src_len = 1 if b == 0 else [g.phi for g in self.ring.factors if g.p == f.p][0]
             src_shape.append(src_len)
             mats.append(_embed_axis_matrix(f.p, f.e, b, basis))
-        data = x.data.reshape(x.data.shape[0], -1)
+        data = x.data.reshape(x.nlimb, -1)
         out = self.bk.axis_matmul(data, mats, tuple(src_shape), self.qs)
         out_cyc = Cyc(tgt, self.qs, basis, out, self.bk)
         return out_cyc
@@ -369,7 +369,7 @@ class Cyc:
             skip = frozenset(f.p for f in sub.factors)
             data = x._pow_dec_convert(skip, invert=False)
             x = x.like(data, basis=POW)
-        L = x.data.shape[0]
+        L = x.nlimb
         # split each axis into (i_sub slow, j_rel fast)
         split_shape = []
         for s, r in zip(subs, rels):

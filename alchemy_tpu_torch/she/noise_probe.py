@@ -118,9 +118,12 @@ def _error_acc(sk, ct):
 
 def error_digits(sk, ct) -> torch.Tensor:
     """[L] max-|error| digit vector of a ciphertext on a `TorchBackend`,
-    computed on the ciphertext's device."""
+    computed on the ciphertext's device. On a backend whose arrays are
+    blocks of a mesh (`parallel/spmd.py`), the error term is gathered first
+    (its `full`), so every rank returns the whole vector."""
     acc = _error_acc(sk, ct)
-    return max_abs_digits(acc.data, acc.qs)
+    full = getattr(acc.bk, "full", None)
+    return max_abs_digits(acc.data if full is None else full(acc.data), acc.qs)
 
 
 def error_rate_device(sk, ct) -> float:

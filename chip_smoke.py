@@ -68,6 +68,26 @@ Then [resume] (after [hybrid16]), and [jit] and [checkpoint] (after
   [checkpoint] HomomRLWR's compiled program saved (`she/serialize.py`),
             loaded in a fresh process on the card, evaluated eagerly and as a
             graph, decrypted against the plaintext; bytes, save and load s.
+  [jitmesh] (after [pipeline]) [jit]'s three programs through
+            `jit_compile(..., mesh=)` (`parallel/spmd.py`): on [pipeline]'s
+            two gloo ranks sharing the card, meshes (1, 2) and (2, 1), eager
+            (Tunnel's 1-limb hints and HomomRLWR's 5-limb argument padded on
+            (2, 1)), each rank's blocks equal to the blocks of [jit]'s output;
+            then on the script's NCCL rank, mesh ('limb' 1, 'coeff' 1), a
+            CUDA graph bit-identical to [jit]'s; the gathered results
+            decrypt; collectives by (op, axis), bytes per rank against
+            single-device, call ms.
+  [native]  (after [resume]) the C++ oracle `alchemy_tpu_torch/native`
+            (built with g++ under build/native/) against the card in the vpu
+            order at n = 2^15, L = 8: `native.mul_relin` against
+            `fast.mul_relin(impl="vpu")` (kernels A, B) on two ciphertext
+            pairs, `native.ntt`/`intt` against kernels 6/5 on [1, 8, n];
+            exact; the oracle's CPU ms beside the card's. Its result joins the
+            vpu entries of A, 5 and 6 in the `kernels` line ("oracle").
+  [scaling] (with [jitmesh]) `parallel/bench_scaling.sweep` at the JAX
+            package's defaults (log_n 12, 4 limbs, batch 2) on the two gloo
+            ranks and on the one NCCL rank, its anchors measured on the card;
+            one JSON line each before the `kernels` line.
 
 Then the mesh path (`parallel/`; the world's ranks are processes, the
 local stages of the distributed NTT are torch ops, no kernel of their own):
@@ -118,7 +138,11 @@ count `launches` is (the one that launched the shape most).
 
 On a host with four cards, `python3 chip_smoke.py --cards 4` runs only the
 mesh checks across them, on four NCCL ranks, one a card: [dist4] ([dist]'s
-checks on the mesh (1, 2, 2)) and [pipeline4] (the chain with S = 4).
+checks on the mesh (1, 2, 2)), [pipeline4] (the chain with S = 4),
+[jitmesh4] (HomomRLWR through `jit_compile(..., mesh=)` on the mesh (2, 2),
+one CUDA graph a rank, blocks bit-identical to the single-device graph,
+under half its bytes a rank) and [scaling] (the sweep's points on 1, 2
+and 4 ranks).
 """
 
 from __future__ import annotations
@@ -1054,6 +1078,85 @@ def vpu_checks(rng) -> dict:
     return res
 
 
+#: the C++ oracle's full-width check: log2 n, limbs, zp, ciphertext pairs
+NATIVE = (15, 8, 2, 2)
+NATIVE_CPP = "alchemy_tpu_torch/native/zq_kernels.cpp"
+
+
+def native_phase(rng, sizes: tuple = NATIVE, device: str = "cuda") -> dict:
+    """[native]: the C++ oracle (`alchemy_tpu_torch/native`, built with g++
+    under build/native/) against the card in the vpu order at NATIVE:
+    `native.mul_relin` against `fast.mul_relin(impl="vpu")` (kernels A and
+    B) on NATIVE[3] ciphertext pairs, and `native.ntt`/`intt` against the
+    standalone transforms (kernels 6 and 5 with the vpu tables) on
+    [1, L, n]; every check exact. Returns, per kernel counter, the largest
+    error against the oracle, the oracle's CPU ms and the card's ms."""
+    import numpy as np
+    import torch
+
+    from alchemy_tpu_torch import native
+    from alchemy_tpu_torch.backend.cuda import rescale as rk
+    from alchemy_tpu_torch.nt.primes import root_of_unity
+    from alchemy_tpu_torch.she import fast
+
+    t0 = time.perf_counter()
+    so = native.library_path()
+    build_s = time.perf_counter() - t0
+    log_n, L, zp, pairs = sizes
+    p = fast.FastParams.make(log_n, L, zp=zp, impl="vpu")
+    psis = [root_of_unity(2 * p.n, q) for q in p.qs]
+    s = fast.keygen(p, rng, device=device)
+    hb, ha = fast.relin_hint(p, s, rng)
+    cts = torch.stack([fast.encrypt(p, s, rng.integers(0, zp, p.n), rng)
+                       for _ in range(2 * pairs)])
+    a, b = cts[:pairs], cts[pairs:]
+
+    def u32(t):
+        return t.cpu().numpy().view(np.uint32)
+
+    reset_launches()
+    out = fast.mul_relin(p, a, b, hb, ha)
+    sync()
+    ran = launches()
+    check(ran.get("tensor_intt", 0) > 0 and ran.get("digit_relin", 0) > 0,
+          f"[native] fast.mul_relin(impl='vpu') launched {ran}")
+    hbn, han = u32(hb), u32(ha)
+    t0 = time.perf_counter()
+    want = np.stack([native.mul_relin(u32(a[i]), u32(b[i]), hbn, han, p.qs, psis)
+                     for i in range(pairs)])
+    oracle_ms = (time.perf_counter() - t0) * 1e3 / pairs
+    err = int(np.abs(u32(out).astype(np.int64) - want.astype(np.int64)).max())
+    check(err == 0, f"[native] fast.mul_relin(impl='vpu') != native.mul_relin (max abs err {err})")
+    res = {"mul_relin": {"err": err, "cpu_ms": oracle_ms, "shape": [pairs, L, p.n],
+                         "ms": device_ms(lambda: fast.mul_relin(p, a, b, hb, ha), 10) / pairs}}
+    fwd, inv = rk.grid_transforms("vpu")
+    x = fast._uniform(rng, p.qs, p.n, device)[None]
+    y = fwd(p.n, p.qs, x)
+    z = inv(p.n, p.qs, y)
+    xn, yn = u32(x[0]), u32(y[0])
+    t0 = time.perf_counter()
+    ny = np.stack([native.ntt(xn[l], q, psi) for l, (q, psi) in enumerate(zip(p.qs, psis))])
+    ntt_cpu = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    nz = np.stack([native.intt(yn[l], q, psi) for l, (q, psi) in enumerate(zip(p.qs, psis))])
+    intt_cpu = (time.perf_counter() - t0) * 1e3
+    for name, got, ref, cpu_ms, fn in (
+            ("ntt_vpu_grid", yn, ny, ntt_cpu, lambda: fwd(p.n, p.qs, x)),
+            ("intt_vpu_grid", u32(z[0]), nz, intt_cpu, lambda: inv(p.n, p.qs, y))):
+        e = int(np.abs(got.astype(np.int64) - ref.astype(np.int64)).max())
+        check(e == 0, f"[native] {name} != native on [1, {L}, n] (max abs err {e})")
+        res[name] = {"err": e, "cpu_ms": cpu_ms, "ms": device_ms(fn, 20), "shape": [1, L, p.n]}
+    check(np.array_equal(nz, xn), "[native] native.intt(native.ntt(x)) != x")
+    print(f"[native] {so.name} (g++, {build_s:.2f} s): at n=2^{log_n}, L={L}, zp={zp} in the "
+          f"vpu order, bit-identical to the card: fast.mul_relin (A, B) on {pairs} pairs "
+          f"{res['mul_relin']['ms']:.4f} ms a ciphertext against the oracle's "
+          f"{oracle_ms:.1f} ms on the CPU; kernel 6 (ntt_vpu_grid) on [1, {L}, n] "
+          f"{res['ntt_vpu_grid']['ms']:.4f} ms against {ntt_cpu:.1f} ms, kernel 5 "
+          f"(intt_vpu_grid) {res['intt_vpu_grid']['ms']:.4f} ms against {intt_cpu:.1f} ms",
+          flush=True)
+    return res
+
+
 RESUME_STOP_CHILD = """
 import os, sys
 from alchemy_tpu_torch.examples.deep_circuit import run
@@ -1189,7 +1292,8 @@ def jit_phase(steps: dict, tb, card: str, device: str = "cuda") -> dict:
         r = res[name] = {"build_ms": build_ms,
                          "host_ms": (time.perf_counter() - t0) * 1e3 / JIT_CALLS,
                          "event_ms": device_ms(fn, JIT_CALLS), **profile_op(fn, 3),
-                         "eager_ms": sum(host_ms(eager)[1] for _ in range(3)) / 3}
+                         "eager_ms": sum(host_ms(eager)[1] for _ in range(3)) / 3,
+                         "out": got, "log": log, "bytes": j.arg_bytes()}
         print(f"[jit] {name} ({card}): CUDA graph built in {build_ms / 1e3:.3f} s (warm-up + "
               f"capture); bit-identical to eager eval_ir, log equal ({len(log)} entries), "
               f"decrypts to the plaintext, no copy in a call, outputs not aliased, strict drill "
@@ -1258,6 +1362,153 @@ def checkpoint_phase(st: dict, tb, device: str = "cuda") -> dict:
     want.unlink()
     return {"bytes": nbytes, "save_s": save_ms / 1e3, "load_s": got["load_s"],
             "child_s": child_s}
+
+
+JITMESH_CALLS = 3
+#: the ranks' example programs, built once per rank process (example_steps)
+_RANK_STEPS: dict = {}
+
+
+def mesh_block(t, shape, li: int, ci: int):
+    """The block of a whole [L, n] tensor that the rank at (li, ci) of a
+    ('limb', 'coeff') mesh of `shape` holds (`parallel/spmd.py`'s layout):
+    rows [li·b, (li + 1)·b) with b = ⌈L / limb⌉, zero-padded past L, and the
+    ci-th of `coeff` column blocks (all columns when they do not split)."""
+    import torch
+
+    LS, C = shape
+    L, n = t.shape
+    b = -(-L // LS)
+    rows = t[li * b:(li + 1) * b]
+    rows = torch.cat((rows, rows.new_zeros((b - rows.shape[0], n))))
+    return rows[:, ci * (n // C):(ci + 1) * (n // C)] if n % C == 0 else rows
+
+
+def jit_kwargs(name: str, ctx) -> dict:
+    """[jit]'s options: the strict noise probe for Arithmetic and Tunnel."""
+    return {} if name == "HomomRLWR" else {"noise_probe": ctx, "strict": True}
+
+
+def jitmesh_phase(steps: dict, jit: dict, card: str, device: str = "cuda") -> dict:
+    """[jitmesh], one rank: in the one-rank world of the script's process
+    (NCCL on the card; initialised here if [dist] has not) compiles each
+    example's program from [examples] with `jit_compile(..., mesh=)` on the
+    ('limb', 'coeff') mesh (1, 1): a CUDA graph, bit-identical to [jit]'s
+    single-device graph (components and log), decrypting to the plaintext
+    after `gather`, no copy in a call; replay ms (host clock and CUDA
+    events) beside [jit]'s."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from alchemy_tpu_torch.interp.jit_exec import jit_compile
+    from alchemy_tpu_torch.parallel.multihost import init_multihost
+
+    init_multihost(backend="nccl" if device == "cuda" else "gloo")
+    mesh = init_device_mesh(device, (1, 1), mesh_dim_names=("limb", "coeff"))
+    res = {}
+    for name, st in steps.items():
+        compiled, ctx, inputs = st["compiled"], st["ctx"], st["inputs"]
+        kw = jit_kwargs(name, ctx)
+        j, build_ms = host_ms(lambda: jit_compile(compiled, inputs, mesh=mesh, **kw))
+        check(device != "cuda" or j.graph is not None, f"[jitmesh] {name}: no CUDA graph")
+        fn = lambda: j(*inputs)
+        got, log = fn() if kw else (fn(), [])
+        ref = jit[name]
+        check(all(torch.equal(c.data.local, r.data) for c, r in zip(got.comps, ref["out"].comps))
+              and log == ref["log"], f"[jitmesh] {name}: mesh (1, 1) != [jit]'s graph")
+        check(compiled.decrypt(j.gather(got)).equals(st["want"]),
+              f"[jitmesh] {name}: decrypt != plaintext")
+        before = j._copies()
+        fn()
+        check(j._copies() == before, f"[jitmesh] {name}: a call copied")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(JIT_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        r = res[name] = {"build_ms": build_ms,
+                         "host_ms": (time.perf_counter() - t0) * 1e3 / JIT_CALLS,
+                         "event_ms": device_ms(fn, JIT_CALLS),
+                         "collectives": dict(j.collectives), "bytes": j.arg_bytes()}
+        print(f"[jitmesh] {name} ({card}), one NCCL rank, mesh (1, 1): CUDA graph built in "
+              f"{build_ms / 1e3:.3f} s, bit-identical to [jit]'s graph, log equal, decrypts to "
+              f"the plaintext, no copy in a call; per call over {JIT_CALLS}: host "
+              f"{r['host_ms']:.3f} ms, CUDA events {r['event_ms']:.3f} ms against [jit]'s "
+              f"{ref['host_ms']:.3f} / {ref['event_ms']:.3f} ms; collectives "
+              f"{r['collectives']}; bytes {r['bytes']}", flush=True)
+    return res
+
+
+def jitmesh2_rank(shapes, singles: dict, device: str = "cuda") -> dict:
+    """One of the two gloo ranks of [jitmesh]: each example's program
+    (built once in this process at EXAMPLE_SEEDS, the programs of
+    [examples]) through `jit_compile(..., mesh=)` on each ('limb', 'coeff')
+    mesh of `shapes`, eager; against `singles` ({name: (the single-device
+    [jit] output's components on the CPU, its log)}): whether this rank's
+    blocks equal the single-device blocks, whether the logs are equal and
+    the gathered result decrypts to the plaintext; its collectives by (op,
+    axis), bytes of arguments and hints, and host ms per call."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from alchemy_tpu_torch.backend.torch_backend import TorchBackend
+    from alchemy_tpu_torch.interp.jit_exec import jit_compile
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    if not _RANK_STEPS:
+        tb = TorchBackend(device)
+        _RANK_STEPS.update({name: example_steps(name, tb) for name in singles})
+    res = {}
+    for shape in shapes:
+        mesh = init_device_mesh(device, tuple(shape), mesh_dim_names=("limb", "coeff"))
+        li, ci = mesh.get_local_rank("limb"), mesh.get_local_rank("coeff")
+        for name, (single, single_log) in singles.items():
+            st = _RANK_STEPS[name]
+            compiled, inputs = st["compiled"], st["inputs"]
+            kw = jit_kwargs(name, st["ctx"])
+            j = jit_compile(compiled, inputs, mesh=mesh, **kw)
+            fn = lambda: j(*inputs)
+            got, log = fn() if kw else (fn(), [])
+            ok = all(torch.equal(c.data.local.cpu(), mesh_block(s, shape, li, ci))
+                     for c, s in zip(got.comps, single))
+            decrypts = compiled.decrypt(j.gather(got)).equals(st["want"])
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(JITMESH_CALLS):
+                fn()
+            sync()
+            res[str(tuple(shape)), name] = {
+                "blocks_equal": ok, "logs_equal": log == single_log, "decrypts": decrypts,
+                "collectives": {f"{op}@{axis}": c for (op, axis), c in j.collectives.items()},
+                "bytes": j.arg_bytes(), "graph": j.graph is not None,
+                "ms": (time.perf_counter() - t0) * 1e3 / JITMESH_CALLS}
+    return res
+
+
+def jitmesh2_phase(jit: dict, card: str, world, device: str = "cuda") -> dict:
+    """[jitmesh], two gloo ranks sharing the card (`world`): the meshes
+    (1, 2) and (2, 1), eager (`jitmesh2_rank`); Tunnel's 1-limb hint chains
+    and HomomRLWR's 5-limb argument are padded on (2, 1). Each rank's blocks
+    equal the blocks of [jit]'s single-device output, the gathered results
+    decrypt; collectives, bytes per rank against single-device, call ms."""
+    singles = {name: ([c.data.cpu() for c in r["out"].comps], r["log"])
+               for name, r in jit.items()}
+    shapes = ((1, 2), (2, 1))
+    ranks = world.run(jitmesh2_rank, shapes, singles, device)
+    for key in ranks[0]:
+        rs = [r[key] for r in ranks]
+        check(all(r["blocks_equal"] and r["logs_equal"] and r["decrypts"] and not r["graph"]
+                  for r in rs), f"[jitmesh] {key}: {rs}")
+        check(any(r["collectives"] for r in rs), f"[jitmesh] {key}: no collective")
+        single = jit[key[1]]["bytes"]
+        print(f"[jitmesh] {key[1]} ({card}), two gloo ranks, mesh {key[0]}, eager: each rank's "
+              f"blocks bit-identical to [jit]'s output, logs equal, gathered result decrypts; "
+              f"collectives per call {rs[0]['collectives']}; bytes (args + hints) per rank "
+              f"{[r['bytes']['args'] + r['bytes']['hints'] for r in rs]} against "
+              f"{single['args'] + single['hints']} single-device; host ms per call "
+              f"{[round(r['ms'], 3) for r in rs]} ({JITMESH_CALLS} calls)", flush=True)
+    return {key: [r[key] for r in ranks] for key in ranks[0]}
 
 
 # [dist], [dist2], [pipeline]: the mesh path (parallel/). [dist] and [dist2]
@@ -1722,6 +1973,63 @@ def pipeline_phase(card: str, world, device: str = "cuda") -> dict:
     return res
 
 
+def scaling_rank(anchors, device: str = "cuda"):
+    """`bench_scaling.sweep` at the JAX package's defaults (log_n 12, 4
+    limbs, batch 2) on the ranks of the running world: its JSON dict on rank
+    0, None elsewhere. anchors None: rank 0 measures them on its card."""
+    import torch
+    import torch.distributed as dist
+
+    from alchemy_tpu_torch.parallel import bench_scaling
+
+    if device == "cuda" and dist.get_backend() == "gloo":
+        torch.cuda.set_device(0)
+    out = bench_scaling.sweep(device_type=device, anchors=anchors)
+    return out if dist.get_rank() == 0 else None
+
+
+def print_scaling(tag: str, out: dict) -> None:
+    """One [scaling] line: the sweep's JSON dict."""
+    print(f"[scaling] {tag}: {json.dumps(out)}", flush=True)
+
+
+def jitmesh4_rank(device: str = "cuda") -> dict:
+    """A rank of `--cards 4`, [jitmesh4]: HomomRLWR's program (built on this
+    rank's card at EXAMPLE_SEEDS) through `jit_compile` single-device and on
+    the ('limb', 'coeff') mesh (2, 2) over NCCL, one CUDA graph per rank:
+    whether this rank's blocks equal the single-device result's, the
+    gathered result decrypts, the bytes of both, the collectives and the
+    call's host and event ms."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from alchemy_tpu_torch.backend.torch_backend import TorchBackend
+    from alchemy_tpu_torch.interp.jit_exec import jit_compile
+
+    st = example_steps("HomomRLWR", TorchBackend(device))
+    compiled, inputs = st["compiled"], st["inputs"]
+    single = jit_compile(compiled, inputs)
+    ref = single(*inputs)
+    mesh = init_device_mesh(device, (2, 2), mesh_dim_names=("limb", "coeff"))
+    j, build_ms = host_ms(lambda: jit_compile(compiled, inputs, mesh=mesh))
+    got = j(*inputs)
+    li, ci = mesh.get_local_rank("limb"), mesh.get_local_rank("coeff")
+    ok = all(torch.equal(c.data.local, mesh_block(r.data, (2, 2), li, ci))
+             for c, r in zip(got.comps, ref.comps))
+    decrypts = compiled.decrypt(j.gather(got)).equals(st["want"])
+    fn = lambda: j(*inputs)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(JIT_CALLS):
+        fn()
+    sync()
+    return {"graph": j.graph is not None, "blocks_equal": ok, "decrypts": decrypts,
+            "bytes": j.arg_bytes(), "single_bytes": single.arg_bytes(), "build_ms": build_ms,
+            "collectives": {f"{op}@{axis}": c for (op, axis), c in j.collectives.items()},
+            "host_ms": (time.perf_counter() - t0) * 1e3 / JIT_CALLS,
+            "event_ms": device_ms(fn, JIT_CALLS) if device == "cuda" else 0.0}
+
+
 def cards4_rank(headline: tuple, deep: tuple, pipe: tuple, device: str = "cuda") -> dict:
     """A rank of `--cards 4`: `dist_checks` on the mesh (1, 2, 2) ('limb'
     and 'coeff' across cards), then the pipelined chain of `pipe` with
@@ -1786,6 +2094,24 @@ def cards4() -> int:
     t0 = time.perf_counter()
     with LocalWorld(4, backend="nccl", timeout=RANK_TIMEOUT_S) as world:
         ranks = world.run(cards4_rank, HEADLINE, DEEP, PIPE)
+        jm = world.run(jitmesh4_rank)
+        scaling = world.run(scaling_rank, None)[0]
+    for i, r in enumerate(jm):
+        check(r["graph"] and r["blocks_equal"] and r["decrypts"] and r["collectives"],
+              f"[jitmesh4] rank {i}: {r}")
+        held, single = r["bytes"], r["single_bytes"]
+        check(held["args"] + held["hints"] < (single["args"] + single["hints"]) / 2,
+              f"[jitmesh4] rank {i} holds {held} of {single}")
+    print(f"[jitmesh4] HomomRLWR on the mesh (2, 2), four NCCL ranks, one CUDA graph each "
+          f"(built in {[round(r['build_ms'] / 1e3, 3) for r in jm]} s): every rank's blocks "
+          f"bit-identical to the single-device graph's output, the gathered result decrypts to "
+          f"the plaintext; bytes (args + hints) per rank "
+          f"{[r['bytes']['args'] + r['bytes']['hints'] for r in jm]} against "
+          f"{jm[0]['single_bytes']['args'] + jm[0]['single_bytes']['hints']} single-device; "
+          f"collectives per call {jm[0]['collectives']}; per call over {JIT_CALLS}: host ms "
+          f"{[round(r['host_ms'], 3) for r in jm]}, CUDA events ms "
+          f"{[round(r['event_ms'], 3) for r in jm]}", flush=True)
+    print_scaling("four NCCL ranks, one a card (points on 1, 2 and 4)", scaling)
     Bt = HEADLINE[2]
     d = ranks[0]["dist"]
     print(f"[summary] four NCCL ranks, one a card, {time.perf_counter() - t0:.1f} s: [dist4] mesh "
@@ -1985,6 +2311,9 @@ def main() -> int:
     print(f"[resume] uninterrupted depth-{DEEP_DEPTH} chain in the vpu order: {rs['wall_s']:.2f} s "
           f"(host clock) against [deep] pallas {dp['wall_s']:.2f} s and mxu {mxd['wall_s']:.2f} s",
           flush=True)
+    # after the paths: run before them, it slowed their host-bound
+    # readings ([main], [deep]; PERF.md)
+    nat = native_phase(rng)
     from alchemy_tpu_torch.backend import get_backend
 
     she_bk = get_backend("torch")
@@ -1994,6 +2323,7 @@ def main() -> int:
     jit = jit_phase(ex["steps"], she_bk, card)
     checkpoint_phase(ex["steps"]["HomomRLWR"], she_bk)
     dist = dist_phase(rng, card)
+    from alchemy_tpu_torch.parallel import bench_scaling
     from alchemy_tpu_torch.parallel.multihost import LocalWorld
 
     t0 = time.perf_counter()
@@ -2001,6 +2331,14 @@ def main() -> int:
         print(f"[dist2] two gloo ranks started in {time.perf_counter() - t0:.1f} s", flush=True)
         dist2 = dist2_phase(dist, card, pair)
         pl = pipeline_phase(card, pair)
+        # the mesh half of jit_compile and the scaling sweep run after the
+        # mesh path's phases, so that [dist] meets the process as it did
+        # before them (one NCCL group, made by dist_phase)
+        jm2 = jitmesh2_phase(jit, card, pair)
+        anchors = bench_scaling.measure_anchors()
+        scaling = {"two gloo ranks sharing the card": pair.run(scaling_rank, anchors)[0]}
+    jm = jitmesh_phase(ex["steps"], jit, card)
+    scaling["one NCCL rank"] = scaling_rank(anchors)
     import torch.distributed
 
     torch.distributed.destroy_process_group()
@@ -2088,13 +2426,27 @@ def main() -> int:
               ("mxu", {"pipeline": pl["S1 mxu"]["launches"]["digit_relin"],
                        "pipeline S=2": pl["S2 mxu"]["launches"]["digit_relin"]}))],
     ]
+    # the C++ oracle's check of A, B, 5 and 6 in the vpu order ([native])
+    oracle = {"tensor_intt": nat["mul_relin"], "digit_relin": nat["mul_relin"],
+              "ntt_vpu_grid": nat["ntt_vpu_grid"], "intt_vpu_grid": nat["intt_vpu_grid"]}
+    for k in kernels:
+        if k["order"] == "vpu" and k["name"] in oracle:
+            o = oracle[k["name"]]
+            k["oracle"] = {"source": NATIVE_CPP, "checked_shape": o["shape"],
+                           "max_abs_err": o["err"], "cpu_ms": o["cpu_ms"], "card_ms": o["ms"]}
+    for tag, out in scaling.items():
+        print_scaling(tag, out)
+    h2 = jm2["(2, 1)", "HomomRLWR"]
     print(f"[summary] mul_relin ops/s (host clock): main {mp['ops_per_s']:.1f}, "
           f"n2e16 {mp16['ops_per_s']:.1f}, mxu {mx['ops_per_s']:.1f}; mul_relin_hybrid raw: "
           f"hybrid {hy['raw'][0]:.1f}, hybrid16 {h16['raw'][0]:.1f}; deep circuit s: pallas "
           f"{dp['wall_s']:.2f}, mxu {mxd['wall_s']:.2f}, vpu {rs['wall_s']:.2f}; [resume] after "
           f"SIGKILL: PASS; [jit] HomomRLWR replay {jit['HomomRLWR']['host_ms']:.3f} ms host, "
           f"{jit['HomomRLWR']['event_ms']:.3f} ms events against eager "
-          f"{jit['HomomRLWR']['eager_ms']:.3f} ms host; [dist] one NCCL rank ops/s (host "
+          f"{jit['HomomRLWR']['eager_ms']:.3f} ms host; [jitmesh] HomomRLWR mesh (1, 1) "
+          f"{jm['HomomRLWR']['host_ms']:.3f} ms host, {jm['HomomRLWR']['event_ms']:.3f} ms "
+          f"events, two gloo ranks mesh (2, 1) {max(r['ms'] for r in h2):.1f} ms host; "
+          f"[dist] one NCCL rank ops/s (host "
           f"clock): mul_relin digit a2a {HEADLINE[2] * 1e3 / dist['mul_relin digit a2a']['ms']:.1f}, "
           f"row a2a {HEADLINE[2] * 1e3 / dist['mul_relin row a2a']['ms']:.1f}, hybrid "
           f"{HEADLINE[2] * 1e3 / dist['mul_relin_hybrid']['ms']:.1f}, rescale "

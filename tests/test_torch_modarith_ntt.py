@@ -191,6 +191,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import alchemy_tpu_torch.parallel, alchemy_tpu_torch.parallel.dist\n"
         "import alchemy_tpu_torch.parallel.pipeline, alchemy_tpu_torch.parallel.multihost\n"
         "import alchemy_tpu_torch.parallel.dryrun, torch\n"
+        "import alchemy_tpu_torch.parallel.spmd, alchemy_tpu_torch.parallel.bench_scaling\n"
+        "import alchemy_tpu_torch.native, alchemy_tpu_torch.utils.profiling\n"
         "assert not torch.cuda.is_initialized()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'alchemy_tpu'))\n"
         "assert not bad, bad\n"

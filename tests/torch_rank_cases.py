@@ -176,3 +176,252 @@ def dist_ntt_on_card(shape, n, qs, impl, n1, x):
     full = DTensor.from_local(r.to_local().cpu(), cpu_mesh, D.NTT_PLACEMENTS,
                               run_check=False).full_tensor()
     return (to_numpy(full), staged) if dist.get_rank() == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# whole compiled programs on a ('limb', 'coeff') mesh (test_torch_jit_mesh*.py)
+# ---------------------------------------------------------------------------
+
+
+def example_program(name: str, bk):
+    """The compiled program of a shipped example at the seed of its test in
+    tests/test_jit_exec.py, on bk: (compiled, argument CTs, the plaintext
+    result). "addOnly" is Arithmetic's setting with `x + y`."""
+    from alchemy_tpu_torch.core.cyc import Cyc
+    from alchemy_tpu_torch.interp.eval import eval_ir
+    from alchemy_tpu_torch.interp.keys_hints import KeysHints
+    from alchemy_tpu_torch.interp.pt2ct import pt2ct
+    from alchemy_tpu_torch.nt.factor import totient
+    from alchemy_tpu_torch.she.gadget import BaseBGad, TrivGad
+
+    if name in ("Arithmetic", "addOnly"):
+        from alchemy_tpu_torch.examples import arithmetic as ex
+        from alchemy_tpu_torch.lang.dsl import lam2
+
+        expr = ex.addMul if name == "Arithmetic" else lam2(lambda x, y: x + y)
+        rng = np.random.default_rng(4)
+        pts = [Cyc.from_coeffs(ex.M, (ex.ZP,), rng.integers(0, ex.ZP, totient(ex.M)), bk)
+               for _ in range(2)]
+        ctx = KeysHints(3.0, seed=4, bk=bk)
+        compiled = pt2ct(expr, res_ty=ex.PT, m_map=ex.M_MAP, zqs=ex.ZQS, gad=TrivGad(), ctx=ctx)
+        args = [compiled.encrypt_arg(pt, i) for i, pt in enumerate(pts)]
+        return compiled, args, eval_ir(expr, *pts)
+    from alchemy_tpu_torch.examples.common import H0, M_MAP, switch
+
+    if name == "Tunnel":
+        from alchemy_tpu_torch.examples.tunnel import PT, ZP, ZQS
+
+        rng = np.random.default_rng(1)
+        expr = switch(3, ZP, bk)
+        x = Cyc.from_coeffs(H0, (ZP,), rng.integers(0, ZP, totient(H0)), bk)
+        ctx = KeysHints(3.0, seed=1, bk=bk)
+        compiled = pt2ct(expr, res_ty=PT, m_map=M_MAP, zqs=ZQS, gad=BaseBGad(2), ctx=ctx)
+        return compiled, [compiled.encrypt_arg(x, 0)], eval_ir(expr, x)
+    from alchemy_tpu_torch.examples.homomrlwr import PT, ZP_IN, ZQS, ring_round
+    from alchemy_tpu_torch.she import bgv
+
+    rng = np.random.default_rng(7)
+    expr = ring_round(bk)
+    ctx = KeysHints(5.0, seed=7, bk=bk)
+    compiled = pt2ct(expr, res_ty=PT, m_map=M_MAP, zqs=ZQS, gad=TrivGad(), ctx=ctx)
+    s = Cyc.from_coeffs(H0, (ZP_IN,), rng.integers(0, ZP_IN, totient(H0)), bk)
+    a = Cyc.from_coeffs(H0, (ZP_IN,), rng.integers(0, ZP_IN, totient(H0)), bk)
+    return compiled, [bgv.mul_public(a, compiled.encrypt_arg(s, 0))], eval_ir(expr, s * a)
+
+
+def block_of(t: torch.Tensor, shape, limb_rank: int, coeff_rank: int) -> torch.Tensor:
+    """The block of a whole [L, n] array that the rank at (limb_rank,
+    coeff_rank) of a mesh of `shape` holds: rows [i·b, (i + 1)·b) with
+    b = ⌈L / limb⌉, zero-padded past L, and the coeff_rank-th of `coeff`
+    column blocks (all columns when they do not split)."""
+    LS, C = shape
+    L, n = t.shape
+    b = -(-L // LS)
+    rows = t[limb_rank * b:(limb_rank + 1) * b]
+    rows = torch.cat((rows, rows.new_zeros((b - rows.shape[0], n))))
+    return rows[:, coeff_rank * (n // C):(coeff_rank + 1) * (n // C)] if n % C == 0 else rows
+
+
+def jit_mesh(name: str, shape, probe: bool = False, device_type: str = "cpu"):
+    """One example's compiled program through the port's jit_compile,
+    single-device and on the ('limb', 'coeff') mesh of `shape`: whether this
+    rank's blocks of the result equal the blocks of the single-device
+    result, whether the gathered result decrypts to the plaintext (and, with
+    `probe`, whether the strict error-rate logs are equal), this rank's
+    collectives and bytes, the single-device bytes; rank 0 adds the gathered
+    result as numpy."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from alchemy_tpu_torch.backend.torch_backend import TorchBackend
+    from alchemy_tpu_torch.interp.jit_exec import jit_compile
+
+    torch.set_num_threads(1)
+    bk = TorchBackend(device_type)
+    compiled, args, want = example_program(name, bk)
+    kw = {"noise_probe": compiled.ctx, "strict": True} if probe else {}
+    single_fn = jit_compile(compiled, args, **kw)
+    mesh = init_device_mesh(device_type, tuple(shape), mesh_dim_names=("limb", "coeff"))
+    fn = jit_compile(compiled, args, mesh=mesh, **kw)
+    single, out = single_fn(*args), fn(*args)
+    logs_equal = True
+    if probe:
+        (single, slog), (out, log) = single, out
+        logs_equal = slog == log
+    li, ci = mesh.get_local_rank("limb"), mesh.get_local_rank("coeff")
+    blocks_equal = all(
+        torch.equal(c.data.local.cpu(), block_of(s.data.cpu(), shape, li, ci))
+        for s, c in zip(single.comps, out.comps))
+    whole = fn.gather(out)
+    res = {"blocks_equal": blocks_equal, "logs_equal": logs_equal,
+           "whole_equal": all(torch.equal(s.data.cpu(), w.data.cpu())
+                              for s, w in zip(single.comps, whole.comps)),
+           "decrypts": compiled.decrypt(whole).equals(want),
+           "meta": (out.m, out.zp, out.scale, out.qs, [c.basis for c in out.comps]),
+           "collectives": dict(fn.collectives), "comm_ops": dict(fn.sbk.comm_ops),
+           "bytes": fn.arg_bytes(), "single_bytes": single_fn.arg_bytes()}
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, res)
+    if dist.get_rank() != 0:
+        return None
+    return gathered, [c.data.cpu().numpy() for c in whole.comps]
+
+
+def spmd_ops(shape, seed: int):
+    """Each `ShardedTorchBackend` method, through the `Cyc` and SHE code
+    that calls it, on the ('limb', 'coeff') mesh of `shape`, against the
+    same code on `TorchBackend("cpu")`: per case, whether the whole result
+    (every rank's `full`) equals the single-device one on every rank, and
+    the collectives the case made, by (op, axis). Chains of 5 and 6 limbs
+    over R_180 (φ = 48) and R_36, a rescale from 6 to 5 and from 5 to 4, a
+    modswitch from 3 to 5 limbs, and R_9 (φ = 6, whose coefficients do not
+    split over 4)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from alchemy_tpu_torch.backend.torch_backend import TorchBackend
+    from alchemy_tpu_torch.core.cyc import Cyc
+    from alchemy_tpu_torch.core.ring import get_ring
+    from alchemy_tpu_torch.nt.primes import find_ntt_prime
+    from alchemy_tpu_torch.parallel.spmd import ShardedTorchBackend
+    from alchemy_tpu_torch.she import bgv
+    from alchemy_tpu_torch.she.gadget import BaseBGad, HybridGad, TrivGad
+
+    torch.set_num_threads(1)
+    tb = TorchBackend("cpu")
+    mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=("limb", "coeff"))
+    sb = ShardedTorchBackend(mesh)
+    qs = []
+    for _ in range(6):
+        qs.append(find_ntt_prime(180, 30, avoid=tuple(qs)))
+    q6, q5, q3 = tuple(qs), tuple(qs[:5]), tuple(qs[:3])
+    rng = np.random.default_rng(seed)
+
+    def arr(m, chain):
+        return np.stack([rng.integers(0, q, get_ring(m).phi) for q in chain])
+
+    data = {"a": (180, q5, arr(180, q5)), "b": (180, q5, arr(180, q5)),
+            "c6": (180, q6, arr(180, q6)), "c3": (180, q3, arr(180, q3)),
+            "s": (36, q5, arr(36, q5)), "odd": (9, q5[:2], arr(9, q5[:2])),
+            "row": (180, q5, rng.integers(-1000, 1000, 48))}
+
+    def cycs(bk):
+        return {k: Cyc(get_ring(m), ch, "POW", bk.asarray(v, ch), bk)
+                for k, (m, ch, v) in data.items() if k != "row"}
+
+    cases = {
+        "add": lambda x, bk: x["a"] + x["b"],
+        "sub": lambda x, bk: x["a"] - x["b"],
+        "neg": lambda x, bk: -x["a"],
+        "scalar_mul": lambda x, bk: x["a"].scalar_mul(-123456789),
+        "sum_terms": lambda x, bk: x["a"].like(bk.sum_terms([x["a"].data, x["b"].data,
+                                                            x["a"].data], q5)),
+        "zeros": lambda x, bk: Cyc.zero(180, q5, bk),
+        "broadcast_row": lambda x, bk: x["a"].like(bk.broadcast_row(data["row"][2], 5, q5)),
+        "reduce_signed": lambda x, bk: x["a"].like(bk.reduce_signed(
+            np.stack([data["row"][2]] * 5), q5)),
+        "to_crt": lambda x, bk: x["a"].to_crt(),
+        "crt_mul": lambda x, bk: x["a"] * x["b"],
+        "to_crt_odd_ring": lambda x, bk: x["odd"].to_crt(),
+        "embed": lambda x, bk: x["s"].embed(180),
+        "twace": lambda x, bk: x["a"].twace(36),
+        "rel_coeffs_dec": lambda x, bk: x["a"].rel_coeffs(36, basis="dec"),
+        "from_rel_coeffs": lambda x, bk: Cyc.from_rel_coeffs(
+            180, 36, x["a"].rel_coeffs(36), q5, bk),
+        "batched_to_basis": lambda x, bk: Cyc.batched_to_basis([x["a"], x["b"]], "CRT"),
+        "batched_embed_crt": lambda x, bk: Cyc.batched_embed_crt([x["s"], x["s"] + x["s"]], 180),
+        "trivgad_digits": lambda x, bk: TrivGad().digits(x["a"]),
+        "basebgad_digits": lambda x, bk: BaseBGad(2).digits(x["c3"]),
+        "hybridgad_digits": lambda x, bk: HybridGad(dnum=2).digits(x["a"]),
+        "rescale_6_to_5": lambda x, bk: bgv._rescale_drop_last(x["c6"], 2),
+        "rescale_5_to_4": lambda x, bk: bgv._rescale_drop_last(x["a"], 2),
+        "modswitch_3_to_5": lambda x, bk: x["c3"].like(bk.modswitch_up(x["c3"].data, q3, q5),
+                                                       qs=q5),
+        "lift_centered": lambda x, bk: bk.lift_centered(x["a"].data, q5),
+    }
+
+    def whole(r, bk):
+        if isinstance(r, list):
+            return [whole(v, bk) for v in r]
+        if isinstance(r, np.ndarray):
+            return r
+        return (r.m, r.qs, r.basis, bk.to_numpy(r.data))
+
+    ref, mine = cycs(tb), cycs(sb)
+    out = {}
+    for name, fn in cases.items():
+        want = whole(fn(ref, tb), tb)
+        sb.reset_collectives()
+        got = fn(mine, sb)
+        calls = dict(sb.collectives)
+        got = whole(got, sb)
+        same = repr(got) == repr(want) and all(
+            np.array_equal(g, w) for g, w in zip(_arrays(got), _arrays(want)))
+        flags = [None] * dist.get_world_size()
+        dist.all_gather_object(flags, same)
+        out[name] = (all(flags), calls)
+    return out if dist.get_rank() == 0 else None
+
+
+def _arrays(x):
+    if isinstance(x, np.ndarray):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [a for v in x for a in _arrays(v)]
+    return []
+
+
+def sharding_fallback(shape, mesh_shape):
+    """The port's `_auto_sharding` of a zero [shape] array on the
+    ('limb', 'coeff') mesh of `mesh_shape`: (placement names per mesh axis,
+    the warnings' categories)."""
+    import warnings
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from alchemy_tpu_torch.interp.jit_exec import _auto_sharding
+
+    mesh = init_device_mesh("cpu", tuple(mesh_shape), mesh_dim_names=("limb", "coeff"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pl = _auto_sharding(torch.zeros(shape, dtype=torch.int64), mesh)
+    return [repr(p) for p in pl], [w.category.__name__ for w in caught]
+
+
+def scaling_sweep(log_n: int, iters: int, anchors: dict, overlap):
+    """The port's bench_scaling.sweep on the CPU ranks with
+    ALCHEMY_DIST_OVERLAP set to `overlap` (None: unset) by the caller: the
+    sweep, the variable after it, and the DIST_STRATEGIES keys before and
+    after it."""
+    from alchemy_tpu_torch.parallel import bench_scaling
+
+    old = os.environ.pop("ALCHEMY_DIST_OVERLAP", None)
+    if overlap is not None:
+        os.environ["ALCHEMY_DIST_OVERLAP"] = overlap
+    try:
+        before = sorted(D.DIST_STRATEGIES)
+        out = bench_scaling.sweep(log_n=log_n, iters=iters, device_type="cpu", anchors=anchors)
+        return (out, os.environ.get("ALCHEMY_DIST_OVERLAP", "unset"),
+                before, sorted(D.DIST_STRATEGIES))
+    finally:
+        os.environ.pop("ALCHEMY_DIST_OVERLAP", None)
+        if old is not None:
+            os.environ["ALCHEMY_DIST_OVERLAP"] = old
