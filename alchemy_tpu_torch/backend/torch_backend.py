@@ -73,6 +73,10 @@ class TorchBackend:
         #: "axis_matmul" calls, "to_host" and "to_device" copies of residues,
         #: "mat_upload"s of transform matrices (once per matrix and moduli)
         self.counts: Counter = Counter()
+        #: when a list, axis_matmul appends (L, d_in, d_out, R) per matrix it
+        #: applies: L·d_out·d_in·R base MACs each, 4× that in float64 MACs
+        #: (the exact-MAC ledger of scripts/profile_examples.py, xla.py:27)
+        self.mac_log: list | None = None
 
     def _q(self, qs) -> torch.Tensor:
         return qcol(tuple(qs), self.device)
@@ -217,6 +221,8 @@ class TorchBackend:
                 continue
             xm = x.movedim(1 + gi, 1)                 # [L, d_in, *rest]
             rest_shape = xm.shape[2:]
+            if self.mac_log is not None:
+                self.mac_log.append((L, d_in, d_out, prod(rest_shape)))
             res = _matmul_mod(self._mat_halves(mat, qs), xm.reshape(L, d_in, -1), qs)
             x = res.reshape(L, d_out, *rest_shape).movedim(1, 1 + gi)
             dims[gi] = d_out

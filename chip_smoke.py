@@ -88,6 +88,16 @@ Then [resume] (after [hybrid16]), and [jit] and [checkpoint] (after
             package's defaults (log_n 12, 4 limbs, batch 2) on the two gloo
             ranks and on the one NCCL rank, its anchors measured on the card;
             one JSON line each before the `kernels` line.
+  [bench]   (after [pipeline]) the port's benchmark harness as a user runs
+            it: `python -m alchemy_tpu_torch.bench` in a child process at
+            BENCH_SECONDS=0.5, in its default configuration (TrivGad,
+            "pallas", n = 2^15, L = 8, Bt = 16, one CUDA graph a step) and
+            at BENCH_KS=hybrid BENCH_NLIMB=16: each record has bench.py's
+            keys plus `backend` and `card`, every sweep point, a measured
+            CPU baseline, `native_kernel_checks` passing, and the child's
+            measured part launched its kernels; then
+            `scripts.bench_batch` at B = 1024, whose output decrypts. The
+            records are printed on `[bench]` lines.
 
 Then the mesh path (`parallel/`; the world's ranks are processes, the
 local stages of the distributed NTT are torch ops, no kernel of their own):
@@ -818,28 +828,21 @@ def she_run(bk) -> dict:
 
 def profile_op(fn, calls: int) -> dict:
     """Device launches, busy and span µs per call of fn() and its three
-    costliest kernels, over `calls` warm calls under torch.profiler."""
+    costliest kernels, over `calls` warm calls under torch.profiler
+    (`scripts/profile_trace.device_profile`)."""
     import torch
 
-    from alchemy_tpu_torch.examples.profile_mul_relin import _busy_us
+    from alchemy_tpu_torch.scripts.profile_trace import device_profile
 
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(bool(kernels), "the profiler saw device time")
-    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    prof = device_profile(fn, (), calls)
     by_kernel: dict = {}
-    for e in kernels:
-        by_kernel[e.name[:48]] = by_kernel.get(e.name[:48], 0.0) + e.time_range.end - e.time_range.start
+    for name, t, _ in prof["events"]:
+        by_kernel[name[:48]] = by_kernel.get(name[:48], 0.0) + t
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:3]
-    span = max(b for _, b in spans) - min(a for a, _ in spans)
-    return {"launches": len(kernels) / calls, "busy_us": _busy_us(spans) / calls,
-            "span_us": span / calls, "top_us": [(k, v / calls) for k, v in top]}
+    return {"launches": prof["launches"] / calls, "busy_us": prof["busy_us"] / calls,
+            "span_us": prof["span_us"] / calls, "top_us": [(k, v / calls) for k, v in top]}
 
 
 def she_phase(checked_bk, torch_bk, card: str) -> dict:
@@ -1055,10 +1058,14 @@ def copies(tb) -> dict:
     return {k: tb.counts[k] for k in ("to_host", "to_device", "mat_upload")}
 
 
-def child(code: str, timeout: float = 600) -> subprocess.CompletedProcess:
-    """Run `code` in a fresh Python process at the root of the checkout."""
+def child(code: str, timeout: float = 600, env: dict | None = None) -> subprocess.CompletedProcess:
+    """Run `code` in a fresh Python process at the root of the checkout (with
+    the variables `env` added to this process's environment)."""
+    import os
+
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          cwd=WORK.parents[1], timeout=timeout)
+                          cwd=WORK.parents[1], timeout=timeout,
+                          env=None if env is None else {**os.environ, **env})
 
 
 def last_json(out: str) -> dict:
@@ -1509,6 +1516,66 @@ def jitmesh2_phase(jit: dict, card: str, world, device: str = "cuda") -> dict:
               f"{single['args'] + single['hints']} single-device; host ms per call "
               f"{[round(r['ms'], 3) for r in rs]} ({JITMESH_CALLS} calls)", flush=True)
     return {key: [r[key] for r in ranks] for key in ranks[0]}
+
+
+#: [bench]: the harness's window, and each run's knobs with the kernels its
+#: measured part must launch (the wrappers' counts in the child's log)
+BENCH_SECONDS = "0.5"
+BENCH_RUNS = {"trivgad": ({}, ("tensor_intt", "digit_relin", "ntt_grid")),
+              "hybrid": ({"BENCH_KS": "hybrid", "BENCH_NLIMB": "16"},
+                         ("tensor_intt", "hybrid_digit_relin", "intt_grid", "rescale_fwd",
+                          "ntt_grid"))}
+BENCH_BATCH = "1024"
+#: `python -m {module} {argv}` in a child
+BENCH_CHILD = ("import runpy, sys; sys.argv[1:] = {argv!r}; "
+               "runpy.run_module({module!r}, run_name='__main__')")
+
+
+def bench_phase(device: str = "cuda", knobs: dict | None = None) -> dict:
+    """[bench]: the port's harness as a user runs it, `python -m
+    alchemy_tpu_torch.bench` in a child process at BENCH_SECONDS, in the
+    default configuration (TrivGad, "pallas", n = 2^15, L = 8, Bt = 16) and
+    at BENCH_KS=hybrid BENCH_NLIMB=16: each record has bench.py's keys plus
+    `backend` and `card`, every sweep point, a CPU baseline its log reports,
+    native_kernel_checks passing, and the child's measured part launched
+    the run's kernels. Then `scripts.bench_batch` at B = 1024, whose output
+    must decrypt. `knobs` (extra variables of every child) and
+    device="cpu" rehearse it on the CPU."""
+    from alchemy_tpu_torch.bench import RECORD_KEYS
+
+    argv = ["--device", device]
+    env = {"BENCH_SECONDS": BENCH_SECONDS, **(knobs or {})}
+    res = {}
+    for tag, (extra, kernels) in BENCH_RUNS.items():
+        t0 = time.perf_counter()
+        out = child(BENCH_CHILD.format(argv=argv, module="alchemy_tpu_torch.bench"),
+                    env={**env, **extra})
+        wall = time.perf_counter() - t0
+        check(out.returncode == 0, f"[bench] {tag} exited {out.returncode}:\n{out.stderr[-3000:]}")
+        rec = last_json(out.stdout)
+        check(set(rec) == set(RECORD_KEYS), f"[bench] {tag} keys {sorted(rec)}")
+        check(rec["native_kernel_checks"]["pass"], f"[bench] {tag} {rec['native_kernel_checks']}")
+        check(set(rec["sweep"]) == {"n2e14", "n2e15", "n2e16"}, f"[bench] {tag} sweep")
+        check("mul_relin on cpu (plain versions" in out.stderr, f"[bench] {tag}: no CPU baseline")
+        seen = json.loads(out.stderr.split("graph replays not counted): ")[1].splitlines()[0])
+        check(all(seen.get(k, 0) > 0 for k in kernels), f"[bench] {tag} launches {seen}")
+        res[tag] = {"record": rec, "wall_s": wall, "launches": seen}
+        print(f"[bench] {tag} ({wall:.1f} s, wrapper launches of the measured part {seen}): "
+              f"{json.dumps(rec)}", flush=True)
+    t0 = time.perf_counter()
+    path = WORK / "bench_batch.json"
+    out = child(BENCH_CHILD.format(argv=[*argv, "--out", str(path)],
+                                   module="alchemy_tpu_torch.scripts.bench_batch"),
+                env={**env, "BATCH_SIZES": BENCH_BATCH})
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"[bench] bench_batch exited {out.returncode}:\n{out.stderr[-3000:]}")
+    rec = last_json(out.stdout)
+    check(rec["points"][f"B{BENCH_BATCH}"]["decrypt_pass"], f"[bench] B={BENCH_BATCH} decrypt")
+    res["batch"] = {"record": rec, "wall_s": wall}
+    print(f"[bench] bench_batch B={BENCH_BATCH} ({wall:.1f} s): decrypts; {json.dumps(rec)}",
+          flush=True)
+    return res
 
 
 # [dist], [dist2], [pipeline]: the mesh path (parallel/). [dist] and [dist2]
@@ -2345,6 +2412,11 @@ def main() -> int:
     # kernels A and B at the pipeline's shape [mb, L0, n] in both orders
     pipe_k = {order: kernel_phase(PIPE[0], PIPE[1], PIPE[4], rng, timed=True, order=order)
               for order in ("pallas", "mxu")}
+    # the harness in child processes: free this process's cached blocks first
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench_phase()
+    print(f"[bench] phase {time.perf_counter() - t0:.1f} s", flush=True)
     runs = {(HEADLINE[0], "pallas"): {"main": mp, "hybrid": hy, "deep": dp,
                                       "pipeline": pl["S1 pallas"]},
             (N2E16[0], "pallas"): {"n2e16": mp16, "hybrid16": h16},
