@@ -35,7 +35,10 @@ wrapper: "pallas", the 3-factor order of `backend/ntt3.py`, "mxu", the
 `csrc/mul_relin.cu` for what bounds them.
 
 Each wrapper takes the plain PyTorch version for CPU tensors only; for CUDA
-tensors it launches its kernel or raises. The plain versions compute in
+tensors it launches its kernel or raises.
+Each wrapper runs, from entry to return, inside the launch span
+`launch.<kernel>` (the name `LAUNCHES` counts; `utils.profiling`), whose
+attribute `entry` names the C entry point it calls. The plain versions compute in
 exact int64 and are the reference the kernels are held against.
 """
 
@@ -62,11 +65,13 @@ from alchemy_tpu_torch.backend.modarith import (
 from alchemy_tpu_torch.backend.ntt import intt_vpu, ntt_vpu, ntt_vpu_bcast
 from alchemy_tpu_torch.backend.ntt2 import _pick_split, intt2, ntt2, ntt2_bcast
 from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3, ntt3_bcast, psi_powers
+from alchemy_tpu_torch.utils.profiling import span
 
 #: launches of each kernel since the last `reset_launches()`
 LAUNCHES = {"tensor_intt": 0, "digit_relin": 0, "hybrid_digit_relin": 0}
-#: launches of kernel A by shape since the last `reset_launches()`:
-#: {("tensor_intt", Bt, L, n): count}
+#: launches of each kernel by shape since the last `reset_launches()`:
+#: {("tensor_intt", Bt, L, n): count}, {("digit_relin", Bt, L, n): count} and
+#: {("hybrid_digit_relin", Bt, L, T, dnum, n): count}
 LAUNCHES_BY_SHAPE: dict[tuple, int] = {}
 
 #: shared memory one block may use on sm_90 (bytes)
@@ -292,24 +297,25 @@ def tensor_intt(n: int, qs: tuple[int, ...], ct_a: torch.Tensor,
                 ct_b: torch.Tensor, order: str = "pallas"):
     """Kernel A on canonical ciphertexts [Bt, 2, L, n] (int32 storage, slot
     `order`)."""
-    qs = tuple(qs)
-    Bt, L, dev = ct_a.shape[0], len(qs), ct_a.device
-    _check("ct_a", ct_a, (Bt, 2, L, n), dev)
-    _check("ct_b", ct_b, (Bt, 2, L, n), dev)
-    if dev.type == "cpu":
-        return tensor_intt_plain(n, qs, ct_a, ct_b, order)
-    _kernel_device(n, dev)
-    t = _device_tables(n, qs, order, str(dev))
-    c0, c1, c2c = (torch.empty((Bt, L, n), dtype=torch.int32, device=dev)
-                   for _ in range(3))
-    lib = build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(lib.tensor_intt(
-        ct_a.data_ptr(), ct_b.data_ptr(), c0.data_ptr(), c1.data_ptr(),
-        c2c.data_ptr(), t["limbs"].data_ptr(), t["inv"].data_ptr(),
-        t["grid_own"].data_ptr(), Bt, L, n.bit_length() - 1, stream), "tensor_intt")
-    count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "tensor_intt", Bt, L, n)
-    return c0, c1, c2c
+    with span("launch.tensor_intt", entry="tensor_intt"):
+        qs = tuple(qs)
+        Bt, L, dev = ct_a.shape[0], len(qs), ct_a.device
+        _check("ct_a", ct_a, (Bt, 2, L, n), dev)
+        _check("ct_b", ct_b, (Bt, 2, L, n), dev)
+        if dev.type == "cpu":
+            return tensor_intt_plain(n, qs, ct_a, ct_b, order)
+        _kernel_device(n, dev)
+        t = _device_tables(n, qs, order, str(dev))
+        c0, c1, c2c = (torch.empty((Bt, L, n), dtype=torch.int32, device=dev)
+                       for _ in range(3))
+        lib = build.library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.check(lib.tensor_intt(
+            ct_a.data_ptr(), ct_b.data_ptr(), c0.data_ptr(), c1.data_ptr(),
+            c2c.data_ptr(), t["limbs"].data_ptr(), t["inv"].data_ptr(),
+            t["grid_own"].data_ptr(), Bt, L, n.bit_length() - 1, stream), "tensor_intt")
+        count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "tensor_intt", Bt, L, n)
+        return c0, c1, c2c
 
 
 def _aligned(*tensors) -> None:
@@ -340,25 +346,26 @@ def digit_relin(n: int, qs: tuple[int, ...], c0: torch.Tensor, c1: torch.Tensor,
                 c2c: torch.Tensor, hint_b, hint_a, order: str = "pallas") -> torch.Tensor:
     """Kernel B: kernel A's (c0, c1, c2c) and the relinearization hints
     (raw [L, L, n] or Shoup pairs) → [Bt, 2, L, n], slot `order`."""
-    qs = tuple(qs)
-    Bt, L, dev = c2c.shape[0], len(qs), c2c.device
-    for name, t in (("c0", c0), ("c1", c1), ("c2c", c2c)):
-        _check(name, t, (Bt, L, n), dev)
-    shoup, hints = _hint_list(hint_b, hint_a, (L, L, n), dev)
-    if dev.type == "cpu":
-        return digit_relin_plain(n, qs, c0, c1, c2c, hint_b, hint_a, order)
-    _kernel_device(n, dev)
-    _aligned(c0, c1, *hints)
-    t = _device_tables(n, qs, order, str(dev))
-    out = torch.empty((Bt, 2, L, n), dtype=torch.int32, device=dev)
-    lib = build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(lib.digit_relin(
-        c2c.data_ptr(), c0.data_ptr(), c1.data_ptr(), *map(_ptr, hints), out.data_ptr(),
-        t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_own"].data_ptr(), int(shoup), Bt,
-        L, n.bit_length() - 1, stream), "digit_relin")
-    LAUNCHES["digit_relin"] += 1
-    return out
+    with span("launch.digit_relin", entry="digit_relin"):
+        qs = tuple(qs)
+        Bt, L, dev = c2c.shape[0], len(qs), c2c.device
+        for name, t in (("c0", c0), ("c1", c1), ("c2c", c2c)):
+            _check(name, t, (Bt, L, n), dev)
+        shoup, hints = _hint_list(hint_b, hint_a, (L, L, n), dev)
+        if dev.type == "cpu":
+            return digit_relin_plain(n, qs, c0, c1, c2c, hint_b, hint_a, order)
+        _kernel_device(n, dev)
+        _aligned(c0, c1, *hints)
+        t = _device_tables(n, qs, order, str(dev))
+        out = torch.empty((Bt, 2, L, n), dtype=torch.int32, device=dev)
+        lib = build.library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.check(lib.digit_relin(
+            c2c.data_ptr(), c0.data_ptr(), c1.data_ptr(), *map(_ptr, hints), out.data_ptr(),
+            t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_own"].data_ptr(), int(shoup), Bt,
+            L, n.bit_length() - 1, stream), "digit_relin")
+        count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "digit_relin", Bt, L, n)
+        return out
 
 
 def _group_width(groups, ext_qs: tuple[int, ...]) -> int:
@@ -382,23 +389,24 @@ def hybrid_digit_stage(n: int, ext_qs: tuple[int, ...], groups, x: torch.Tensor,
     group-major, as `she.hybrid.garner_pack` makes them) and the hybrid hints
     over ext_qs (raw [dnum, T, n] or Shoup pairs, slot `order`) →
     [2, Bt, T, n], the accumulator (t0, t1) before the rescale by P."""
-    ext_qs, groups = tuple(ext_qs), tuple(map(tuple, groups))
-    alpha = _group_width(groups, ext_qs)
-    L, T, dnum = sum(map(len, groups)), len(ext_qs), len(groups)
-    Bt, dev = x.shape[0], x.device
-    _check("x", x, (Bt, L, n), dev)
-    shoup, hints = _hint_list(hint_b, hint_a, (dnum, T, n), dev)
-    if dev.type == "cpu":
-        return hybrid_digit_stage_plain(n, ext_qs, groups, x, hint_b, hint_a, order)
-    _kernel_device(n, dev)
-    _aligned(*hints)
-    t = _device_tables(n, ext_qs, order, str(dev))
-    out = torch.empty((2, Bt, T, n), dtype=torch.int32, device=dev)
-    lib = build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(lib.hybrid_digit_relin(
-        x.data_ptr(), _device_ext(groups, ext_qs, str(dev)).data_ptr(), *map(_ptr, hints),
-        out.data_ptr(), t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_own"].data_ptr(),
-        int(shoup), Bt, L, T, dnum, alpha, n.bit_length() - 1, stream), "hybrid_digit_relin")
-    LAUNCHES["hybrid_digit_relin"] += 1
-    return out
+    with span("launch.hybrid_digit_relin", entry="hybrid_digit_relin"):
+        ext_qs, groups = tuple(ext_qs), tuple(map(tuple, groups))
+        alpha = _group_width(groups, ext_qs)
+        L, T, dnum = sum(map(len, groups)), len(ext_qs), len(groups)
+        Bt, dev = x.shape[0], x.device
+        _check("x", x, (Bt, L, n), dev)
+        shoup, hints = _hint_list(hint_b, hint_a, (dnum, T, n), dev)
+        if dev.type == "cpu":
+            return hybrid_digit_stage_plain(n, ext_qs, groups, x, hint_b, hint_a, order)
+        _kernel_device(n, dev)
+        _aligned(*hints)
+        t = _device_tables(n, ext_qs, order, str(dev))
+        out = torch.empty((2, Bt, T, n), dtype=torch.int32, device=dev)
+        lib = build.library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.check(lib.hybrid_digit_relin(
+            x.data_ptr(), _device_ext(groups, ext_qs, str(dev)).data_ptr(), *map(_ptr, hints),
+            out.data_ptr(), t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_own"].data_ptr(),
+            int(shoup), Bt, L, T, dnum, alpha, n.bit_length() - 1, stream), "hybrid_digit_relin")
+        count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "hybrid_digit_relin", Bt, L, T, dnum, n)
+        return out

@@ -38,6 +38,9 @@ n ≤ 2^15 splits its prologue between the two blocks of a cluster
 (`csrc/rescale.cu` says why).
 Each wrapper takes the plain PyTorch version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises.
+Each wrapper runs, from entry to return, inside the launch span
+`launch.<kernel>` (the name `LAUNCHES` counts; `utils.profiling`), whose
+attribute `entry` names the C entry point it calls.
 """
 
 from __future__ import annotations
@@ -69,10 +72,13 @@ from alchemy_tpu_torch.backend.modarith import (
 from alchemy_tpu_torch.backend.ntt import intt_vpu, ntt_vpu
 from alchemy_tpu_torch.backend.ntt2 import intt2, ntt2
 from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
+from alchemy_tpu_torch.utils.profiling import span
 
 #: launches of each kernel since the last `reset_launches()`
 LAUNCHES = {"intt_grid": 0, "ntt_grid": 0, "rescale_fwd": 0, "intt2_grid": 0, "ntt2_grid": 0,
             "intt_vpu_grid": 0, "ntt_vpu_grid": 0}
+#: the launch span of each kernel (`utils.profiling`)
+_LAUNCH_SPANS = {name: f"launch.{name}" for name in LAUNCHES}
 #: launches of each kernel by shape since the last `reset_launches()`:
 #: {(name, G, T, n): count} for the standalone transforms (5, 6, 8, 9 and the
 #: vpu order's) and
@@ -164,21 +170,22 @@ def _grid(name: str, entry: str, order: str, n: int, qs: tuple[int, ...], x: tor
           plain) -> torch.Tensor:
     """Launch C entry point `entry` ("intt_grid" or "ntt_grid") with the
     slot table of `order`, counted as kernel `name`."""
-    qs = tuple(qs)
-    G, T, dev = x.shape[0], len(qs), x.device
-    _check("x", x, (G, T, n), dev)
-    if dev.type == "cpu":
-        return plain(n, qs, x)
-    _kernel_device(n, dev)
-    t = _device_tables(n, qs, order, str(dev))
-    out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    twiddles = t["inv"] if entry == "intt_grid" else t["fwd"]
-    build.check(getattr(build.library(), entry)(
-        x.data_ptr(), out.data_ptr(), t["limbs"].data_ptr(), twiddles.data_ptr(),
-        t["grid_own"].data_ptr(), G, T, n.bit_length() - 1, stream), name)
-    count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, name, G, T, n)
-    return out
+    with span(_LAUNCH_SPANS[name], entry=entry):
+        qs = tuple(qs)
+        G, T, dev = x.shape[0], len(qs), x.device
+        _check("x", x, (G, T, n), dev)
+        if dev.type == "cpu":
+            return plain(n, qs, x)
+        _kernel_device(n, dev)
+        t = _device_tables(n, qs, order, str(dev))
+        out = torch.empty_like(x)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        twiddles = t["inv"] if entry == "intt_grid" else t["fwd"]
+        build.check(getattr(build.library(), entry)(
+            x.data_ptr(), out.data_ptr(), t["limbs"].data_ptr(), twiddles.data_ptr(),
+            t["grid_own"].data_ptr(), G, T, n.bit_length() - 1, stream), name)
+        count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, name, G, T, n)
+        return out
 
 
 def intt3_grid(n: int, qs: tuple[int, ...], x: torch.Tensor) -> torch.Tensor:
@@ -244,23 +251,24 @@ def rescale_fwd(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: int,
     and the sign terms is_neg, t, t_neg [G, n] of `she.hybrid.rescale_joint`
     (all int32) → the rescaled rows [G, L, n] over keep, NTT domain in slot
     `order`."""
-    keep, drop = tuple(keep), tuple(drop)
-    L, K = len(keep), len(drop)
-    G, dev = coeff.shape[0], coeff.device
-    _check("coeff", coeff, (G, L + K, n), dev)
-    _check("xs", xs, (G, K, n), dev)
-    for name, f in (("is_neg", is_neg), ("t", t), ("t_neg", t_neg)):
-        _check(name, f, (G, n), dev)
-    if dev.type == "cpu":
-        return rescale_fwd_plain(n, keep, drop, zp, coeff, xs, is_neg, t, t_neg, order)
-    _kernel_device(n, dev)
-    tab = _device_tables(n, keep, order, str(dev))
-    out = torch.empty((G, L, n), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(build.library().rescale_fwd(
-        coeff.data_ptr(), xs.data_ptr(), is_neg.data_ptr(), t.data_ptr(), t_neg.data_ptr(),
-        _device_consts(keep, drop, str(dev)).data_ptr(), out.data_ptr(),
-        tab["limbs"].data_ptr(), tab["fwd"].data_ptr(), tab["slot_own"].data_ptr(),
-        G, L, K, zp, n.bit_length() - 1, stream), "rescale_fwd")
-    count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "rescale_fwd", G, L, K, n)
-    return out
+    with span("launch.rescale_fwd", entry="rescale_fwd"):
+        keep, drop = tuple(keep), tuple(drop)
+        L, K = len(keep), len(drop)
+        G, dev = coeff.shape[0], coeff.device
+        _check("coeff", coeff, (G, L + K, n), dev)
+        _check("xs", xs, (G, K, n), dev)
+        for name, f in (("is_neg", is_neg), ("t", t), ("t_neg", t_neg)):
+            _check(name, f, (G, n), dev)
+        if dev.type == "cpu":
+            return rescale_fwd_plain(n, keep, drop, zp, coeff, xs, is_neg, t, t_neg, order)
+        _kernel_device(n, dev)
+        tab = _device_tables(n, keep, order, str(dev))
+        out = torch.empty((G, L, n), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.check(build.library().rescale_fwd(
+            coeff.data_ptr(), xs.data_ptr(), is_neg.data_ptr(), t.data_ptr(), t_neg.data_ptr(),
+            _device_consts(keep, drop, str(dev)).data_ptr(), out.data_ptr(),
+            tab["limbs"].data_ptr(), tab["fwd"].data_ptr(), tab["slot_own"].data_ptr(),
+            G, L, K, zp, n.bit_length() - 1, stream), "rescale_fwd")
+        count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "rescale_fwd", G, L, K, n)
+        return out

@@ -11,8 +11,6 @@ and the wall-clock timing harness (Common.hs:99-127).
 
 from __future__ import annotations
 
-import time as _time
-from contextlib import contextmanager
 from functools import lru_cache
 
 from alchemy_tpu_torch.core.cyc import Cyc
@@ -22,6 +20,7 @@ from alchemy_tpu_torch.lang.ir import App, Node
 from alchemy_tpu_torch.nt.crtset import crt_set_relative
 from alchemy_tpu_torch.nt.factor import fgcd, totient
 from alchemy_tpu_torch.she.linear import LinearMap
+from alchemy_tpu_torch.utils.profiling import timed  # noqa: F401  (the timing harness)
 
 # plaintext ring indices (Common.hs:41-46)
 H0, H1, H2, H3, H4, H5 = 128, 448, 2912, 3640, 5460, 4095
@@ -66,12 +65,3 @@ def switch(n: int, pk: int, bk="golden") -> Node:
         expr = compose(lam(lambda x, f=f: App(dsl.linear_cyc(f), x)), expr)
     return expr
 
-
-@contextmanager
-def timed(label: str, verbose: bool = True):
-    """Wall-clock phase timing (Common.hs:99-127 prints 'Wall time: %0.3fs')."""
-    t0 = _time.perf_counter()
-    yield
-    dt = _time.perf_counter() - t0
-    if verbose:
-        print(f"{label}Wall time: {dt:0.3f}s\n")

@@ -38,6 +38,7 @@ from alchemy_tpu_torch.backend.modarith import (
 )
 from alchemy_tpu_torch.nt.primes import find_ntt_prime
 from alchemy_tpu_torch.she.keys import gaussian_coeffs, uniform_residues
+from alchemy_tpu_torch.utils.profiling import span
 
 #: the NTT slot order of `FastParams`, as in the JAX package (fast.py:35)
 DEFAULT_NTT_IMPL = "mxu"
@@ -239,15 +240,20 @@ def mul_relin(p: FastParams, ct_a: torch.Tensor, ct_b: torch.Tensor,
     """BGV multiply + relinearize, [..., 2, L, n] × [..., 2, L, n] →
     [..., 2, L, n] (fast.py:310): kernel A then kernel B, in the slot order
     of p.impl. Hints are raw [L, L, n] or Shoup pairs from
-    relin_hint(shoup=True), in any layout (`kernel_hint`)."""
-    lead = ct_a.shape[:-3]
-    L = len(p.qs)
-    shape = (-1, 2, L, p.n)
-    c0, c1, c2c = tensor_intt(p.n, p.qs, ct_a.reshape(shape).contiguous(),
-                              ct_b.reshape(shape).contiguous(), p.order)
-    hint_b, hint_a = (kernel_hint(h, (L, L, p.n)) for h in (hint_b, hint_a))
-    out = digit_relin(p.n, p.qs, c0, c1, c2c, hint_b, hint_a, p.order)
-    return out.reshape(*lead, *out.shape[1:])
+    relin_hint(shoup=True), in any layout (`kernel_hint`). Traced as the
+    root span `mul_relin` (attributes batch, L, n) over kernel A's and B's
+    launch spans (`utils.profiling`)."""
+    with span("mul_relin") as root:
+        lead = ct_a.shape[:-3]
+        L = len(p.qs)
+        shape = (-1, 2, L, p.n)
+        a, b = ct_a.reshape(shape).contiguous(), ct_b.reshape(shape).contiguous()
+        if root is not None:
+            root.attrs.update(batch=a.shape[0], L=L, n=p.n)
+        c0, c1, c2c = tensor_intt(p.n, p.qs, a, b, p.order)
+        hint_b, hint_a = (kernel_hint(h, (L, L, p.n)) for h in (hint_b, hint_a))
+        out = digit_relin(p.n, p.qs, c0, c1, c2c, hint_b, hint_a, p.order)
+        return out.reshape(*lead, *out.shape[1:])
 
 
 def rescale(p: FastParams, ct: torch.Tensor, k_drop: int = 1) -> torch.Tensor:

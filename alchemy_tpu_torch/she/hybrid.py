@@ -56,6 +56,7 @@ from alchemy_tpu_torch.backend.modarith import (
 from alchemy_tpu_torch.nt.primes import find_ntt_prime
 from alchemy_tpu_torch.she.fast import FastParams, _ntt_p, _residues, _uniform, kernel_hint
 from alchemy_tpu_torch.she.keys import gaussian_coeffs
+from alchemy_tpu_torch.utils.profiling import span
 
 # ---------------------------------------------------------------------------
 # joint rescale: drop the last k limbs in one inverse/forward round trip
@@ -88,20 +89,23 @@ def _sign_terms(xs: list, drop: tuple[int, ...], zp: int):
 
 
 def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, plain: bool) -> torch.Tensor:
-    if p.zp & (p.zp - 1) or p.zp > (1 << 16):
-        # the mod-zp sums of `_sign_terms` multiply two values < zp
-        raise ValueError("rescale_joint requires a power-of-two zp <= 2^16")
-    intt = grid_transforms(p.order, plain)[1]
-    fwd = rescale_fwd_plain if plain else rescale_fwd
-    qs = tuple(p.qs)
-    keep, drop = qs[:-k_drop], qs[-k_drop:]
-    lead = ct.shape[:-2]
-    coeff = intt(p.n, qs, ct.reshape(-1, len(qs), p.n).contiguous())   # [G, T, n]
-    xs = garner_digits(widen(coeff[:, len(keep):]), drop)
-    is_neg, t, t_neg = _sign_terms(xs, drop, p.zp)
-    out = fwd(p.n, keep, drop, p.zp, coeff, narrow(torch.stack(xs, dim=1)),
-              is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32), p.order)
-    return out.reshape(*lead, len(keep), p.n)
+    with span("rescale_joint"):
+        if p.zp & (p.zp - 1) or p.zp > (1 << 16):
+            # the mod-zp sums of `_sign_terms` multiply two values < zp
+            raise ValueError("rescale_joint requires a power-of-two zp <= 2^16")
+        intt = grid_transforms(p.order, plain)[1]
+        fwd = rescale_fwd_plain if plain else rescale_fwd
+        qs = tuple(p.qs)
+        keep, drop = qs[:-k_drop], qs[-k_drop:]
+        lead = ct.shape[:-2]
+        coeff = intt(p.n, qs, ct.reshape(-1, len(qs), p.n).contiguous())   # [G, T, n]
+        with span("glue.rescale_digits"):
+            xs = garner_digits(widen(coeff[:, len(keep):]), drop)
+            is_neg, t, t_neg = _sign_terms(xs, drop, p.zp)
+            xs, is_neg, t, t_neg = (narrow(torch.stack(xs, dim=1)), is_neg.to(torch.int32),
+                                    narrow(t), t_neg.to(torch.int32))
+        out = fwd(p.n, keep, drop, p.zp, coeff, xs, is_neg, t, t_neg, p.order)
+        return out.reshape(*lead, len(keep), p.n)
 
 
 def rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int) -> torch.Tensor:
@@ -210,27 +214,33 @@ def garner_pack(hk: HybridKS, c2c: torch.Tensor) -> torch.Tensor:
     """Garner digits of c2c [Bt, L, n] (int32 coefficients) within each
     digit group, rows group-major → [Bt, L, n] int32: kernel 4's input
     (`x_pack` of hybrid.py:446-451, here in natural coefficient order)."""
-    res, xs, off = widen(c2c), [], 0
-    for grp in hk.groups:
-        xs.extend(garner_digits(res[:, off:off + len(grp)], grp))
-        off += len(grp)
-    return narrow(torch.stack(xs, dim=1))
+    with span("glue.garner_pack"):
+        res, xs, off = widen(c2c), [], 0
+        for grp in hk.groups:
+            xs.extend(garner_digits(res[:, off:off + len(grp)], grp))
+            off += len(grp)
+        return narrow(torch.stack(xs, dim=1))
 
 
 def _mul_relin_hybrid(hk: HybridKS, ct_a, ct_b, hint_b, hint_a, tensor, digit_stage,
                       rescale) -> torch.Tensor:
-    p, pe = hk.p, hk.pe
-    L, n = len(p.qs), p.n
-    lead = ct_a.shape[:-3]
-    shape = (-1, 2, L, n)
-    c0, c1, c2c = tensor(n, p.qs, ct_a.reshape(shape).contiguous(),
-                         ct_b.reshape(shape).contiguous(), p.order)
-    hint_b, hint_a = (kernel_hint(h, (hk.dnum, len(pe.qs), n)) for h in (hint_b, hint_a))
-    t01 = digit_stage(n, pe.qs, hk.groups, garner_pack(hk, c2c), hint_b, hint_a, p.order)
-    r01 = widen(rescale(pe, t01, len(hk.ps)))            # [2, Bt, L, n]
-    q = qcol(p.qs, c0.device)
-    out = torch.stack([_add_mod(widen(c0), r01[0], q), _add_mod(widen(c1), r01[1], q)], dim=1)
-    return narrow(out).reshape(*lead, 2, L, n)
+    with span("mul_relin_hybrid") as root:
+        p, pe = hk.p, hk.pe
+        L, n = len(p.qs), p.n
+        lead = ct_a.shape[:-3]
+        shape = (-1, 2, L, n)
+        a, b = ct_a.reshape(shape).contiguous(), ct_b.reshape(shape).contiguous()
+        if root is not None:
+            root.attrs.update(batch=a.shape[0], L=L, n=n)
+        c0, c1, c2c = tensor(n, p.qs, a, b, p.order)
+        hint_b, hint_a = (kernel_hint(h, (hk.dnum, len(pe.qs), n)) for h in (hint_b, hint_a))
+        t01 = digit_stage(n, pe.qs, hk.groups, garner_pack(hk, c2c), hint_b, hint_a, p.order)
+        r01 = rescale(pe, t01, len(hk.ps))                   # [2, Bt, L, n]
+        with span("glue.add_back"):
+            r01, q = widen(r01), qcol(p.qs, c0.device)
+            out = narrow(torch.stack([_add_mod(widen(c0), r01[0], q),
+                                      _add_mod(widen(c1), r01[1], q)], dim=1))
+        return out.reshape(*lead, 2, L, n)
 
 
 def mul_relin_hybrid(hk: HybridKS, ct_a: torch.Tensor, ct_b: torch.Tensor,
@@ -240,7 +250,10 @@ def mul_relin_hybrid(hk: HybridKS, ct_a: torch.Tensor, ct_b: torch.Tensor,
     [dnum, T, n] or Shoup pairs (`fast.shoup_precompute` over hk.pe.qs), in
     any layout (`fast.kernel_hint`).
     Kernel A → Garner digits → kernel 4 → `rescale_joint` → + (c0, c1), in
-    the slot order of hk.p.impl."""
+    the slot order of hk.p.impl. Traced as the root span `mul_relin_hybrid`
+    (attributes batch, L, n) over the kernels' launch spans, the glue's spans
+    `glue.garner_pack`, `glue.add_back` and `rescale_joint` with its
+    `glue.rescale_digits` (`utils.profiling`)."""
     return _mul_relin_hybrid(hk, ct_a, ct_b, hint_b, hint_a, tensor_intt,
                              hybrid_digit_stage, rescale_joint)
 
