@@ -1,12 +1,15 @@
-// Kernels A, B and 4 of BGV ciphertext multiply + relinearize, for sm_90a,
-// with a plain C interface loaded through ctypes.
+// Kernels A, B and 4 of BGV ciphertext multiply + relinearize, and the
+// Garner digits between A and 4, for sm_90a, with a plain C interface loaded
+// through ctypes.
 //
 // Kernel A, tensor_intt, replaces alchemy_tpu/backend/pallas/
 // mul_relin_pallas.py:232 _tensor_intt_kernel. Kernel B, digit_relin (CRT
 // gadget), replaces mul_relin_pallas.py:439 _digit_relin_ctmajor_kernel and
 // :319 _digit_relin_kernel (raw or Shoup hints; the limb-major variant the
 // TPU runs at n = 2^16). Kernel 4, hybrid_digit_relin (hybrid
-// key-switching), replaces :807 _hybrid_digit_relin_kernel.
+// key-switching), replaces :807 _hybrid_digit_relin_kernel. garner_pack
+// replaces no TPU kernel: the JAX package computes c2's Garner digits in XLA
+// (alchemy_tpu/she/hybrid.py:446-451).
 //
 // Layouts (uint32 residues, canonical, at the boundaries in the slot order
 // of the tables the host passes: the 3-factor order of backend/ntt3.py or
@@ -18,7 +21,9 @@
 //                               raw values or (values, companions) pairs
 //   out (B)     [Bt, 2, L, n]   NTT domain
 //   x (4)       [Bt, L, n]      Garner digits of c2c per limb group,
-//                               group-major (natural order)
+//                               group-major (natural order): garner_pack's
+//                               output
+//   consts (gp) [L, kGarnerWords] each limb's Garner row within its group
 //   ext (4)     [T, 2, L]       [pi_k]_{q_t} and Shoup companions
 //   hints (4)   [dnum, T, n]    over the extended chain of T = L + K limbs
 //   out (4)     [2, Bt, T, n]   NTT domain, before the rescale by P
@@ -416,6 +421,37 @@ hybrid_digit_relin_kernel(const uint32_t* __restrict__ x, const uint32_t* __rest
   }
 }
 
+// garner_pack: the Garner digits of c2c within each digit group of alpha
+// limbs (the last may be shorter), kernel 4's input x. A thread takes one
+// coefficient of one (ciphertext, group): its count residues in, its digits
+// computed in registers (zq::garner, the group's rows of consts), written
+// out. It reads and writes each word once, so bytes bound it (32 MiB each
+// way at Bt = 16, L = 16, n = 2^15); a warp's accesses are 128 consecutive
+// bytes of a row. Folded into kernel 4's load it would be recomputed by
+// each of 4's 2T blocks of a ciphertext.
+constexpr int kGarnerThreads = 256;
+
+__global__ void __launch_bounds__(kGarnerThreads)
+garner_pack_kernel(const uint32_t* __restrict__ c2c, uint32_t* __restrict__ x,
+                   const uint32_t* __restrict__ consts, int L, int alpha, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int k0 = blockIdx.y * alpha;
+  const int count = alpha < L - k0 ? alpha : L - k0;
+  const size_t at = (static_cast<size_t>(blockIdx.z) * L + k0) * n + i;
+  uint32_t r[zq::kMaxDigits] = {}, d[zq::kMaxDigits];
+#pragma unroll
+  for (int k = 0; k < zq::kMaxDigits; ++k) {
+    if (k < count) r[k] = __ldg(c2c + at + static_cast<size_t>(k) * n);
+  }
+  const uint32_t* rows = consts + static_cast<size_t>(k0) * zq::kGarnerWords;
+  zq::garner(d, r, count, [&](int k, int w) { return __ldg(rows + k * zq::kGarnerWords + w); });
+#pragma unroll
+  for (int k = 0; k < zq::kMaxDigits; ++k) {
+    if (k < count) x[at + static_cast<size_t>(k) * n] = d[k];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -480,6 +516,19 @@ int hybrid_digit_relin(const void* x, const void* ext, const void* hb, const voi
       static_cast<uint32_t*>(out), static_cast<const uint32_t*>(limbs),
       static_cast<const uint32_t*>(fwd_tw), static_cast<const uint32_t*>(slot_own), L, T, dnum,
       alpha, log_n);
+}
+
+// garner_pack on c2c [bt, L, n] -> x [bt, L, n], groups of alpha <=
+// zq::kMaxDigits limbs. Returns a cudaError_t (0 on success).
+int garner_pack(const void* c2c, void* x, const void* consts, int bt, int L, int alpha,
+                int log_n, void* stream) {
+  if (alpha < 1 || alpha > zq::kMaxDigits) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = 1 << log_n;
+  const int threads = n < kGarnerThreads ? n : kGarnerThreads;
+  return zq::launch_blocks(garner_pack_kernel, dim3(n / threads, (L + alpha - 1) / alpha, bt),
+                           threads, 0, 0, stream, static_cast<const uint32_t*>(c2c),
+                           static_cast<uint32_t*>(x), static_cast<const uint32_t*>(consts), L,
+                           alpha, n);
 }
 
 }  // extern "C"

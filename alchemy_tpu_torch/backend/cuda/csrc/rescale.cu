@@ -17,12 +17,13 @@
 // backend/ntt2.py; slot_own and slot_own4 for 5/6/8/9, slot_own for 7):
 //   intt_grid   x [G, T, n] NTT domain (any uint32) -> [G, T, n] coefficients
 //   ntt_grid    x [G, T, n] coefficients (any uint32) -> [G, T, n] NTT domain
-//   rescale_fwd coeff [G, T, n] coefficients over keep + drop limbs (rows
-//               j < L read), xs [G, K, n] Garner digits of the K dropped
-//               rows, is_neg/t/t_neg [G, n] the sign terms of the rescale,
-//               consts [L, 4 + 2K] (P mod q_j, companion, P^-1 mod q_j,
-//               companion, [pi_k]_{q_j} x K, companions x K)
-//               -> [G, L, n] NTT domain over the L keep limbs
+//   rescale_fwd coeff [G, T, n] coefficients over keep + drop limbs (T =
+//               L + K, K <= zq::kMaxDigits), consts [L, 4 + 2K] (P mod q_j,
+//               companion, P^-1 mod q_j, companion, [pi_k]_{q_j} x K,
+//               companions x K), DropConsts by value
+//               -> [G, L, n] NTT domain over the L keep limbs; or, given
+//               c0, c1 [G/2, L, n] (NTT domain), -> [G/2, 2, L, n] with row
+//               g < G/2 plus c0 at [g, 0] and row G/2 + g plus c1 at [g, 1]
 //
 // What bounds them on the H100: every kernel here splits each limb over two
 // blocks (5/6/8/9 on small grids over four), each with its part in shared
@@ -47,16 +48,19 @@
 // shape is chosen per ring size and grid size (zq.cuh GridShape,
 // launch_grid; RescaleSmall and RescaleLarge for 7); PERF.md has the measurements.
 //
-// Kernel 7's prologue (the base extension of the K dropped limbs' Garner
-// digits, the sign corrections, the division by P: K + 3 Shoup products and
-// K + 4 words read a coefficient) is the load of its first pass and never
-// goes to device memory. The two blocks of a limb are a cluster and each
-// evaluates it only on its own half (zq::ntt_forward_pair), so each block
-// reads its inputs once: evaluated on the whole row by each block, as the
-// first pass's load, it took 31-34% longer and spilled.
+// Kernel 7's prologue (the Garner digits of the K dropped limbs' residues,
+// V > P//2 and the centered t = (-V)*P^-1 mod zp, the base extension of the
+// digits, the sign corrections, the division by P: K(K+1)/2 + K + 2 Shoup
+// products and K + 1 words read a coefficient) is the load of its first pass
+// and never goes to device memory; its store adds c0 or c1 where the hybrid
+// product wants them. The two blocks of a limb are a cluster and each
+// evaluates the prologue only on its own half (zq::ntt_forward_pair), so each
+// block reads its inputs once: evaluated on the whole row by each block, as
+// the first pass's load, it took 31-34% longer and spilled.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 #include "zq.cuh"
 
@@ -147,24 +151,44 @@ ntt_grid_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 using RescaleSmall = zq::GridShape<512, 2, 3>;   // n <= 2^15
 using RescaleLarge = zq::GridShape<1024, 1, 3>;  // n = 2^16
 
+// The constants of kernel 7 that every block shares, passed by value and
+// read from the parameter space (constant cache): the Garner rows of the K
+// dropped limbs (zq::garner), the mixed-radix digits of P//2, [pi_k]_zp for
+// the K digits, zp (a power of two <= 2^16), P mod zp and P^-1 mod zp. The
+// host packs the same words (rescale.py drop_consts).
+struct DropConsts {
+  uint32_t rows[zq::kMaxDigits][zq::kGarnerWords];
+  uint32_t half[zq::kMaxDigits];
+  uint32_t pi_zp[zq::kMaxDigits];
+  uint32_t zp, p_zp, p_inv_zp;
+};
+
 // Kernel 7. Two blocks per (keep limb j, row g). Per coefficient i, as
-// she/hybrid.py _rescale_joint_jnp:189-209 computes it: v =
-// sum_k xs[k]*[pi_k]_{q_j} (the dropped part V mod q_j, k ascending), minus
-// P if V is negative (is_neg); the centered correction t (t_neg: t - zp);
-// delta = v + t*P; (coeff - delta)*P^-1. That prologue is the load of the
-// register-blocked forward passes: the two blocks of a limb are a cluster,
-// each evaluates it on its own half, and the first pass reads the partner's
-// half through distributed shared memory; block `part` then writes its
-// slots in slot order, four consecutive slots a thread in one 16-byte
-// store.
-template <class S>
+// alchemy_tpu/she/hybrid.py _rescale_joint_jnp:173-210 computes it: the
+// Garner digits x_k of the K dropped residues (the dropped part V = sum_k
+// x_k*pi_k); V > P//2 (V negative: its digits against those of P//2,
+// ascending k, so the highest digit that differs decides); V mod zp and the
+// centered t = (-V)*P^-1 mod zp (t - zp above zp/2); v = sum_k
+// x_k*[pi_k]_{q_j} (V mod q_j, k ascending), minus P if V is negative;
+// delta = v + t*P; (coeff - delta)*P^-1. mask = zp - 1 keeps the mod-zp
+// terms below 2^16, so their products fit 32 bits. That prologue is the load
+// of the register-blocked forward passes: the two blocks of a limb are a
+// cluster, each evaluates it on its own half, and the first pass reads the
+// partner's half through distributed shared memory; block `part` then
+// writes its slots in slot order, four consecutive slots a thread in one
+// 16-byte store, adding c0 (rows g < G/2) or c1 (the rest) when given.
+// Built for each K <= 4 (kK = K: the prologue's loops unroll to exactly K
+// digits) and for up to zq::kMaxDigits guarded by the runtime K, whose
+// absent digits' products are issued all the same: built that way for
+// K = 4 it took 0.465 ms at [32, 16, K = 4] on the H100, against 0.306
+// (PERF.md).
+template <class S, int kK>
 __global__ void __launch_bounds__(S::kThreads, S::kBlocks)
-rescale_fwd_kernel(const uint32_t* __restrict__ coeff, const uint32_t* __restrict__ xs,
-                   const uint32_t* __restrict__ is_neg, const uint32_t* __restrict__ tz,
-                   const uint32_t* __restrict__ t_neg, const uint32_t* __restrict__ consts,
-                   uint32_t* __restrict__ out, const uint32_t* __restrict__ limbs,
-                   const uint32_t* __restrict__ fwd_tw, const uint32_t* __restrict__ slot_own,
-                   int L, int K, uint32_t zp, int log_n) {
+rescale_fwd_kernel(const uint32_t* __restrict__ coeff, const uint32_t* __restrict__ c0,
+                   const uint32_t* __restrict__ c1, const uint32_t* __restrict__ consts,
+                   const __grid_constant__ DropConsts dc, uint32_t* __restrict__ out,
+                   const uint32_t* __restrict__ limbs, const uint32_t* __restrict__ fwd_tw,
+                   const uint32_t* __restrict__ slot_own, int L, int K, int log_n) {
   extern __shared__ uint32_t buf[];
   const int n = 1 << log_n, half = n >> 1;
   const int j = blockIdx.x >> 1, part = blockIdx.x & 1;
@@ -175,18 +199,32 @@ rescale_fwd_kernel(const uint32_t* __restrict__ coeff, const uint32_t* __restric
   const uint32_t* c = consts + static_cast<size_t>(j) * (4 + 2 * K);
   const uint32_t p_mod = c[0], p_mod_s = c[1], p_inv = c[2], p_inv_s = c[3];
   const uint32_t* cj = coeff + (g * T + j) * n;
-  const uint32_t* xg = xs + g * K * n;
-  const uint32_t* neg = is_neg + g * n;
-  const uint32_t* tg = tz + g * n;
-  const uint32_t* tn = t_neg + g * n;
-  auto rescaled = [=](int i) {
-    uint32_t v = 0;
-    for (int r = 0; r < K; ++r) {
-      v = zq::add_mod(v, zq::mulmod_shoup(xg[static_cast<size_t>(r) * n + i], c[4 + r],
-                                          c[4 + K + r], q), q);
+  const uint32_t* dropped = coeff + (g * T + L) * n;
+  const uint32_t mask = dc.zp - 1;
+  const int count = kK < zq::kMaxDigits ? kK : K;
+  auto rescaled = [&](int i) {
+    uint32_t r[kK] = {}, x[kK];
+#pragma unroll
+    for (int d = 0; d < kK; ++d) {
+      if (d < count) r[d] = dropped[static_cast<size_t>(d) * n + i];
     }
-    if (neg[i]) v = zq::sub_mod(v, p_mod, q);
-    const uint32_t tc = tn[i] ? q - (zp - tg[i]) : tg[i];
+    zq::garner(x, r, count, [&](int d, int w) { return dc.rows[d][w]; });
+    bool neg = false;
+    uint32_t vz = 0, v = 0;
+#pragma unroll
+    for (int d = 0; d < kK; ++d) {
+      if (d < count) {
+        neg = x[d] != dc.half[d] ? x[d] > dc.half[d] : neg;
+        vz = (vz + (x[d] & mask) * dc.pi_zp[d]) & mask;
+        v = zq::add_mod(v, zq::mulmod_shoup(x[d], c[4 + d], c[4 + K + d], q), q);
+      }
+    }
+    if (neg) {
+      v = zq::sub_mod(v, p_mod, q);
+      vz = (vz + dc.zp - dc.p_zp) & mask;
+    }
+    const uint32_t t = ((dc.zp - vz) & mask) * dc.p_inv_zp & mask;
+    const uint32_t tc = t > (dc.zp >> 1) ? q - (dc.zp - t) : t;
     const uint32_t delta = zq::add_mod(v, zq::mulmod_shoup(tc, p_mod, p_mod_s, q), q);
     return zq::mulmod_shoup(zq::sub_mod(cj[i], delta, q), p_inv, p_inv_s, q);
   };
@@ -194,14 +232,41 @@ rescale_fwd_kernel(const uint32_t* __restrict__ coeff, const uint32_t* __restric
   zq::ntt_forward_pair<S::kMaxRL, S::kMaxRL>(buf, rescaled, log_n, part, tw, tw + n, k);
   const uint32_t* own = slot_own + part * half;
   uint32_t* o = out + (g * L + j) * n;
+  const uint32_t* add = nullptr;
+  if (c0 != nullptr) {
+    const size_t bt = gridDim.y >> 1, b = g % bt, w = g / bt;
+    o = out + ((b * 2 + w) * L + j) * n;
+    add = (w ? c1 : c0) + (b * L + j) * n;
+  }
   walk_slots(
-      own, half, zq::vector_quads(own) && aligned16(out),
-      [&](int s, int x) { o[s] = buf[zq::pad(x)]; },
+      own, half, zq::vector_quads(own) && aligned16(o) && (add == nullptr || aligned16(add)),
+      [&](int s, int x) {
+        const uint32_t v = buf[zq::pad(x)];
+        o[s] = add != nullptr ? zq::add_mod(v, add[s], q) : v;
+      },
       [&](int s, const int (&x)[4]) {
-        const uint32_t v[4] = {buf[zq::pad(x[0])], buf[zq::pad(x[1])], buf[zq::pad(x[2])],
-                               buf[zq::pad(x[3])]};
+        uint32_t v[4] = {buf[zq::pad(x[0])], buf[zq::pad(x[1])], buf[zq::pad(x[2])],
+                         buf[zq::pad(x[3])]};
+        if (add != nullptr) {
+          uint32_t a[4];
+          zq::load4(a, add + s);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[u] = zq::add_mod(v[u], a[u], q);
+        }
         zq::store4(o + s, v);
       });
+}
+
+// Kernel 7 built for K dropped limbs in launch shape S.
+template <class S>
+auto rescale_kernel(int K) {
+  switch (K) {
+    case 1: return rescale_fwd_kernel<S, 1>;
+    case 2: return rescale_fwd_kernel<S, 2>;
+    case 3: return rescale_fwd_kernel<S, 3>;
+    case 4: return rescale_fwd_kernel<S, 4>;
+    default: return rescale_fwd_kernel<S, zq::kMaxDigits>;
+  }
 }
 
 }  // namespace
@@ -232,22 +297,26 @@ int ntt_grid(const void* x, void* out, const void* limbs, const void* fwd_tw,
                          static_cast<const uint32_t*>(slot_own), T, log_n);
 }
 
-// Kernel 7. Returns a cudaError_t (0 on success).
-int rescale_fwd(const void* coeff, const void* xs, const void* is_neg, const void* t,
-                const void* t_neg, const void* consts, void* out, const void* limbs,
-                const void* fwd_tw, const void* slot_own, int G, int L, int K, int zp, int log_n,
-                void* stream) {
+// Kernel 7; drop points to the words of a DropConsts in host memory, c0
+// and c1 are both null (-> [G, L, n]) or both given (-> [G/2, 2, L, n]).
+// Returns a cudaError_t (0 on success).
+int rescale_fwd(const void* coeff, const void* c0, const void* c1, const void* consts,
+                const void* drop, void* out, const void* limbs, const void* fwd_tw,
+                const void* slot_own, int G, int L, int K, int log_n, void* stream) {
+  if (K < 1 || K > zq::kMaxDigits || (c0 != nullptr && G % 2 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DropConsts dc;
+  std::memcpy(&dc, drop, sizeof dc);
   const bool small = log_n <= 15;
   return zq::launch_blocks(
-      small ? rescale_fwd_kernel<RescaleSmall> : rescale_fwd_kernel<RescaleLarge>, dim3(2 * L, G),
+      small ? rescale_kernel<RescaleSmall>(K) : rescale_kernel<RescaleLarge>(K), dim3(2 * L, G),
       small ? RescaleSmall::kThreads : RescaleLarge::kThreads,
       zq::padded_words(1 << (log_n - 1)), 2, stream,
-      static_cast<const uint32_t*>(coeff), static_cast<const uint32_t*>(xs),
-      static_cast<const uint32_t*>(is_neg), static_cast<const uint32_t*>(t),
-      static_cast<const uint32_t*>(t_neg), static_cast<const uint32_t*>(consts),
+      static_cast<const uint32_t*>(coeff), static_cast<const uint32_t*>(c0),
+      static_cast<const uint32_t*>(c1), static_cast<const uint32_t*>(consts), dc,
       static_cast<uint32_t*>(out), static_cast<const uint32_t*>(limbs),
-      static_cast<const uint32_t*>(fwd_tw), static_cast<const uint32_t*>(slot_own), L, K,
-      static_cast<uint32_t>(zp), log_n);
+      static_cast<const uint32_t*>(fwd_tw), static_cast<const uint32_t*>(slot_own), L, K, log_n);
 }
 
 }  // extern "C"

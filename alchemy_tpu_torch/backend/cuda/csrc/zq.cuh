@@ -67,12 +67,44 @@ __device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b, const Limb& k
   return static_cast<uint32_t>(r >= k.q ? r - k.q : r);
 }
 
+// Mixed-radix (Garner) digits over a chain of count <= kMaxDigits moduli g_k
+// (backend/modarith.py garner_digits): the value V in [0, prod g) with
+// canonical residues r_k is sum_k x_k*pi_k, pi_k = prod_{j<k} g_j,
+// 0 <= x_k < g_k: x_0 = r_0, x_k = (r_k - sum_{j<k} x_j*[pi_j]_{g_k}) *
+// [pi_k^-1]_{g_k}. row(k, w) is word w of row k of the constants (the host's
+// garner_consts, kGarnerWords words a row): g_k, [pi_k^-1]_{g_k} and its
+// Shoup companion, 0, then [pi_j]_{g_k} for j < k (j = 0: 1, which reduces
+// x_0 mod g_k) from word 4 and their companions from word 4 + kMaxDigits.
+// The loops unroll over kN >= count, so the digits stay in registers; a
+// caller that knows count at compile time passes kN = count, and no product
+// is issued for absent digits.
+constexpr int kMaxDigits = 8;
+constexpr int kGarnerWords = 4 + 2 * kMaxDigits;
+
+template <int kN, typename Row>
+__device__ __forceinline__ void garner(uint32_t (&x)[kN], const uint32_t (&r)[kN], int count,
+                                       Row row) {
+  x[0] = r[0];
+#pragma unroll
+  for (int k = 1; k < kN; ++k) {
+    if (k < count) {
+      const uint32_t g = row(k, 0);
+      uint32_t acc = 0;
+#pragma unroll
+      for (int j = 0; j < k; ++j) {
+        acc = add_mod(acc, mulmod_shoup(x[j], row(k, 4 + j), row(k, 4 + kMaxDigits + j), g), g);
+      }
+      x[k] = mulmod_shoup(sub_mod(r[k], acc, g), row(k, 1), row(k, 2), g);
+    }
+  }
+}
+
 // Word i of the row a forward pass loads (x_i, any uint32): the row in device
 // memory (kernels B, 6 and 8), or a callable that returns the kernel's
-// prologue for coefficient i (kernel 7's correction and division by P;
-// kernel 4's base extension), which never goes to device memory. (A plain
-// pointer keeps the register count of 6 and 8: read through a callable, B
-// once spilled under a 32-register cap.)
+// prologue for coefficient i (kernel 7's Garner digits, sign terms,
+// correction and division by P; kernel 4's base extension), which never
+// goes to device memory. (A plain pointer keeps the register count of 6 and
+// 8: read through a callable, B once spilled under a 32-register cap.)
 __device__ __forceinline__ uint32_t elem(const uint32_t* __restrict__ x, int i) { return x[i]; }
 template <typename F>
 __device__ __forceinline__ uint32_t elem(const F& f, int i) { return f(i); }

@@ -1,5 +1,5 @@
-"""Kernels A, B and 4 of BGV multiply + relinearize: wrappers, plain
-versions and launch counters.
+"""Kernels A, B and 4 of BGV multiply + relinearize, and the Garner digits
+between A and 4: wrappers, plain versions and launch counters.
 
 Kernel A, `tensor_intt` (replaces `alchemy_tpu/backend/pallas/
 mul_relin_pallas.py:232 _tensor_intt_kernel`): per limb, the Karatsuba
@@ -19,6 +19,10 @@ every limb t of the extended chain (T = L + K limbs), the base extension
 Σ_k x_k·[π_k]_{q_t} of each digit group's Garner digits, its forward NTT,
 and the sums t0 = Σ_j D_j·hb[j, t], t1 = Σ_j D_j·ha[j, t] from zero, with
 raw hints or Shoup pairs; c0 and c1 join after the rescale by P.
+
+`garner_pack` (replaces no TPU kernel: the JAX package computes it in XLA,
+`alchemy_tpu/she/hybrid.py:446-451`): c2c's Garner mixed-radix digits
+within each digit group, kernel 4's input, one coefficient a thread.
 
 On the H100 every kernel (and 5–9 in `rescale.py`) runs two blocks per
 (limb, row), each with half of the limb's n words in shared memory (64 KB
@@ -55,6 +59,7 @@ from alchemy_tpu_torch.backend.modarith import (
     _garner_tables,
     _sub_mod,
     extend_digits,
+    garner_digits,
     mulmod,
     mulmod_shoup,
     narrow,
@@ -68,14 +73,19 @@ from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3, ntt3_bcast, psi
 from alchemy_tpu_torch.utils.profiling import span
 
 #: launches of each kernel since the last `reset_launches()`
-LAUNCHES = {"tensor_intt": 0, "digit_relin": 0, "hybrid_digit_relin": 0}
+LAUNCHES = {"tensor_intt": 0, "digit_relin": 0, "hybrid_digit_relin": 0, "garner_pack": 0}
 #: launches of each kernel by shape since the last `reset_launches()`:
-#: {("tensor_intt", Bt, L, n): count}, {("digit_relin", Bt, L, n): count} and
-#: {("hybrid_digit_relin", Bt, L, T, dnum, n): count}
+#: {("tensor_intt", Bt, L, n): count}, {("digit_relin", Bt, L, n): count},
+#: {("hybrid_digit_relin", Bt, L, T, dnum, n): count} and
+#: {("garner_pack", Bt, L, alpha, n): count}
 LAUNCHES_BY_SHAPE: dict[tuple, int] = {}
 
 #: shared memory one block may use on sm_90 (bytes)
 MAX_SHARED_BYTES = 232448
+#: the longest chain whose Garner digits the kernels compute in registers
+#: (zq.cuh kMaxDigits), and the words of one row of `garner_consts`
+GARNER_MAX_DIGITS = 8
+GARNER_WORDS = 4 + 2 * GARNER_MAX_DIGITS
 
 
 def reset_launches() -> None:
@@ -246,6 +256,34 @@ def hybrid_ext_consts(groups: tuple[tuple[int, ...], ...],
     return np.stack([_with_shoup(np.array([p % q for p in pis]), q) for q in targets])
 
 
+@lru_cache(maxsize=None)
+def garner_consts(chain: tuple[int, ...]) -> np.ndarray:
+    """[K, GARNER_WORDS] uint32, the Garner digits' constants of `chain` as
+    zq.cuh `garner` reads them: row k holds g_k, [π_k⁻¹]_{g_k}, its Shoup
+    companion, 0, then [π_j]_{g_k} for j < k (π_0 = 1) and their companions
+    from word 4 + GARNER_MAX_DIGITS, zero past k. Raises for chains longer
+    than GARNER_MAX_DIGITS, whose digits the kernels do not take."""
+    if not 0 < len(chain) <= GARNER_MAX_DIGITS:
+        raise NotImplementedError(f"a chain of {len(chain)} limbs: the kernels take Garner "
+                                  f"digits over 1 to {GARNER_MAX_DIGITS} limbs")
+    pi, inv = _garner_tables(chain)
+    rows = np.zeros((len(chain), GARNER_WORDS), dtype=np.uint32)
+    for k, g in enumerate(chain):
+        rows[k, :3] = (g, inv[k], shoup_const(inv[k], g))
+        ws = _with_shoup(np.array([pi[j] % g for j in range(k)], dtype=np.int64), g)
+        rows[k, 4:4 + k], rows[k, 4 + GARNER_MAX_DIGITS:4 + GARNER_MAX_DIGITS + k] = ws
+    return rows
+
+
+def garner_pack_plain(n: int, groups, c2c: torch.Tensor) -> torch.Tensor:
+    """Plain `garner_pack`: → [Bt, L, n] int32."""
+    res, xs, off = widen(c2c), [], 0
+    for grp in groups:
+        xs.extend(garner_digits(res[:, off:off + len(grp)], tuple(grp)))
+        off += len(grp)
+    return narrow(torch.stack(xs, dim=1))
+
+
 def hybrid_digit_stage_plain(n: int, ext_qs: tuple[int, ...], groups, x, hint_b, hint_a,
                              order: str = "pallas"):
     """Plain kernel 4: → [2, Bt, T, n] int32 (see `hybrid_digit_stage`)."""
@@ -386,7 +424,7 @@ def _device_ext(groups, ext_qs: tuple[int, ...], device: str) -> torch.Tensor:
 def hybrid_digit_stage(n: int, ext_qs: tuple[int, ...], groups, x: torch.Tensor,
                        hint_b, hint_a, order: str = "pallas") -> torch.Tensor:
     """Kernel 4: the Garner digits x [Bt, L, n] of c2c (natural order; rows
-    group-major, as `she.hybrid.garner_pack` makes them) and the hybrid hints
+    group-major, as `garner_pack` makes them) and the hybrid hints
     over ext_qs (raw [dnum, T, n] or Shoup pairs, slot `order`) →
     [2, Bt, T, n], the accumulator (t0, t1) before the rescale by P."""
     with span("launch.hybrid_digit_relin", entry="hybrid_digit_relin"):
@@ -409,4 +447,38 @@ def hybrid_digit_stage(n: int, ext_qs: tuple[int, ...], groups, x: torch.Tensor,
             out.data_ptr(), t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_own"].data_ptr(),
             int(shoup), Bt, L, T, dnum, alpha, n.bit_length() - 1, stream), "hybrid_digit_relin")
         count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "hybrid_digit_relin", Bt, L, T, dnum, n)
+        return out
+
+
+@lru_cache(maxsize=None)
+def _device_garner(groups, device: str) -> torch.Tensor:
+    """The groups' `garner_consts`, row l for limb l of the chain, on
+    `device`, uploaded once (a captured CUDA graph may not copy from the
+    host)."""
+    rows = np.concatenate([garner_consts(tuple(g)) for g in groups])
+    return torch.from_numpy(rows.view(np.int32)).to(device)
+
+
+def garner_pack(n: int, groups, c2c: torch.Tensor) -> torch.Tensor:
+    """The Garner digits of c2c [Bt, L, n] (int32 coefficients, canonical)
+    within each digit group, rows group-major → [Bt, L, n] int32: kernel 4's
+    input (`x_pack` of hybrid.py:446-451, here in natural coefficient
+    order). groups split the chain in order into runs of α limbs, the last
+    possibly shorter; α ≤ GARNER_MAX_DIGITS on the card."""
+    with span("launch.garner_pack", entry="garner_pack"):
+        groups = tuple(map(tuple, groups))
+        chain = tuple(q for g in groups for q in g)
+        alpha = _group_width(groups, chain)
+        Bt, L, dev = c2c.shape[0], len(chain), c2c.device
+        _check("c2c", c2c, (Bt, L, n), dev)
+        if dev.type == "cpu":
+            return garner_pack_plain(n, groups, c2c)
+        _kernel_device(n, dev)
+        consts = _device_garner(groups, str(dev))
+        out = torch.empty_like(c2c)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.check(build.library().garner_pack(
+            c2c.data_ptr(), out.data_ptr(), consts.data_ptr(), Bt, L, alpha, n.bit_length() - 1,
+            stream), "garner_pack")
+        count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "garner_pack", Bt, L, alpha, n)
         return out

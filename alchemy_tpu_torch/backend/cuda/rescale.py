@@ -12,9 +12,10 @@ wrapper `ntt3_grid_pallas` :180): the forward transform, any uint32 input.
 
 Kernel 7, `rescale_fwd` (replaces `rescale_pallas.py:206
 _rescale_fwd_kernel`, "kernel D", wrapper `rescale_joint_pallas` :306): for
-every keep limb q_j, the base extension of the K dropped limbs' Garner
-digits, the centered correction δ, the exact division by P, and the
-forward NTT, in either slot order.
+every keep limb q_j, the Garner digits and sign terms of the K dropped
+limbs, their base extension, the centered correction δ, the exact division
+by P, and the forward NTT, in either slot order; in the hybrid product it
+also adds c0 and c1 as it stores.
 
 Kernels 8 and 9, `ntt2_grid` and `intt2_grid` (replace `alchemy_tpu/backend/
 pallas/ntt_pallas.py:211 _fwd_kernel` and `:232 _inv_kernel`, wrappers
@@ -53,18 +54,24 @@ import torch
 
 from alchemy_tpu_torch.backend.cuda import build
 from alchemy_tpu_torch.backend.cuda.mul_relin import (
+    GARNER_MAX_DIGITS,
+    GARNER_WORDS,
     _check,
     _device_tables,
     _kernel_device,
+    _ptr,
     _with_shoup,
     count_launch,
+    garner_consts,
     plain_transforms,
 )
 from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
     _garner_tables,
+    _sign_terms,
     _sub_mod,
     extend_digits,
+    garner_digits,
     narrow,
     qcol,
     widen,
@@ -143,22 +150,49 @@ def rescale_consts(keep: tuple[int, ...], drop: tuple[int, ...]) -> np.ndarray:
     return np.stack(rows).astype(np.uint32)
 
 
+@lru_cache(maxsize=None)
+def drop_consts(drop: tuple[int, ...], zp: int) -> np.ndarray:
+    """The words of rescale.cu `DropConsts`, uint32, which kernel 7 takes by
+    value: `garner_consts(drop)` padded to GARNER_MAX_DIGITS rows, the
+    mixed-radix digits of P//2 and [π_k]_zp (each padded to
+    GARNER_MAX_DIGITS), zp, P mod zp and P⁻¹ mod zp (`_sign_terms`). zp
+    must be a power of two ≤ 2^16."""
+    if zp & (zp - 1) or not 0 < zp <= 1 << 16:
+        raise ValueError(f"zp={zp}: kernel 7 takes a power-of-two zp <= 2^16")
+    rows = np.zeros((GARNER_MAX_DIGITS, GARNER_WORDS), dtype=np.uint32)
+    rows[:len(drop)] = garner_consts(drop)
+    P, pi = math.prod(drop), _garner_tables(drop)[0]
+    half, h = np.zeros(GARNER_MAX_DIGITS, dtype=np.uint32), P // 2
+    for k, g in enumerate(drop):
+        half[k], h = h % g, h // g
+    pi_zp = np.zeros(GARNER_MAX_DIGITS, dtype=np.uint32)
+    pi_zp[:len(drop)] = [x % zp for x in pi]
+    p_inv_zp = pow(P % zp, -1, zp) if zp > 1 else 0
+    return np.concatenate([rows.ravel(), half, pi_zp, [zp, P % zp, p_inv_zp]]).astype(np.uint32)
+
+
 def rescale_fwd_plain(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: int,
-                      coeff, xs, is_neg, t, t_neg, order: str = "pallas") -> torch.Tensor:
-    """Plain kernel 7: → [G, L, n] int32 (see `rescale_fwd`)."""
+                      coeff, order: str = "pallas", c01=None) -> torch.Tensor:
+    """Plain kernel 7: → [G, L, n] int32, or [G/2, 2, L, n] with c01 (see
+    `rescale_fwd`)."""
     ntt = plain_transforms(order)[0]
     dev, L, P = coeff.device, len(keep), math.prod(drop)
     q = qcol(keep, dev)
     p_mod = torch.tensor([P % qj for qj in keep], device=dev)[:, None]
     p_inv = torch.tensor([pow(P % qj, -1, qj) for qj in keep], device=dev)[:, None]
-    xw = widen(xs)
-    v = extend_digits([xw[:, k] for k in range(len(drop))], drop, keep)     # [G, L, n]
-    v = torch.where(is_neg[:, None, :] != 0, _sub_mod(v, p_mod, q), v)
-    tw = widen(t)[:, None, :]
-    tc = torch.where(t_neg[:, None, :] != 0, q - (zp - tw), tw)
+    xs = garner_digits(widen(coeff[:, L:]), drop)
+    is_neg, t, t_neg = _sign_terms(xs, drop, zp)
+    v = extend_digits(xs, drop, keep)                                     # [G, L, n]
+    v = torch.where(is_neg[:, None, :], _sub_mod(v, p_mod, q), v)
+    tw = t[:, None, :]
+    tc = torch.where(t_neg[:, None, :], q - (zp - tw), tw)
     delta = _add_mod(v, tc * p_mod % q, q)
     diff = _sub_mod(widen(coeff[:, :L]), delta, q)
-    return narrow(ntt(diff * p_inv % q, n, keep))
+    out = ntt(diff * p_inv % q, n, keep)
+    if c01 is not None:
+        r01 = out.reshape(2, -1, L, n)
+        out = torch.stack([_add_mod(widen(c), r, q) for c, r in zip(c01, r01)], dim=1)
+    return narrow(out)
 
 
 # ---------------------------------------------------------------------------
@@ -244,31 +278,37 @@ def _device_consts(keep: tuple[int, ...], drop: tuple[int, ...], device: str) ->
 
 
 def rescale_fwd(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: int,
-                coeff: torch.Tensor, xs: torch.Tensor, is_neg: torch.Tensor,
-                t: torch.Tensor, t_neg: torch.Tensor, order: str = "pallas") -> torch.Tensor:
-    """Kernel 7: coefficients coeff [G, L + K, n] over keep + drop (rows
-    j < L are read), the Garner digits xs [G, K, n] of the K dropped rows
-    and the sign terms is_neg, t, t_neg [G, n] of `she.hybrid.rescale_joint`
-    (all int32) → the rescaled rows [G, L, n] over keep, NTT domain in slot
-    `order`."""
+                coeff: torch.Tensor, order: str = "pallas", c01=None) -> torch.Tensor:
+    """Kernel 7: canonical coefficients coeff [G, L + K, n] (int32) over
+    keep + drop → the rows rescaled by P = ∏ drop [G, L, n] over keep, NTT
+    domain in slot `order`; the Garner digits and sign terms of the K
+    dropped rows (`she.hybrid.rescale_joint`) are computed in the kernel's
+    load. With c01 = (c0, c1), each [G/2, L, n] in slot order, → [G/2, 2,
+    L, n]: row g < G/2 plus c0[g] at [g, 0], row G/2 + g plus c1[g] at
+    [g, 1] (the hybrid product's add-back). zp must be a power of two ≤
+    2^16, and K ≤ GARNER_MAX_DIGITS on the card."""
     with span("launch.rescale_fwd", entry="rescale_fwd"):
         keep, drop = tuple(keep), tuple(drop)
         L, K = len(keep), len(drop)
         G, dev = coeff.shape[0], coeff.device
         _check("coeff", coeff, (G, L + K, n), dev)
-        _check("xs", xs, (G, K, n), dev)
-        for name, f in (("is_neg", is_neg), ("t", t), ("t_neg", t_neg)):
-            _check(name, f, (G, n), dev)
+        if c01 is not None:
+            if G % 2:
+                raise ValueError(f"coeff: {G} rows, want the t0 and t1 rows of each ciphertext")
+            for name, c in zip(("c0", "c1"), c01):
+                _check(name, c, (G // 2, L, n), dev)
         if dev.type == "cpu":
-            return rescale_fwd_plain(n, keep, drop, zp, coeff, xs, is_neg, t, t_neg, order)
+            return rescale_fwd_plain(n, keep, drop, zp, coeff, order, c01)
         _kernel_device(n, dev)
+        words = drop_consts(drop, zp)
         tab = _device_tables(n, keep, order, str(dev))
-        out = torch.empty((G, L, n), dtype=torch.int32, device=dev)
+        c0, c1 = (None, None) if c01 is None else c01
+        out = torch.empty((G, L, n) if c01 is None else (G // 2, 2, L, n), dtype=torch.int32,
+                          device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.check(build.library().rescale_fwd(
-            coeff.data_ptr(), xs.data_ptr(), is_neg.data_ptr(), t.data_ptr(), t_neg.data_ptr(),
-            _device_consts(keep, drop, str(dev)).data_ptr(), out.data_ptr(),
-            tab["limbs"].data_ptr(), tab["fwd"].data_ptr(), tab["slot_own"].data_ptr(),
-            G, L, K, zp, n.bit_length() - 1, stream), "rescale_fwd")
+            coeff.data_ptr(), _ptr(c0), _ptr(c1), _device_consts(keep, drop, str(dev)).data_ptr(),
+            words.ctypes.data, out.data_ptr(), tab["limbs"].data_ptr(), tab["fwd"].data_ptr(),
+            tab["slot_own"].data_ptr(), G, L, K, n.bit_length() - 1, stream), "rescale_fwd")
         count_launch(LAUNCHES, LAUNCHES_BY_SHAPE, "rescale_fwd", G, L, K, n)
         return out

@@ -17,6 +17,7 @@ and the plain versions of kernels 4 and 7.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -126,6 +127,32 @@ def garner_digits(res, chain: tuple[int, ...]) -> list:
             acc = (acc + xs[j] * (pi[j] % g)) % g
         xs.append(_sub_mod(res[..., k, :], acc, g) * inv[k] % g)
     return xs
+
+
+def _sign_terms(xs: list, drop: tuple[int, ...], zp: int):
+    """For the dropped part V = Σ_k x_k·π_k of each coefficient: is_neg
+    (V > P//2, a lexicographic compare of the digits) and the centered
+    t ≡ (−V_c)·P⁻¹ (mod zp) with t_neg = t > zp//2 (hybrid.py:175-197):
+    the plain form of kernel 7's sign terms and of the mesh path's rescale."""
+    P = math.prod(drop)
+    pi, _ = _garner_tables(drop)
+    hd, h = [], P // 2
+    for g in drop:
+        hd.append(h % g)
+        h //= g
+    gt = torch.zeros_like(xs[0], dtype=torch.bool)
+    eq = torch.ones_like(xs[0], dtype=torch.bool)
+    for k in range(len(drop) - 1, -1, -1):
+        gt = gt | (eq & (xs[k] > hd[k]))
+        eq = eq & (xs[k] == hd[k])
+    mask = zp - 1
+    vz = torch.zeros_like(xs[0])
+    for k, x in enumerate(xs):
+        vz = (vz + (x & mask) * (pi[k] % zp)) & mask
+    vz = torch.where(gt, (vz + zp - P % zp) & mask, vz)
+    inv_p = pow(P % zp, -1, zp) if zp > 1 else 0
+    t = (((zp - vz) & mask) * inv_p) & mask
+    return gt, t, t > zp // 2
 
 
 @lru_cache(maxsize=None)

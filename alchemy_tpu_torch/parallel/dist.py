@@ -56,6 +56,7 @@ from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
     _cond_sub,
     _extend_consts,
+    _sign_terms,
     garner_digits,
     narrow,
     shoup_const,
@@ -65,7 +66,7 @@ from alchemy_tpu_torch.backend.ntt import cyclic_intt_stages, cyclic_ntt_stages
 from alchemy_tpu_torch.backend.ntt3 import psi_powers
 from alchemy_tpu_torch.parallel.mesh import check_device_type
 from alchemy_tpu_torch.she.fast import FastParams
-from alchemy_tpu_torch.she.hybrid import _sign_terms
+
 
 #: P("batch", None, "limb", "coeff"): ciphertexts [B, 2, L, n]
 CT_PLACEMENTS = (Shard(0), Shard(2), Shard(3))

@@ -10,18 +10,20 @@ relinearization runs over the extended chain Q·P of T = L + K limbs:
   combine:  (t0, t1) = Σ_j D_j·(B_j, A_j) over Q·P, one exact joint rescale
             by P back to Q (`rescale_joint`), added to (c0, c1).
 
-On the card `mul_relin_hybrid` runs kernel A (tensor product + inverse NTT
-of c2), the Garner digits in plain torch, kernel 4 (base extension, digit
-NTTs, hint products) and `rescale_joint`: kernel 9 ("mxu") or 5 ("pallas"),
-the Garner digits and sign terms of the dropped limbs in plain torch,
-kernel 7; every kernel in the slot order of `FastParams.impl`. On CPU tensors
-every kernel wrapper runs its plain version; `mul_relin_hybrid_plain` and
-`_rescale_joint_plain` run the plain versions on any device, the reference
-the kernel path is held against on the card. Sampling follows the JAX
-package call for call, so one seed gives bit-identical keys and hints.
-The Garner lifting and base extension of hybrid.py:78-125 (`garner_digits`,
-`extend_digits`) live in `backend/modarith.py`, where the plain versions of
-kernels 4 and 7 share them.
+On the card `mul_relin_hybrid` launches five kernels and no torch op:
+kernel A (tensor product + inverse NTT of c2), `garner_pack` (c2's Garner
+digits), kernel 4 (base extension, digit NTTs, hint products) and
+`rescale_joint`'s kernel 9 ("mxu") or 5 ("pallas") and kernel 7, which
+computes the dropped limbs' Garner digits and sign terms in its load and
+adds (c0, c1) in its store; every kernel in the slot order of
+`FastParams.impl`. On CPU tensors every kernel wrapper runs its plain
+version; `mul_relin_hybrid_plain` and `_rescale_joint_plain` run the plain
+versions on any device, the reference the kernel path is held against on
+the card. Sampling follows the JAX package call for call, so one seed gives
+bit-identical keys and hints. The Garner lifting, base extension and sign
+terms of hybrid.py:78-125, 175-197 (`garner_digits`, `extend_digits`,
+`_sign_terms`) live in `backend/modarith.py`, where the plain versions of
+the kernels share them.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import numpy as np
 import torch
 
 from alchemy_tpu_torch.backend.cuda.mul_relin import (
+    garner_pack,
+    garner_pack_plain,
     hybrid_digit_stage,
     hybrid_digit_stage_plain,
     tensor_intt,
@@ -45,9 +49,7 @@ from alchemy_tpu_torch.backend.cuda.rescale import (
 )
 from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
-    _garner_tables,
     _sub_mod,
-    garner_digits,
     mulmod,
     narrow,
     qcol,
@@ -63,57 +65,31 @@ from alchemy_tpu_torch.utils.profiling import span
 # ---------------------------------------------------------------------------
 
 
-def _sign_terms(xs: list, drop: tuple[int, ...], zp: int):
-    """For the dropped part V = Σ_k x_k·π_k of each coefficient: is_neg
-    (V > P//2, a lexicographic compare of the digits) and the centered
-    t ≡ (−V_c)·P⁻¹ (mod zp) with t_neg = t > zp//2 (hybrid.py:175-197)."""
-    P = math.prod(drop)
-    pi, _ = _garner_tables(drop)
-    hd, h = [], P // 2
-    for g in drop:
-        hd.append(h % g)
-        h //= g
-    gt = torch.zeros_like(xs[0], dtype=torch.bool)
-    eq = torch.ones_like(xs[0], dtype=torch.bool)
-    for k in range(len(drop) - 1, -1, -1):
-        gt = gt | (eq & (xs[k] > hd[k]))
-        eq = eq & (xs[k] == hd[k])
-    mask = zp - 1
-    vz = torch.zeros_like(xs[0])
-    for k, x in enumerate(xs):
-        vz = (vz + (x & mask) * (pi[k] % zp)) & mask
-    vz = torch.where(gt, (vz + zp - P % zp) & mask, vz)
-    inv_p = pow(P % zp, -1, zp) if zp > 1 else 0
-    t = (((zp - vz) & mask) * inv_p) & mask
-    return gt, t, t > zp // 2
-
-
-def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, plain: bool) -> torch.Tensor:
+def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, plain: bool,
+                   c01=None) -> torch.Tensor:
+    """`rescale_joint`; with c01 = (c0, c1), each [Bt, L − k_drop, n], ct
+    is the hybrid product's (t0, t1) [2, Bt, T, n] and the result [Bt, 2,
+    L − k_drop, n] has (c0, c1) added (kernel 7's store)."""
     with span("rescale_joint"):
         if p.zp & (p.zp - 1) or p.zp > (1 << 16):
-            # the mod-zp sums of `_sign_terms` multiply two values < zp
+            # the mod-zp sums of the sign terms multiply two values < zp
             raise ValueError("rescale_joint requires a power-of-two zp <= 2^16")
         intt = grid_transforms(p.order, plain)[1]
         fwd = rescale_fwd_plain if plain else rescale_fwd
         qs = tuple(p.qs)
         keep, drop = qs[:-k_drop], qs[-k_drop:]
-        lead = ct.shape[:-2]
         coeff = intt(p.n, qs, ct.reshape(-1, len(qs), p.n).contiguous())   # [G, T, n]
-        with span("glue.rescale_digits"):
-            xs = garner_digits(widen(coeff[:, len(keep):]), drop)
-            is_neg, t, t_neg = _sign_terms(xs, drop, p.zp)
-            xs, is_neg, t, t_neg = (narrow(torch.stack(xs, dim=1)), is_neg.to(torch.int32),
-                                    narrow(t), t_neg.to(torch.int32))
-        out = fwd(p.n, keep, drop, p.zp, coeff, xs, is_neg, t, t_neg, p.order)
-        return out.reshape(*lead, len(keep), p.n)
+        out = fwd(p.n, keep, drop, p.zp, coeff, p.order, c01)
+        return out if c01 is not None else out.reshape(*ct.shape[:-2], len(keep), p.n)
 
 
 def rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int) -> torch.Tensor:
     """Exact BGV rescale by P = ∏ of the last k_drop limbs, in one inverse/
     forward NTT round trip (hybrid.py:134): ct [..., T, n] int32, NTT
     domain → [..., T − k_drop, n]. zp must be a power of two ≤ 2^16. Kernel 9
-    ("mxu") or 5 ("pallas"), then the Garner digits and sign terms of the
-    dropped rows, then kernel 7. At k_drop = 1 it equals `fast.rescale`."""
+    ("mxu") or 5 ("pallas"), then kernel 7, which computes the Garner digits
+    and sign terms of the dropped rows in its load. At k_drop = 1 it equals
+    `fast.rescale`."""
     return _rescale_joint(p, ct, k_drop, plain=False)
 
 
@@ -210,20 +186,9 @@ def hybrid_relin_hint(hk: HybridKS, s_coeffs: np.ndarray, rng: np.random.Generat
     return narrow(torch.stack(Bs)), narrow(torch.stack(As))
 
 
-def garner_pack(hk: HybridKS, c2c: torch.Tensor) -> torch.Tensor:
-    """Garner digits of c2c [Bt, L, n] (int32 coefficients) within each
-    digit group, rows group-major → [Bt, L, n] int32: kernel 4's input
-    (`x_pack` of hybrid.py:446-451, here in natural coefficient order)."""
-    with span("glue.garner_pack"):
-        res, xs, off = widen(c2c), [], 0
-        for grp in hk.groups:
-            xs.extend(garner_digits(res[:, off:off + len(grp)], grp))
-            off += len(grp)
-        return narrow(torch.stack(xs, dim=1))
-
-
-def _mul_relin_hybrid(hk: HybridKS, ct_a, ct_b, hint_b, hint_a, tensor, digit_stage,
-                      rescale) -> torch.Tensor:
+def _mul_relin_hybrid(hk: HybridKS, ct_a, ct_b, hint_b, hint_a, plain: bool) -> torch.Tensor:
+    tensor, garner, digit_stage = ((tensor_intt_plain, garner_pack_plain, hybrid_digit_stage_plain)
+                                   if plain else (tensor_intt, garner_pack, hybrid_digit_stage))
     with span("mul_relin_hybrid") as root:
         p, pe = hk.p, hk.pe
         L, n = len(p.qs), p.n
@@ -234,12 +199,9 @@ def _mul_relin_hybrid(hk: HybridKS, ct_a, ct_b, hint_b, hint_a, tensor, digit_st
             root.attrs.update(batch=a.shape[0], L=L, n=n)
         c0, c1, c2c = tensor(n, p.qs, a, b, p.order)
         hint_b, hint_a = (kernel_hint(h, (hk.dnum, len(pe.qs), n)) for h in (hint_b, hint_a))
-        t01 = digit_stage(n, pe.qs, hk.groups, garner_pack(hk, c2c), hint_b, hint_a, p.order)
-        r01 = rescale(pe, t01, len(hk.ps))                   # [2, Bt, L, n]
-        with span("glue.add_back"):
-            r01, q = widen(r01), qcol(p.qs, c0.device)
-            out = narrow(torch.stack([_add_mod(widen(c0), r01[0], q),
-                                      _add_mod(widen(c1), r01[1], q)], dim=1))
+        t01 = digit_stage(n, pe.qs, hk.groups, garner(n, hk.groups, c2c), hint_b, hint_a,
+                          p.order)                                   # [2, Bt, T, n]
+        out = _rescale_joint(pe, t01, len(hk.ps), plain, (c0, c1))   # [Bt, 2, L, n]
         return out.reshape(*lead, 2, L, n)
 
 
@@ -249,18 +211,16 @@ def mul_relin_hybrid(hk: HybridKS, ct_a: torch.Tensor, ct_b: torch.Tensor,
     NTT-domain ciphertexts at the base chain → the same. Hints are raw
     [dnum, T, n] or Shoup pairs (`fast.shoup_precompute` over hk.pe.qs), in
     any layout (`fast.kernel_hint`).
-    Kernel A → Garner digits → kernel 4 → `rescale_joint` → + (c0, c1), in
-    the slot order of hk.p.impl. Traced as the root span `mul_relin_hybrid`
-    (attributes batch, L, n) over the kernels' launch spans, the glue's spans
-    `glue.garner_pack`, `glue.add_back` and `rescale_joint` with its
-    `glue.rescale_digits` (`utils.profiling`)."""
-    return _mul_relin_hybrid(hk, ct_a, ct_b, hint_b, hint_a, tensor_intt,
-                             hybrid_digit_stage, rescale_joint)
+    Kernel A → `garner_pack` → kernel 4 → `rescale_joint` (kernel 9 or 5,
+    then kernel 7, which adds (c0, c1) as it stores), in the slot order of
+    hk.p.impl; on the card five launches and no torch op. Traced as the
+    root span `mul_relin_hybrid` (attributes batch, L, n) over the kernels'
+    launch spans and `rescale_joint` (`utils.profiling`)."""
+    return _mul_relin_hybrid(hk, ct_a, ct_b, hint_b, hint_a, plain=False)
 
 
 def mul_relin_hybrid_plain(hk: HybridKS, ct_a: torch.Tensor, ct_b: torch.Tensor,
                            hint_b, hint_a) -> torch.Tensor:
     """`mul_relin_hybrid` through the plain versions of its kernels, on any
     device."""
-    return _mul_relin_hybrid(hk, ct_a, ct_b, hint_b, hint_a, tensor_intt_plain,
-                             hybrid_digit_stage_plain, _rescale_joint_plain)
+    return _mul_relin_hybrid(hk, ct_a, ct_b, hint_b, hint_a, plain=True)

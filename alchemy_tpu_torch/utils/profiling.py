@@ -9,8 +9,8 @@ and the program's spans.
   op counts keyed by (op, modulus-chain annotation), derived from the IR.
   Data volumes are not estimated here;
 - `span`, `tracing`, `spans`, `reset`: spans at the layer boundaries of the
-  entry ops (`she.fast.mul_relin`, `she.hybrid.mul_relin_hybrid`), their
-  glue and the kernel wrappers, kept in memory.
+  entry ops (`she.fast.mul_relin`, `she.hybrid.mul_relin_hybrid`,
+  `she.hybrid.rescale_joint`) and the kernel wrappers, kept in memory.
 
 A span records its name, its start and end (`time.time_ns()`, Unix-epoch
 ns: the clock in which `torch.profiler` reports host and device events, so

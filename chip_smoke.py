@@ -227,11 +227,29 @@ def tensor_cost(Bt: int, L: int, n: int) -> tuple[int, int]:
 
 def rescale_cost(G: int, L: int, K: int, n: int) -> tuple[int, int]:
     """(bytes, 32-bit multiplies) of kernel 7 on [G, L, n] with K dropped
-    limbs: the L coefficient rows, the K Garner digit rows and the three
-    sign rows in, L rows out, twiddles, the slot table and the constants;
-    per word K + 2 Shoup products and the forward NTT."""
+    limbs as `benchmark/roofline.py` counts them (its frozen copy): the L
+    coefficient rows, the K Garner digit rows and the three sign rows in, L
+    rows out, twiddles, the slot table and the constants; per word K + 2
+    Shoup products and the forward NTT. The kernel now reads the K dropped
+    coefficient rows in their place and computes their digits and sign
+    terms itself (`garner_shoups(K)` products a word more)."""
     return (4 * (G * (2 * L + K + 3) * n + 2 * L * n + n + L * (4 + 2 * K)),
             G * L * (MUL_CONST * (K + 2) * n + ntt_muls(n)))
+
+
+def garner_shoups(K: int) -> int:
+    """Shoup products of the Garner digits of K residues: k + 1 for digit
+    k ≥ 1 (its sum over the digits below and the product by π_k⁻¹)."""
+    return (K - 1) * (K + 2) // 2
+
+
+def garner_cost(Bt: int, groups, n: int) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of `garner_pack` on [Bt, L, n]: every
+    word in and out once, each limb's constants; the Garner digits' Shoup
+    products of each group."""
+    L = sum(map(len, groups))
+    return (4 * (2 * Bt * L * n + 20 * L),
+            Bt * n * MUL_CONST * sum(garner_shoups(len(g)) for g in groups))
 
 
 def bound(nbytes: float, muls: float, clock_hz: float) -> tuple[float, str]:
@@ -518,13 +536,13 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
 
     from alchemy_tpu_torch.backend.cuda import mul_relin as mr
     from alchemy_tpu_torch.backend.cuda import rescale as rk
-    from alchemy_tpu_torch.backend.modarith import garner_digits, narrow, widen
     from alchemy_tpu_torch.she import fast, hybrid
 
     hk = hybrid.HybridKS.make(fast.FastParams.make(log_n, L))
     pe, n, K = hk.pe, 1 << log_n, len(hk.ps)
     T, keep, drop = len(pe.qs), hk.p.qs, hk.ps
-    x = hybrid.garner_pack(hk, random_residues(rng, hk.p.qs, (Bt, L, n)).cuda())
+    c2c = random_residues(rng, hk.p.qs, (Bt, L, n)).cuda()
+    x = mr.garner_pack(n, hk.groups, c2c)
     raw = [random_residues(rng, pe.qs, (hk.dnum, T, n)).cuda() for _ in range(2)]
     shoup = [fast.shoup_precompute(h, pe.qs) for h in raw]
     # kernel 5 on any uint32, kernel 6 at the chain's rescale shape [2, L, n]
@@ -532,12 +550,11 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
                              .astype("uint32").view("int32")).cuda()
     rows6 = torch.from_numpy(rng.integers(0, 1 << 32, (2, L, n), dtype="uint64")
                              .astype("uint32").view("int32")).cuda()
-    # kernel 7 inputs as rescale_joint makes them from canonical coefficients
+    # kernel 7 inputs as rescale_joint makes them from canonical coefficients,
+    # alone and with the hybrid product's add-back
     coeff = random_residues(rng, pe.qs, (2 * Bt, T, n)).cuda()
-    xs = garner_digits(widen(coeff[:, L:]), drop)
-    is_neg, t, t_neg = hybrid._sign_terms(xs, drop, pe.zp)
-    args7 = (n, keep, drop, pe.zp, coeff, narrow(torch.stack(xs, dim=1)),
-             is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32), order)
+    c01 = tuple(random_residues(rng, keep, (Bt, L, n)).cuda() for _ in range(2))
+    args7 = (n, keep, drop, pe.zp, coeff, order)
     ntt = ntt_muls(n)
     (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
     inv_name, fwd_name = grid_names(order)
@@ -550,6 +567,8 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
 
     G7 = 2 * Bt
     calls = {
+        "garner_pack": (lambda: mr.garner_pack(n, groups, c2c),
+                        lambda: mr.garner_pack_plain(n, groups, c2c), garner_cost(Bt, groups, n)),
         "hybrid_digit_relin": (lambda: mr.hybrid_digit_stage(n, pe.qs, groups, x, *raw, order),
                                lambda: mr.hybrid_digit_stage_plain(n, pe.qs, groups, x, *raw,
                                                                    order),
@@ -562,6 +581,8 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
         fwd_name: (lambda: fwd(n, keep, rows6), lambda: fwd_plain(n, keep, rows6), None),
         "rescale_fwd": (lambda: rk.rescale_fwd(*args7), lambda: rk.rescale_fwd_plain(*args7),
                         rescale_cost(G7, L, K, n)),
+        "rescale_fwd_add_back": (lambda: rk.rescale_fwd(*args7, c01),
+                                 lambda: rk.rescale_fwd_plain(*args7, c01), None),
     }
     res = {}
     for name, (kern, plain, cost) in calls.items():
@@ -574,7 +595,8 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
             res[name].update(bytes=cost[0], muls=cost[1], ms=device_ms(kern, 20),
                              plain_ms=device_ms(plain, 3))
     print(f"[kernels] n=2^{log_n} L={L} dnum={hk.dnum} K={K} T={T} Bt={Bt} order={order}: "
-          f"kernels 4 (raw, Shoup), {inv_name}, {fwd_name}, 7 bit-identical to plain " + fmt(res),
+          f"garner_pack, kernels 4 (raw, Shoup), {inv_name}, {fwd_name}, 7 (alone, adding c0 and "
+          "c1) bit-identical to plain " + fmt(res),
           flush=True)
     return res
 
@@ -672,8 +694,9 @@ def hybrid_path(rng, card: str, config: tuple[int, int, int], tag: str, trivgad:
     out = hybrid.mul_relin_hybrid(hk, ct_a, ct_b, hb, ha)
     torch.cuda.synchronize()
     seen, by_shape = launches(), shape_launches()
-    check(all(seen[k] > 0 for k in ("tensor_intt", "hybrid_digit_relin", "intt_grid",
-                                    "rescale_fwd")), f"kernel launches on the hybrid path: {seen}")
+    check(all(seen[k] > 0 for k in ("tensor_intt", "garner_pack", "hybrid_digit_relin",
+                                    "intt_grid", "rescale_fwd")),
+          f"kernel launches on the hybrid path: {seen}")
     check(tuple(out.shape) == (Bt, 2, L, p.n), f"mul_relin_hybrid shape {tuple(out.shape)}")
     check(torch.equal(out, hybrid.mul_relin_hybrid_plain(hk, ct_a, ct_b, hb, ha)),
           "mul_relin_hybrid through the kernels != plain path (raw hints)")
@@ -694,11 +717,11 @@ def hybrid_path(rng, card: str, config: tuple[int, int, int], tag: str, trivgad:
         res[name] = rate(lambda: hybrid.mul_relin_hybrid(hk, ct_a, ct_b, *hints), Bt, 20)
     # where the device time of one raw-hint call goes
     c = mr.tensor_intt(p.n, p.qs, ct_a, ct_b)
-    x = hybrid.garner_pack(hk, c[2])
+    x = mr.garner_pack(p.n, hk.groups, c[2])
     t01 = mr.hybrid_digit_stage(p.n, pe.qs, hk.groups, x, hb, ha)
     stages = {
         "tensor_intt": device_ms(lambda: mr.tensor_intt(p.n, p.qs, ct_a, ct_b), 10),
-        "garner_pack": device_ms(lambda: hybrid.garner_pack(hk, c[2]), 10),
+        "garner_pack": device_ms(lambda: mr.garner_pack(p.n, hk.groups, c[2]), 10),
         "hybrid_digit_relin": device_ms(
             lambda: mr.hybrid_digit_stage(p.n, pe.qs, hk.groups, x, hb, ha), 10),
         "rescale_joint": device_ms(lambda: hybrid.rescale_joint(pe, t01, len(hk.ps)), 10),
@@ -733,8 +756,8 @@ def deep_path(card: str, tag: str, impl: str) -> dict:
     seen, by_shape = launches(), shape_launches()
     inv_name, fwd_name = grid_names(impl)
     check(ok, f"deep circuit impl={impl}: decrypt != the squaring chain")
-    check(all(seen[k] > 0 for k in ("tensor_intt", "hybrid_digit_relin", inv_name, fwd_name,
-                                    "rescale_fwd")),
+    check(all(seen[k] > 0 for k in ("tensor_intt", "garner_pack", "hybrid_digit_relin", inv_name,
+                                    fwd_name, "rescale_fwd")),
           f"kernel launches on the deep circuit: {seen}")
     print(f"[{tag}] deep circuit n=2^{DEEP[0]} depth={DEEP_DEPTH} hybrid impl={impl}: PASS in "
           f"{wall:.2f} s (host clock) on {card}; launches {seen}", flush=True)
@@ -1207,7 +1230,8 @@ def resume_phase(card: str, device: str = "cuda") -> dict:
     resume_s = time.perf_counter() - t0
     check(second.returncode == 0, f"[resume] the resumed run: {second.stderr[-2000:]}")
     got = last_json(second.stdout)
-    want_launched = ("tensor_intt", "hybrid_digit_relin", *grid_names("vpu"), "rescale_fwd")
+    want_launched = ("tensor_intt", "garner_pack", "hybrid_digit_relin", *grid_names("vpu"),
+                     "rescale_fwd")
     check(got["ok"] and got["levels"] == DEEP_DEPTH - RESUME_STOP
           and got["device"].startswith(device)
           and all(got["launches"][k] > 0 for k in want_launched),
@@ -1523,8 +1547,8 @@ def jitmesh2_phase(jit: dict, card: str, world, device: str = "cuda") -> dict:
 BENCH_SECONDS = "0.5"
 BENCH_RUNS = {"trivgad": ({}, ("tensor_intt", "digit_relin", "ntt_grid")),
               "hybrid": ({"BENCH_KS": "hybrid", "BENCH_NLIMB": "16"},
-                         ("tensor_intt", "hybrid_digit_relin", "intt_grid", "rescale_fwd",
-                          "ntt_grid"))}
+                         ("tensor_intt", "garner_pack", "hybrid_digit_relin", "intt_grid",
+                          "rescale_fwd", "ntt_grid"))}
 BENCH_BATCH = "1024"
 #: `python -m {module} {argv}` in a child
 BENCH_CHILD = ("import runpy, sys; sys.argv[1:] = {argv!r}; "
@@ -2254,12 +2278,9 @@ def fused_inputs(log_n: int, key: tuple, rng, order: str):
     """(kernel call, plain call) of kernel A ("tensor_intt", Bt, L) or 7
     ("rescale_fwd", G, L, K) on random canonical inputs at n = 2^log_n, in a
     slot order; 7's inputs are made as rescale_joint makes them."""
-    import torch
-
     from alchemy_tpu_torch.backend.cuda import mul_relin as mr
     from alchemy_tpu_torch.backend.cuda import rescale as rk
-    from alchemy_tpu_torch.backend.modarith import garner_digits, narrow, widen
-    from alchemy_tpu_torch.she import fast, hybrid
+    from alchemy_tpu_torch.she import fast
 
     n = 1 << log_n
     if key[0] == "tensor_intt":
@@ -2271,10 +2292,7 @@ def fused_inputs(log_n: int, key: tuple, rng, order: str):
     _, G, L, K = key
     chain = fast.FastParams.make(log_n, L + K).qs
     coeff = random_residues(rng, chain, (G, L + K, n)).cuda()
-    xs = garner_digits(widen(coeff[:, L:]), chain[L:])
-    is_neg, t, t_neg = hybrid._sign_terms(xs, chain[L:], 2)
-    args = (n, chain[:L], chain[L:], 2, coeff, narrow(torch.stack(xs, dim=1)),
-            is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32), order)
+    args = (n, chain[:L], chain[L:], 2, coeff, order)
     return lambda: rk.rescale_fwd(*args), lambda: rk.rescale_fwd_plain(*args)
 
 

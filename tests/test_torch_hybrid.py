@@ -1,6 +1,8 @@
-"""alchemy_tpu_torch.she.hybrid and kernel 4 (backend/cuda/mul_relin.py
-hybrid_digit_stage): Garner lifting, parameters, keys and hints, and the
-hybrid multiply + relinearize against the JAX package (exact equality)."""
+"""alchemy_tpu_torch.she.hybrid, `garner_pack` and kernel 4
+(backend/cuda/mul_relin.py hybrid_digit_stage), kernel 7 with its add-back:
+Garner lifting, the joint rescale at its sign boundaries, parameters, keys
+and hints, and the hybrid multiply + relinearize against the JAX package
+(exact equality)."""
 
 import math
 
@@ -101,11 +103,12 @@ def _negacyclic_mod2(m1, m2):
     return (c[:n] + np.concatenate([c[n:], [0]])) % 2
 
 
-@pytest.mark.parametrize("L,Bt", [(4, 1), (5, 3), (8, 1)])
+@pytest.mark.parametrize("L,Bt", [(4, 1), (5, 3), (7, 2), (8, 1)])
 @pytest.mark.parametrize("shoup", [False, True], ids=["raw", "shoup"])
 def test_mul_relin_hybrid_matches_jax(L, Bt, shoup):
-    """L = 5 splits into uneven groups (3, 2); the output equals the JAX
-    package's bit for bit and decrypts to the negacyclic products."""
+    """L = 5 and L = 7 split into uneven groups (3, 2) and (4, 3); the output
+    equals the JAX package's bit for bit and decrypts to the negacyclic
+    products."""
     jhk, thk, rj, rt, sj, st, hj, ht = _setup(10, L, seed=L + Bt)
     msgs = rj.integers(0, 2, (2, Bt, 1 << 10))
     cts = jnp.stack([jnp.stack([jfast.encrypt(jhk.p, sj, m, rj) for m in row]) for row in msgs])
@@ -121,6 +124,75 @@ def test_mul_relin_hybrid_matches_jax(L, Bt, shoup):
                               _negacyclic_mod2(msgs[0, i], msgs[1, i]))
     one = thyb.mul_relin_hybrid(thk, to_torch(cts[0][0], "cpu"), to_torch(cts[1][0], "cpu"), *ht)
     assert torch.equal(one, out[0])                 # a single ciphertext, no batch axis
+
+
+def _boundary_values(P: int, n: int, rng) -> list[int]:
+    """n values in [0, P): the sign test's edges P//2 and P//2 ± 1, 0, 1 and
+    P − 1 (every residue q − 1), then random values."""
+    edges = [P // 2, P // 2 + 1, P // 2 - 1, 0, 1, P - 1]
+    return edges + [(int(rng.integers(0, 1 << 62)) << 62 | int(rng.integers(0, 1 << 62))) % P
+                    for _ in range(n - len(edges))]
+
+
+@pytest.mark.parametrize("L", [5, 7])
+def test_garner_pack_plain_matches_jax(L):
+    """`garner_pack` on CPU tensors (its plain version) against the JAX
+    package's Garner digits of each group, at uneven groups (3, 2) and
+    (4, 3) (L = 7, dnum = 2), with zeros, every residue q − 1, and each
+    group's edges."""
+    _, thk, *_ = _setup(10, L, seed=L)
+    assert len(thk.groups[-1]) < len(thk.groups[0])
+    n, rng = 1 << 10, np.random.default_rng(L)
+    c2c = np.empty((2, L, n), dtype=np.int64)
+    off = 0
+    for grp in thk.groups:
+        vals = [_boundary_values(math.prod(grp), n, rng) for _ in range(2)]
+        c2c[:, off:off + len(grp)] = [[[v % g for v in row] for g in grp] for row in vals]
+        off += len(grp)
+    c2c[0, :, -1] = np.array(thk.p.qs) - 1
+    c2c[1, :, -1] = 0
+    want, off = [], 0
+    for grp in thk.groups:
+        want += jhyb.garner_digits(jnp.asarray(c2c[:, off:off + len(grp)].astype(np.uint32)), grp)
+        off += len(grp)
+    got = mr.garner_pack(n, thk.groups, to_torch(c2c, "cpu"))
+    assert got.shape == (2, L, n) and _eq(jnp.stack(want, axis=1), got)
+
+
+@pytest.mark.parametrize("k_drop", [1, 2, 4])
+@pytest.mark.parametrize("zp", [2, 4, 1 << 16])
+@pytest.mark.parametrize("add_back", [False, True], ids=["alone", "add_back"])
+def test_rescale_plain_matches_jax_at_the_sign_boundaries(k_drop, zp, add_back):
+    """`_rescale_joint_plain` (kernels 5 and 7's plain versions: the Garner
+    digits and sign terms of the dropped rows, and with c01 the add-back of
+    the hybrid product) against the JAX package's `_rescale_joint_jnp`, on
+    coefficients whose dropped part V takes P//2, P//2 ± 1, 0, 1 and P − 1,
+    and keep rows with zeros and q − 1."""
+    jp = jfast.FastParams.make(10, 3 + k_drop, zp=zp, bits=30, impl="pallas")
+    tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=zp, impl="pallas")
+    keep, drop = jp.qs[:3], jp.qs[3:]
+    n, rng, Bt = jp.n, np.random.default_rng(k_drop * zp), 2
+    coeff = np.empty((2, Bt, len(jp.qs), n), dtype=np.int64)
+    for g in np.ndindex(2, Bt):
+        coeff[g][3:] = [[v % q for v in _boundary_values(math.prod(drop), n, rng)] for q in drop]
+        coeff[g][:3] = rng.integers(0, np.array(keep)[:, None], (3, n))
+    coeff[..., :3, 0], coeff[..., :3, 1] = 0, np.array(keep) - 1
+    ct = jfast._ntt_p(jp, jnp.asarray(coeff.astype(np.uint32)))
+    ref = np.asarray(jhyb._rescale_joint_jnp(jp, ct, k_drop)).astype(np.int64)   # [2, Bt, 3, n]
+    ct_t = to_torch(ct, "cpu")
+    if not add_back:
+        out = thyb._rescale_joint_plain(tp, ct_t, k_drop)
+        assert out.shape == (2, Bt, 3, n) and np.array_equal(ref, to_numpy(out))
+        assert torch.equal(thyb.rescale_joint(tp, ct_t, k_drop), out)
+        return
+    q = np.array(keep, dtype=np.int64)[:, None]
+    c01 = rng.integers(0, q, (2, Bt, 3, n))
+    c01[..., 0] = q[:, 0] - 1
+    want = np.stack([(c01[0] + ref[0]) % q, (c01[1] + ref[1]) % q], axis=1)
+    c0, c1 = (to_torch(c, "cpu") for c in c01)
+    for plain in (True, False):
+        out = thyb._rescale_joint(tp, ct_t, k_drop, plain, (c0, c1))
+        assert out.shape == (Bt, 2, 3, n) and np.array_equal(want, to_numpy(out))
 
 
 @pytest.mark.parametrize("shoup", [False, True], ids=["raw", "shoup"])
@@ -197,7 +269,7 @@ def test_plain_kernel4_matches_pallas_kernel_interpret(monkeypatch, L):
     n, Bt = 1 << 10, 2
     rng = np.random.default_rng(L)
     c2c = np.stack([rng.integers(0, q, (Bt, n)) for q in thk.p.qs], axis=1)
-    x = to_numpy(thyb.garner_pack(thk, to_torch(c2c, "cpu")))
+    x = to_numpy(mr.garner_pack(n, thk.groups, to_torch(c2c, "cpu")))
     hs = tuple(jfast.shoup_precompute(h, jhk.pe.qs) for h in hj)
     hs_t = to_torch(tuple(tuple(map(np.asarray, h)) for h in hs), "cpu")
     for hints_j, hints_t in ((hj, ht), (hs, hs_t)):
@@ -221,7 +293,7 @@ def test_plain_kernel4_matches_pallas_kernel_interpret_at_2e16(monkeypatch):
     n = 1 << 16
     rng = np.random.default_rng(16)
     c2c = np.stack([rng.integers(0, q, (1, n)) for q in thk.p.qs], axis=1)
-    x = to_numpy(thyb.garner_pack(thk, to_torch(c2c, "cpu")))
+    x = to_numpy(mr.garner_pack(n, thk.groups, to_torch(c2c, "cpu")))
     ref = mrk.hybrid_digit_stage_pallas(n, jhk.pe.qs, jhk.groups, jnp.asarray(_x_pack(x, n)), *hj)
     out = mr.hybrid_digit_stage(n, thk.pe.qs, thk.groups, to_torch(x, "cpu"), *ht)
     assert out.shape == (2, 1, 4, n) and _eq(ref, out)
@@ -274,7 +346,7 @@ def test_kernel4_matches_plain_on_the_card(log_n, L, Bt):
     rng = np.random.default_rng(log_n)
     res = lambda chain, shape: to_torch(
         rng.integers(0, 1 << 62, shape) % np.array(chain, dtype=np.int64)[:, None], "cuda")
-    x = thyb.garner_pack(thk, res(thk.p.qs, (Bt, L, n)))
+    x = mr.garner_pack(n, thk.groups, res(thk.p.qs, (Bt, L, n)))
     hb, ha = (res(qs, (thk.dnum, len(qs), n)) for _ in range(2))
     for hints in ((hb, ha), tuple(tfast.shoup_precompute(h, qs) for h in (hb, ha))):
         before = mr.LAUNCHES["hybrid_digit_relin"]
@@ -301,8 +373,9 @@ def test_mul_relin_hybrid_on_the_card_matches_jax(monkeypatch):
 @pytest.mark.parametrize("log_n,L,Bt,order", [(16, 5, 2, "pallas"), (16, 16, 2, "pallas"),
                                               (15, 5, 2, "mxu"), (15, 5, 2, "vpu")])
 def test_kernels_4_and_7_match_plain_on_the_card_split(log_n, L, Bt, order):
-    """Kernels 4 and 7 with two blocks per limb, at 2^16 and in the
-    2-factor slot order; L = 5 gives uneven groups 3 + 2, K = 3."""
+    """Kernels 4 and 7 (alone and with the add-back) with two blocks per
+    limb, at 2^16 and in the 2-factor slot order; L = 5 gives uneven groups
+    3 + 2, K = 3."""
     from alchemy_tpu_torch.backend.cuda import rescale as rk
 
     _need_card()
@@ -311,16 +384,72 @@ def test_kernels_4_and_7_match_plain_on_the_card_split(log_n, L, Bt, order):
     rng = np.random.default_rng(log_n + L)
     res = lambda chain, shape: to_torch(
         rng.integers(0, 1 << 62, shape) % np.array(chain, dtype=np.int64)[:, None], "cuda")
-    x = thyb.garner_pack(thk, res(thk.p.qs, (Bt, L, n)))
+    x = mr.garner_pack(n, thk.groups, res(thk.p.qs, (Bt, L, n)))
     hb, ha = (res(qs, (thk.dnum, len(qs), n)) for _ in range(2))
     for hints in ((hb, ha), tuple(tfast.shoup_precompute(h, qs) for h in (hb, ha))):
         out = mr.hybrid_digit_stage(n, qs, thk.groups, x, *hints, order)
         assert torch.equal(out, mr.hybrid_digit_stage_plain(n, qs, thk.groups, x, *hints, order))
     coeff = res(qs, (2 * Bt, len(qs), n))
-    xs = ma.garner_digits(ma.widen(coeff[:, L:]), drop)
-    is_neg, t, t_neg = thyb._sign_terms(xs, drop, 2)
-    args = (n, keep, drop, 2, coeff, ma.narrow(torch.stack(xs, dim=1)), is_neg.to(torch.int32),
-            ma.narrow(t), t_neg.to(torch.int32), order)
-    before = rk.LAUNCHES["rescale_fwd"]
-    assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
-    assert rk.LAUNCHES["rescale_fwd"] == before + 1
+    c01 = tuple(res(keep, (Bt, L, n)) for _ in range(2))
+    for add in (None, c01):
+        args = (n, keep, drop, 2, coeff, order, add)
+        before = rk.LAUNCHES["rescale_fwd"]
+        assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
+        assert rk.LAUNCHES["rescale_fwd"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,dnum,Bt", [(16, 4, 1), (16, 4, 16), (18, None, 2), (7, 2, 2)])
+def test_garner_pack_matches_plain_on_the_card(L, dnum, Bt):
+    """`garner_pack` at n = 2^15: the hybrid cells' L = 16, dnum = 4 at one
+    and 16 ciphertexts, and uneven chains (L = 18: 4 × 4 + 2; L = 7: 4 + 3),
+    with every residue q − 1 and zeros; one launch each, counted by shape."""
+    _need_card()
+    thk = thyb.HybridKS.make(tfast.FastParams.make(15, L), dnum=dnum)
+    n, alpha = 1 << 15, len(thk.groups[0])
+    q = np.array(thk.p.qs, dtype=np.int64)[:, None]
+    c2c = np.random.default_rng(L + Bt).integers(0, 1 << 62, (Bt, L, n)) % q
+    c2c[:, :, 0], c2c[:, :, 1] = q[:, 0] - 1, 0
+    c2c = to_torch(c2c, "cuda")
+    before = mr.LAUNCHES_BY_SHAPE.get(("garner_pack", Bt, L, alpha, n), 0)
+    out = mr.garner_pack(n, thk.groups, c2c)
+    assert mr.LAUNCHES_BY_SHAPE[("garner_pack", Bt, L, alpha, n)] == before + 1
+    assert torch.equal(out, mr.garner_pack_plain(n, thk.groups, c2c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["mxu", "pallas"])
+def test_mul_relin_hybrid_matches_plain_on_the_card_eager_and_in_a_graph(order):
+    """`mul_relin_hybrid` at the hybrid cells' chain (n = 2^15, L = 16,
+    dnum = 4, K = 4), two ciphertexts, against `mul_relin_hybrid_plain`:
+    called eagerly (five launches: A, garner_pack, 4, the inverse transform,
+    7) and captured in a CUDA graph, replayed on new inputs copied into the
+    captured ones."""
+    from alchemy_tpu_torch.backend.cuda import rescale as rk
+
+    _need_card()
+    hk = thyb.HybridKS.make(tfast.FastParams.make(15, 16, impl=order), dnum=4)
+    rng = np.random.default_rng(16)
+    s, hints = thyb.hybrid_keygen_hint(hk, rng, device="cuda")
+    cts = [torch.stack([tfast.encrypt(hk.p, s, rng.integers(0, 2, hk.p.n), rng)
+                        for _ in range(4)]) for _ in range(2)]
+    a, b = cts[0][:2].clone(), cts[0][2:].clone()
+    counted = lambda: sum(mr.LAUNCHES.values()) + sum(rk.LAUNCHES.values())
+    before = counted()
+    out = thyb.mul_relin_hybrid(hk, a, b, *hints)
+    assert counted() - before == 5
+    assert torch.equal(out, thyb.mul_relin_hybrid_plain(hk, a, b, *hints))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        thyb.mul_relin_hybrid(hk, a, b, *hints)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = thyb.mul_relin_hybrid(hk, a, b, *hints)
+    for new in (cts[1], cts[0]):
+        a.copy_(new[:2])
+        b.copy_(new[2:])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, thyb.mul_relin_hybrid_plain(hk, a, b, *hints))

@@ -12,7 +12,7 @@ import torch
 from alchemy_tpu.she import fast as jfast
 from alchemy_tpu_torch.backend.cuda import mul_relin as mr
 from alchemy_tpu_torch.backend.cuda import rescale as rk
-from alchemy_tpu_torch.backend.modarith import garner_digits, narrow, widen
+from alchemy_tpu_torch.backend.modarith import narrow, widen
 from alchemy_tpu_torch.backend.ntt2 import _pick_split
 from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3
 from alchemy_tpu_torch.convert import to_numpy, to_torch
@@ -474,53 +474,129 @@ def test_kernel_a_schedule_matches_plain(log_n, order, shape):
             assert np.array_equal(g, w[0, li])
 
 
+_M32 = (1 << 32) - 1
+
+
+def _shoup(a, w, ws, q):
+    """zq.cuh mulmod_shoup on uint32 values in int64 arrays (a·w and the
+    quotient estimate wrap at 32 bits as on the card)."""
+    a = np.asarray(a, dtype=np.int64)
+    hi = (a * int(ws)) >> 32
+    r = (a * int(w) - hi * int(q)) & _M32
+    return np.where(r >= q, r - q, r)
+
+
+def _garner_emulated(r, rows, count):
+    """zq.cuh garner: the digits of residues r [count, ...] (int64) from the
+    host's Garner rows, as the card computes them."""
+    w0 = 4 + mr.GARNER_MAX_DIGITS
+    x = [np.asarray(r[0], dtype=np.int64)]
+    for k in range(1, count):
+        g = int(rows[k][0])
+        acc = np.zeros_like(x[0])
+        for j in range(k):
+            acc = (acc + _shoup(x[j], rows[k][4 + j], rows[k][w0 + j], g)) % g
+        x.append(_shoup((r[k] - acc) % g, rows[k][1], rows[k][2], g))
+    return x
+
+
+@pytest.mark.parametrize("L,dnum", [(5, 2), (7, 2), (16, 4), (18, 5)])
+def test_garner_pack_arithmetic_matches_plain(L, dnum):
+    """mul_relin.cu garner_pack_kernel as it computes (each group's rows of
+    `_device_garner`'s table, zq::garner in uint32 arithmetic) against
+    `garner_pack_plain`, at uneven groups (3 + 2, 4 + 3, 4 × 4 + 2) and
+    with every residue q − 1 and zeros."""
+    p = tfast.FastParams.make(10, L, bits=30)
+    groups = thyb.HybridKS.make(p, dnum=dnum).groups
+    n, rng = p.n, np.random.default_rng(L)
+    q = np.array(p.qs, dtype=np.int64)[:, None]
+    c2c = rng.integers(0, 1 << 62, (2, L, n)) % q
+    c2c[:, :, 0], c2c[:, :, 1] = q[:, 0] - 1, 0
+    table = mr._device_garner(groups, "cpu").numpy().view(np.uint32).astype(np.int64)
+    alpha, got = len(groups[0]), np.empty_like(c2c)
+    for gi, grp in enumerate(groups):
+        k0 = gi * alpha
+        got[:, k0:k0 + len(grp)] = np.stack(
+            _garner_emulated(c2c[:, k0:k0 + len(grp)].transpose(1, 0, 2), table[k0:], len(grp)),
+            axis=1)
+    assert np.array_equal(got, widen(mr.garner_pack_plain(n, groups, torch.from_numpy(c2c))))
+
+
 #: stages a pass of kernel 7 at most, the first pass's too (rescale.cu
 #: RescaleSmall at n ≤ 2^15 and RescaleLarge at 2^16 differ only in threads,
 #: which the schedule does not depend on)
 RESCALE_MAX_RL = 3
 
 
+def _drop_consts_fields(drop, zp):
+    """rescale.cu DropConsts from the words `rk.drop_consts` hands the
+    kernel: (Garner rows, digits of P//2, [π_k]_zp, zp, P mod zp, P⁻¹ mod zp)."""
+    words = rk.drop_consts(drop, zp).astype(np.int64)
+    m = mr.GARNER_MAX_DIGITS
+    rows = words[:m * mr.GARNER_WORDS].reshape(m, mr.GARNER_WORDS)
+    rest = words[m * mr.GARNER_WORDS:]
+    assert len(rest) == 2 * m + 3
+    return rows, rest[:m], rest[m:2 * m], *rest[2 * m:]
+
+
 @pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
-@pytest.mark.parametrize("log_n", [10, 11, 12, 16])
-def test_kernel_7_schedule_matches_plain(log_n, order):
-    """Kernel 7 as it runs (rescale.cu rescale_fwd_kernel): the prologue
-    (base extension of the dropped limbs' Garner digits in ascending k, the
-    sign corrections, ×P⁻¹, as the kernel's `rescaled` computes it) as the
-    load of the register-blocked forward passes, each block of the cluster
-    pair evaluating it on its own half, then each block's slots stored in
-    slot order → against `rescale_fwd_plain` exactly, in each order. Every
-    slot is written once."""
-    p = jfast.FastParams.make(log_n, 5)
-    n, half, zp = p.n, p.n // 2, 4
+@pytest.mark.parametrize("log_n,k_drop,zp", [(10, 3, 4), (11, 1, 2), (12, 4, 1 << 16),
+                                             (16, 3, 2)])
+def test_kernel_7_schedule_matches_plain(log_n, k_drop, zp, order):
+    """Kernel 7 as it runs (rescale.cu rescale_fwd_kernel): the prologue as
+    the kernel's `rescaled` computes it (zq::garner on the dropped rows from
+    `drop_consts`, V > P//2 by digits in ascending k, V mod zp and t, the base
+    extension in ascending k, the sign corrections, ×P⁻¹) as the load of the
+    register-blocked forward passes, each block of the cluster pair
+    evaluating it on its own half, then each block's slots stored in slot
+    order with c0 or c1 added → against `rescale_fwd_plain` with c01 exactly,
+    in each order, where V takes P//2, P//2 ± 1, 0 and P − 1. Every slot is
+    written once."""
+    import math
+
+    p = jfast.FastParams.make(log_n, 2 + k_drop)
+    n, half = p.n, p.n // 2
     keep, drop = p.qs[:2], p.qs[2:]
+    P = math.prod(drop)
     rng = np.random.default_rng(log_n)
     q = np.array(p.qs, dtype=np.int64)[:, None]
-    coeff = rng.integers(0, 1 << 62, (1, 5, n)) % q
-    xs = garner_digits(torch.from_numpy(coeff[:, 2:]), drop)
-    is_neg, tz, t_neg = (v.numpy()[0].astype(np.int64) for v in thyb._sign_terms(xs, drop, zp))
-    want = rk.rescale_fwd_plain(n, keep, drop, zp, narrow(torch.from_numpy(coeff)),
-                                narrow(torch.stack(xs, dim=1)), torch.from_numpy(is_neg[None]),
-                                torch.from_numpy(tz[None]), torch.from_numpy(t_neg[None]), order)
+    coeff = rng.integers(0, 1 << 62, (2, 2 + k_drop, n)) % q
+    for i, v in enumerate((P // 2, P // 2 + 1, P // 2 - 1, 0, P - 1)):
+        coeff[:, 2:, i] = np.array([v % g for g in drop])
+    c01 = rng.integers(0, 1 << 62, (2, 1, 2, n)) % q[:2]
+    want = widen(rk.rescale_fwd_plain(n, keep, drop, zp, narrow(torch.from_numpy(coeff)), order,
+                                      tuple(map(torch.from_numpy, c01))))
     t = mr.kernel_tables(n, keep, order)
     own = t["slot_own"].astype(np.int64).reshape(2, half)
     slots, local = own & 0xFFFF, own >> 16
     consts = rk.rescale_consts(keep, drop).astype(np.int64)
-    for j, qj in enumerate(keep):
-        c = consts[j]
-        v = np.zeros(n, dtype=np.int64)
-        for k in range(len(drop)):
-            v = (v + xs[k][0].numpy() * c[4 + k] % qj) % qj
-        v = np.where(is_neg != 0, (v - c[0]) % qj, v)
-        tc = np.where(t_neg != 0, qj - (zp - tz), tz)
-        delta = (v + tc * c[0] % qj) % qj
-        row = (coeff[0, j] - delta) % qj * c[2] % qj
-        fwd = t["fwd"][j, 0].astype(np.int64)
-        got = np.full(n, -1, dtype=np.int64)
-        for part in (0, 1):
-            smem = _rb_forward(row, fwd, qj, part, RESCALE_MAX_RL, RESCALE_MAX_RL, True)
-            assert (got[slots[part]] == -1).all()
-            got[slots[part]] = smem[_pad(local[part])]
-        assert np.array_equal(got, widen(want)[0, j].numpy())
+    rows, half_digits, pi_zp, dzp, p_zp, p_inv_zp = _drop_consts_fields(drop, zp)
+    mask = dzp - 1
+    for g in range(2):
+        x = _garner_emulated(coeff[g, 2:], rows, k_drop)
+        neg = np.zeros(n, dtype=bool)
+        vz = np.zeros(n, dtype=np.int64)
+        for k in range(k_drop):
+            neg = np.where(x[k] != half_digits[k], x[k] > half_digits[k], neg)
+            vz = (vz + (x[k] & mask) * pi_zp[k]) & _M32 & mask
+        vz = np.where(neg, (vz + dzp - p_zp) & mask, vz)
+        tz = ((dzp - vz) & mask) * p_inv_zp & _M32 & mask
+        for j, qj in enumerate(keep):
+            c = consts[j]
+            v = np.zeros(n, dtype=np.int64)
+            for k in range(k_drop):
+                v = (v + _shoup(x[k], c[4 + k], c[4 + k_drop + k], qj)) % qj
+            v = np.where(neg, (v - c[0]) % qj, v)
+            tc = np.where(tz > dzp >> 1, qj - (dzp - tz), tz)
+            delta = (v + _shoup(tc, c[0], c[1], qj)) % qj
+            row = _shoup((coeff[g, j] - delta) % qj, c[2], c[3], qj)
+            fwd = t["fwd"][j, 0].astype(np.int64)
+            got = np.full(n, -1, dtype=np.int64)
+            for part in (0, 1):
+                smem = _rb_forward(row, fwd, qj, part, RESCALE_MAX_RL, RESCALE_MAX_RL, True)
+                assert (got[slots[part]] == -1).all()
+                got[slots[part]] = (smem[_pad(local[part])] + c01[g, 0, j, slots[part]]) % qj
+            assert np.array_equal(got, want[0, g, j].numpy())
 
 
 def test_wrappers_check_their_inputs():
@@ -587,8 +663,10 @@ def test_wrapper_gates_by_ring_size(monkeypatch, log_n):
         "9": lambda: rk.intt2_grid(n, qs, x),
         "4": lambda: mr.hybrid_digit_stage(n, qs + (7681,), ((qs[0],), (qs[1],)), x,
                                            z(2, 3, n), z(2, 3, n)),
-        "7": lambda: rk.rescale_fwd(n, qs[:1], qs[1:], 2, x, z(1, 1, n), z(1, n), z(1, n),
-                                    z(1, n)),
+        "7": lambda: rk.rescale_fwd(n, qs[:1], qs[1:], 2, x),
+        "7_add_back": lambda: rk.rescale_fwd(n, qs[:1], qs[1:], 2, z(2, 2, n), "mxu",
+                                             (z(1, 1, n), z(1, 1, n))),
+        "garner_pack": lambda: mr.garner_pack(n, ((qs[0],), (qs[1],)), x),
     }
     for name, call in calls.items():
         if log_n == 17:

@@ -12,7 +12,6 @@ from alchemy_tpu.she import fast as jfast
 from alchemy_tpu.she import hybrid as jhyb
 from alchemy_tpu_torch.backend.cuda import build
 from alchemy_tpu_torch.backend.cuda import rescale as rk
-from alchemy_tpu_torch.backend.modarith import garner_digits, narrow, widen
 from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
 from alchemy_tpu_torch.convert import to_numpy, to_torch
 from alchemy_tpu_torch.she import fast as tfast
@@ -164,9 +163,9 @@ def test_rescale_wrappers_stay_off_the_card_and_check_inputs(monkeypatch):
     n, qs = p.n, p.qs
     x = torch.zeros((2, 4, n), dtype=torch.int32)
     assert rk.ntt3_grid(n, qs, x).shape == rk.intt3_grid(n, qs, x).shape == x.shape
-    f = torch.zeros((2, n), dtype=torch.int32)
-    xs = torch.zeros((2, 1, n), dtype=torch.int32)
-    assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, xs, f, f, f).shape == (2, 3, n)
+    c = torch.zeros((1, 3, n), dtype=torch.int32)
+    assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x).shape == (2, 3, n)
+    assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, "pallas", (c, c)).shape == (1, 2, 3, n)
     s = tfast.keygen(p, np.random.default_rng(0), device="cpu")
     ct = tfast.encrypt(p, s, np.zeros(n, dtype=np.int64), np.random.default_rng(1))
     down = tfast.FastParams(n=n, qs=qs[:-1], zp=2)
@@ -178,9 +177,16 @@ def test_rescale_wrappers_stay_off_the_card_and_check_inputs(monkeypatch):
     with pytest.raises(ValueError):
         rk.intt3_grid(n, qs, x[0])
     with pytest.raises(ValueError):
-        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x[:, :3].contiguous(), xs, f, f, f)
-    with pytest.raises(ValueError):
-        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, xs, f[:1], f, f)
+        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x[:, :3].contiguous())
+    with pytest.raises(ValueError):                             # c1 of the wrong shape
+        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, "pallas", (c, c[:, :2].contiguous()))
+    with pytest.raises(ValueError):                             # an odd number of rows
+        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x[:1], "pallas", (c[:0], c[:0]))
+    # what only the card path refuses: zp, and more dropped limbs than zq.cuh kMaxDigits
+    with pytest.raises(ValueError, match="power-of-two zp"):
+        rk.drop_consts(qs[3:], 6)
+    with pytest.raises(NotImplementedError, match="1 to 8 limbs"):
+        rk.drop_consts(tfast.FastParams.make(10, 9).qs, 2)
 
 
 def _need_card():
@@ -241,28 +247,82 @@ def test_kernels_5_6_match_plain_on_the_card_at_2e16(G, order):
     assert rk.LAUNCHES_BY_SHAPE[inv_name, G, 3, p.n] >= 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
-@pytest.mark.parametrize("log_n,L,K,G", [(8, 3, 2, 2), (14, 5, 3, 2), (15, 16, 4, 2),
-                                         (15, 16, 4, 32), (16, 4, 2, 3)])
-def test_kernel_7_matches_plain_on_the_card(log_n, L, K, G, order):
-    """Kernel 7, its prologue split over a cluster pair, in both launch
-    shapes (512 threads at n ≤ 2^15, 1024 at 2^16; [2, 16, n] with K = 4 is
-    the deep chain's first level, [32, 16, n] the hybrid op's); at 2^8 the
-    2-factor order's rows are 2 words, and the slot-order store takes word
-    accesses. Inputs as rescale_joint makes them from canonical
-    coefficients."""
-    _need_card()
+def _kernel_7_inputs(log_n: int, L: int, K: int, G: int, device: str):
+    """(keep, drop, coeff, (c0, c1)) as rescale_joint and the hybrid product
+    hand them to kernel 7: canonical coefficients [G, L + K, n] whose first
+    coefficients put the dropped part V at P//2, P//2 + 1, 0 and P − 1, and
+    canonical c0, c1 [G/2, L, n]."""
+    import math
+
     chain = tfast.FastParams.make(log_n, L + K).qs
     keep, drop = chain[:L], chain[L:]
-    coeff = to_torch(_rows(tfast.FastParams(n=1 << log_n, qs=chain), G, seed=log_n), "cuda")
-    xs = garner_digits(widen(coeff[:, L:]), drop)
-    is_neg, t, t_neg = thyb._sign_terms(xs, drop, 2)
-    args = (1 << log_n, keep, drop, 2, coeff, narrow(torch.stack(xs, dim=1)),
-            is_neg.to(torch.int32), narrow(t), t_neg.to(torch.int32), order)
+    rows = _rows(tfast.FastParams(n=1 << log_n, qs=chain), G, seed=log_n + L).astype(np.int64)
+    P = math.prod(drop)
+    for i, v in enumerate((P // 2, P // 2 + 1, 0, P - 1)):
+        rows[:, L:, i] = [v % g for g in drop]
+    c = _rows(tfast.FastParams(n=1 << log_n, qs=keep), 2 * (G // 2), seed=K)
+    c01 = tuple(to_torch(h, device) for h in (c[:G // 2], c[G // 2:]))
+    return keep, drop, to_torch(rows, device), c01
+
+
+#: (log2 n, L, K, G) of kernel 7's card tests
+KERNEL_7_SHAPES = [(8, 3, 2, 2), (14, 5, 3, 2), (15, 3, 3, 2), (15, 9, 3, 2), (15, 16, 4, 2),
+                   (15, 18, 4, 2), (15, 16, 4, 32), (16, 4, 2, 3), (16, 4, 2, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
+@pytest.mark.parametrize("log_n,L,K,G,add_back",
+                         [(*shape, add) for shape in KERNEL_7_SHAPES for add in (False, True)
+                          if not (add and shape[3] % 2)])
+def test_kernel_7_matches_plain_on_the_card(log_n, L, K, G, order, add_back):
+    """Kernel 7, its prologue (the dropped rows' Garner digits and sign
+    terms) split over a cluster pair, in both launch shapes (512 threads at
+    n ≤ 2^15, 1024 at 2^16; [2, 3–18, n] with K = 3–4 the deep chain's
+    levels, [2, 16, n] a single hybrid product's, [32, 16, n] the batch's),
+    alone and adding (c0, c1) as it stores; at 2^8 the 2-factor order's rows
+    are 2 words, and the slot-order store takes word accesses."""
+    _need_card()
+    keep, drop, coeff, c01 = _kernel_7_inputs(log_n, L, K, G, "cuda")
+    args = (1 << log_n, keep, drop, 2, coeff, order, c01 if add_back else None)
     before = rk.LAUNCHES_BY_SHAPE.get(("rescale_fwd", G, L, K, 1 << log_n), 0)
-    assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
+    out = rk.rescale_fwd(*args)
+    assert out.shape == ((G // 2, 2, L, 1 << log_n) if add_back else (G, L, 1 << log_n))
+    assert torch.equal(out, rk.rescale_fwd_plain(*args))
     assert rk.LAUNCHES_BY_SHAPE[("rescale_fwd", G, L, K, 1 << log_n)] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zp", [4, 1 << 16])
+def test_kernel_7_takes_any_power_of_two_zp_on_the_card(zp):
+    _need_card()
+    keep, drop, coeff, c01 = _kernel_7_inputs(15, 16, 4, 2, "cuda")
+    for add in (None, c01):
+        args = (1 << 15, keep, drop, zp, coeff, "mxu", add)
+        assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
+
+
+@pytest.mark.cuda
+def test_kernel_7_time_at_the_hybrid_shape_on_the_card():
+    """Kernel 7 alone at the hybrid batch's shape [32, 16, n = 2^15], K = 4,
+    "mxu", with and without the add-back: device ms a launch over 50
+    launches (CUDA events), printed beside the card; checked against the
+    plain version."""
+    _need_card()
+    keep, drop, coeff, c01 = _kernel_7_inputs(15, 16, 4, 32, "cuda")
+    times = {}
+    for name, add in (("alone", None), ("add_back", c01)):
+        args = (1 << 15, keep, drop, 2, coeff, "mxu", add)
+        assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(50):
+            rk.rescale_fwd(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end) / 50
+    print(f"[kernel 7] [32, 16, 4] n=2^15 mxu on {torch.cuda.get_device_name()}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
 
 
 @pytest.mark.cuda
