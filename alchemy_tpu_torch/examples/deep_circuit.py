@@ -10,6 +10,12 @@ Each level multiplies the ciphertext with itself, relinearizes with a fresh
 hint for the current chain (TrivGad or hybrid key-switching) and rescales
 by one ~30-bit limb, so a depth-D chain starts with D + 2 limbs.
 
+`run` makes each level's hint as it reaches the level. A caller that
+evaluates the chain many times makes every level's parameters and hints
+once (`chain_keys`) and runs the chain from them (`square_chain`): each
+level's multiply-relinearize and rescale, back to back, with no host
+sampling and no synchronize.
+
     python -m alchemy_tpu_torch.examples.deep_circuit --log-n 15 --depth 16 --ks hybrid --device cuda
 
 --impl picks the NTT slot order ("mxu", the default, "mxu8", "pallas" or
@@ -28,16 +34,18 @@ import os
 import sys
 import time
 from dataclasses import replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from alchemy_tpu_torch.convert import to_numpy, to_torch
-from alchemy_tpu_torch.she import fast
+from alchemy_tpu_torch.she import fast, hybrid
 from alchemy_tpu_torch.she.fast import FastParams
-from alchemy_tpu_torch.she.hybrid import HybridKS, hybrid_relin_hint, mul_relin_hybrid
+from alchemy_tpu_torch.she.hybrid import HybridKS, hybrid_relin_hint
 from alchemy_tpu_torch.she.keys import gaussian_coeffs
 from alchemy_tpu_torch.she.serialize import npz_path
+from alchemy_tpu_torch.utils.profiling import span
 
 
 def expected_square_chain_mod2(msg: np.ndarray, n: int, depth: int) -> np.ndarray:
@@ -49,6 +57,69 @@ def expected_square_chain_mod2(msg: np.ndarray, n: int, depth: int) -> np.ndarra
         nxt[0::2] = cur[:n // 2] ^ cur[n // 2:]
         cur = nxt
     return cur
+
+
+class Level(NamedTuple):
+    """What one level of the chain needs: the chain it starts at (p), its
+    hybrid key-switching parameters (hk, None for TrivGad) and its
+    relinearization hint (hints: hybrid (B, A), or TrivGad's Shoup pairs)."""
+
+    p: FastParams
+    hk: HybridKS | None
+    hints: tuple
+
+
+def key_at(p: FastParams, s_int, device) -> torch.Tensor:
+    """The secret key given by its integer coefficients, NTT domain over p.qs."""
+    return fast._ntt_p(p, fast._residues(s_int, p.qs, device))
+
+
+def level_keys(p: FastParams, s_int, rng: np.random.Generator, ks: str, device,
+               variance: float = 1.0) -> Level:
+    """The `Level` at chain p: `HybridKS.make(p)` and its hint (ks
+    "hybrid"), or TrivGad's Shoup hint (ks "trivgad"), drawn from rng with
+    the given error variance."""
+    if ks == "hybrid":
+        hk = HybridKS.make(p)
+        return Level(p, hk, hybrid_relin_hint(hk, s_int, rng, variance, device=device))
+    return Level(p, None, fast.relin_hint(p, key_at(p, s_int, device), rng, variance, shoup=True))
+
+
+def chain_keys(p: FastParams, depth: int, s_int, rng: np.random.Generator, ks: str, device,
+               variance: float = 1.0) -> list[Level]:
+    """Every level of a depth-`depth` chain that starts at p, with its hint
+    made now: level i at p.qs[:len(p.qs) − i], drawn from rng in the order
+    `run` draws them."""
+    return [level_keys(replace(p, qs=p.qs[:len(p.qs) - i]), s_int, rng, ks, device, variance)
+            for i in range(depth)]
+
+
+def square_level(level: int, lv: Level, ct: torch.Tensor) -> torch.Tensor:
+    """One level: ct·ct relinearized (`hybrid.mul_relin_hybrid`, or
+    `fast.mul_relin`), then `fast.rescale` by one limb, [..., 2, L, n] →
+    [..., 2, L − 1, n]. Traced as the span `chain.level` (attributes level,
+    L)."""
+    with span("chain.level", level=level, L=len(lv.p.qs)):
+        if lv.hk is not None:
+            ct = hybrid.mul_relin_hybrid(lv.hk, ct, ct, *lv.hints)
+        else:
+            ct = fast.mul_relin(lv.p, ct, ct, *lv.hints)
+        return fast.rescale(lv.p, ct, 1)
+
+
+def square_chain(levels: list[Level], ct: torch.Tensor) -> torch.Tensor:
+    """The chain from prepared levels (`chain_keys`): [..., 2, L, n] at
+    levels[0].p → [..., 2, L − depth, n], every level launched back to back
+    with no synchronize. Traced as the root span `square_chain` (attributes
+    batch, L, depth, n) over one `chain.level` span a level."""
+    with span("square_chain") as root:
+        if root is not None:
+            p = levels[0].p
+            root.attrs.update(batch=ct.numel() // (2 * len(p.qs) * p.n), L=len(p.qs),
+                              depth=len(levels), n=p.n)
+        for level, lv in enumerate(levels):
+            ct = square_level(level, lv, ct)
+        return ct
 
 
 def save_state(path: str, *, log_n: int, depth: int, level: int, ct: torch.Tensor,
@@ -109,9 +180,6 @@ def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
     if ks not in ("trivgad", "hybrid"):
         raise ValueError(f"ks={ks!r}: want 'trivgad', 'hybrid' or 'auto'")
 
-    def key_at(pp):
-        return fast._ntt_p(pp, fast._residues(s_int, pp.qs, device))
-
     cur_p = replace(p, qs=p.qs[:len(p.qs) - level0])
     if resume:
         ct = to_torch(st["ct"], device)
@@ -119,7 +187,7 @@ def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
             raise ValueError(f"state ct {tuple(ct.shape)}: want (2, {len(cur_p.qs)}, {p.n})")
     else:
         s_int = gaussian_coeffs(rng, 1.0, p.n)
-        s = key_at(p)
+        s = key_at(p, s_int, device)
         msg = rng.integers(0, 2, p.n)
         ct = fast.encrypt(p, s, msg, rng)
     level_ms = []
@@ -131,21 +199,14 @@ def run(log_n: int = 9, depth: int = 16, seed: int = 0, verbose: bool = True,
                 print(f"checkpointed at level {level} -> {npz_path(state_path)}")
             return None, level
         t0 = time.perf_counter()
-        if ks == "hybrid":
-            hk = HybridKS.make(cur_p)
-            hb, ha = hybrid_relin_hint(hk, s_int, rng, device=device)
-            ct = mul_relin_hybrid(hk, ct, ct, hb, ha)
-        else:
-            hb, ha = fast.relin_hint(cur_p, key_at(cur_p), rng, shoup=True)
-            ct = fast.mul_relin(cur_p, ct, ct, hb, ha)
-        ct = fast.rescale(cur_p, ct, 1)
+        ct = square_level(level, level_keys(cur_p, s_int, rng, ks, device), ct)
         cur_p = replace(cur_p, qs=cur_p.qs[:-1])
         if ct.is_cuda:
             torch.cuda.synchronize(ct.device)
         level_ms.append((time.perf_counter() - t0) * 1e3)
         if verbose:
             print(f"level {level + 1}: limbs={len(cur_p.qs)} {level_ms[-1]:.1f} ms")
-    dec = fast.decrypt(cur_p, key_at(cur_p), ct)
+    dec = fast.decrypt(cur_p, key_at(cur_p, s_int, device), ct)
     ok = bool(np.array_equal(dec, expected_square_chain_mod2(msg, p.n, depth)))
     if verbose:
         print("PASS" if ok else "FAIL")

@@ -256,32 +256,50 @@ def mul_relin(p: FastParams, ct_a: torch.Tensor, ct_b: torch.Tensor,
         return out.reshape(*lead, *out.shape[1:])
 
 
+#: one-limb rescales `rescale` made since the last `reset_rescales()`, by the
+#: limb count of the ciphertext each dropped a limb from: {L: count}
+RESCALES_BY_L: dict[int, int] = {}
+
+
+def reset_rescales() -> None:
+    RESCALES_BY_L.clear()
+
+
 def rescale(p: FastParams, ct: torch.Tensor, k_drop: int = 1) -> torch.Tensor:
     """Exact BGV rescale dropping the last k_drop limbs, NTT domain in and
-    out (fast.py:389); plaintext-scale bookkeeping is the caller's."""
-    out = ct
-    qs = tuple(p.qs)
-    pz = p.zp
-    mask = pz - 1
-    for _ in range(k_drop):
-        coeff = widen(_intt_p(replace(p, qs=qs), out))
-        qk = qs[-1]
-        qs = qs[:-1]
-        r = coeff[..., -1, :]
-        is_neg = r > qk // 2
-        r_mod_p = r & mask
-        rc_mod_p = torch.where(is_neg, (r_mod_p + pz - ((qk % pz) & mask)) & mask,
-                               r_mod_p)
-        t = (((pz - rc_mod_p) & mask) * pow(qk, -1, pz)) & mask  # (−r_c)·q_k⁻¹ mod p
-        t_neg = t > pz // 2
-        rows = []
-        for j, qj in enumerate(qs):
-            qk_mod = qk % qj
-            r_red = r % qj
-            rc = torch.where(is_neg, (r_red - qk_mod) % qj, r_red)
-            tc = torch.where(t_neg, qj - (pz - t), t)
-            delta = (rc + tc * qk_mod % qj) % qj
-            diff = (coeff[..., j, :] - delta) % qj
-            rows.append(diff * pow(qk, -1, qj) % qj)
-        out = _ntt_p(replace(p, qs=qs), narrow(torch.stack(rows, dim=-2)))
-    return out
+    out (fast.py:389); plaintext-scale bookkeeping is the caller's. Each
+    limb dropped is one inverse and one forward transform with the torch ops
+    of the division between them; counted in `RESCALES_BY_L`. Traced as
+    the span `rescale` (attributes L, k_drop) over the transforms' launch
+    spans and one `glue.rescale` span a limb around the torch ops."""
+    with span("rescale", L=len(p.qs), k_drop=k_drop):
+        out = ct
+        qs = tuple(p.qs)
+        pz = p.zp
+        mask = pz - 1
+        for _ in range(k_drop):
+            coeff = _intt_p(replace(p, qs=qs), out)
+            RESCALES_BY_L[len(qs)] = RESCALES_BY_L.get(len(qs), 0) + 1
+            with span("glue.rescale"):
+                coeff = widen(coeff)
+                qk = qs[-1]
+                qs = qs[:-1]
+                r = coeff[..., -1, :]
+                is_neg = r > qk // 2
+                r_mod_p = r & mask
+                rc_mod_p = torch.where(is_neg, (r_mod_p + pz - ((qk % pz) & mask)) & mask,
+                                       r_mod_p)
+                t = (((pz - rc_mod_p) & mask) * pow(qk, -1, pz)) & mask  # (−r_c)·q_k⁻¹ mod p
+                t_neg = t > pz // 2
+                rows = []
+                for j, qj in enumerate(qs):
+                    qk_mod = qk % qj
+                    r_red = r % qj
+                    rc = torch.where(is_neg, (r_red - qk_mod) % qj, r_red)
+                    tc = torch.where(t_neg, qj - (pz - t), t)
+                    delta = (rc + tc * qk_mod % qj) % qj
+                    diff = (coeff[..., j, :] - delta) % qj
+                    rows.append(diff * pow(qk, -1, qj) % qj)
+                rows = narrow(torch.stack(rows, dim=-2))
+            out = _ntt_p(replace(p, qs=qs), rows)
+        return out

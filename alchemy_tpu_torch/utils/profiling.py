@@ -10,7 +10,9 @@ and the program's spans.
   Data volumes are not estimated here;
 - `span`, `tracing`, `spans`, `reset`: spans at the layer boundaries of the
   entry ops (`she.fast.mul_relin`, `she.hybrid.mul_relin_hybrid`,
-  `she.hybrid.rescale_joint`) and the kernel wrappers, kept in memory.
+  `she.hybrid.rescale_joint`, `she.fast.rescale`), the squaring chain
+  (`examples.deep_circuit.square_chain` and its levels) and the kernel
+  wrappers, kept in memory.
 
 A span records its name, its start and end (`time.time_ns()`, Unix-epoch
 ns: the clock in which `torch.profiler` reports host and device events, so
