@@ -15,7 +15,9 @@ follows the device of its tensors. The standalone transforms `_ntt_p` /
 `_intt_p` run CUDA kernels 8 and 9 ("mxu"), or 6 and 5 ("pallas", and
 "vpu" with its own slot table) on the card and their plain versions on the
 CPU; `mul_relin` runs through CUDA kernels A and B, in the slot order of
-`impl`, on the card.
+`impl`, on the card, and `rescale` (at a power-of-two zp ≤ 2^16) through
+kernel 9 or 5 and kernel 7 a dropped limb, the joint rescale that
+`she/hybrid.py` shares.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from alchemy_tpu_torch.backend.cuda.mul_relin import ORDERS, digit_relin, tensor_intt
-from alchemy_tpu_torch.backend.cuda.rescale import grid_transforms
+from alchemy_tpu_torch.backend.cuda.rescale import grid_transforms, rescale_fwd, rescale_fwd_plain
 from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
     _sub_mod,
@@ -259,47 +261,103 @@ def mul_relin(p: FastParams, ct_a: torch.Tensor, ct_b: torch.Tensor,
 #: one-limb rescales `rescale` made since the last `reset_rescales()`, by the
 #: limb count of the ciphertext each dropped a limb from: {L: count}
 RESCALES_BY_L: dict[int, int] = {}
+#: the same rescales by the path that made them: {"kernel": count, "loop": count}
+RESCALES_BY_PATH: dict[str, int] = {}
 
 
 def reset_rescales() -> None:
     RESCALES_BY_L.clear()
+    RESCALES_BY_PATH.clear()
+
+
+def _count_rescale(L: int, path: str) -> None:
+    RESCALES_BY_L[L] = RESCALES_BY_L.get(L, 0) + 1
+    RESCALES_BY_PATH[path] = RESCALES_BY_PATH.get(path, 0) + 1
+
+
+def _joint_zp(zp: int) -> bool:
+    """Whether kernel 7 takes zp: a power of two ≤ 2^16 (the mod-zp sums of
+    its sign terms multiply two values < zp)."""
+    return 0 < zp <= (1 << 16) and not zp & (zp - 1)
+
+
+def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, plain: bool,
+                   c01=None) -> torch.Tensor:
+    """`hybrid.rescale_joint`: kernel 9 or 5 (its plain version with
+    plain=True), then kernel 7. ct [..., T, n] → [..., T − k_drop, n]; with
+    c01 = (c0, c1), each [Bt, L − k_drop, n], ct is the hybrid product's
+    (t0, t1) [2, Bt, T, n] and the result [Bt, 2, L − k_drop, n] has (c0,
+    c1) added (kernel 7's store). Traced as the span `rescale_joint`."""
+    with span("rescale_joint"):
+        if not _joint_zp(p.zp):
+            raise ValueError("rescale_joint requires a power-of-two zp <= 2^16")
+        intt = grid_transforms(p.order, plain)[1]
+        fwd = rescale_fwd_plain if plain else rescale_fwd
+        qs = tuple(p.qs)
+        keep, drop = qs[:-k_drop], qs[-k_drop:]
+        coeff = intt(p.n, qs, ct.reshape(-1, len(qs), p.n).contiguous())   # [G, T, n]
+        out = fwd(p.n, keep, drop, p.zp, coeff, p.order, c01)
+        return out if c01 is not None else out.reshape(*ct.shape[:-2], len(keep), p.n)
 
 
 def rescale(p: FastParams, ct: torch.Tensor, k_drop: int = 1) -> torch.Tensor:
-    """Exact BGV rescale dropping the last k_drop limbs, NTT domain in and
-    out (fast.py:389); plaintext-scale bookkeeping is the caller's. Each
-    limb dropped is one inverse and one forward transform with the torch ops
-    of the division between them; counted in `RESCALES_BY_L`. Traced as
-    the span `rescale` (attributes L, k_drop) over the transforms' launch
-    spans and one `glue.rescale` span a limb around the torch ops."""
-    with span("rescale", L=len(p.qs), k_drop=k_drop):
+    """Exact BGV rescale dropping the last k_drop limbs, one at a time, NTT
+    domain in and out (fast.py:389); plaintext-scale bookkeeping is the
+    caller's. Two paths, chosen by zp and counted in `RESCALES_BY_PATH` (and
+    by L in `RESCALES_BY_L`) a limb dropped:
+    - "kernel", for a power-of-two zp ≤ 2^16: each limb is a joint rescale
+      by that one limb (`_rescale_joint`: kernel 9 or 5, then kernel 7 at
+      K = 1), two launches and no torch op on the card;
+    - "loop", for any other zp: `_rescale_loop`, an inverse and a forward
+      transform with the torch ops of the division between them.
+    Both give the same residues where both run. Traced as the span `rescale` (attributes
+    L, k_drop, path) over a `rescale_joint` span a limb or the loop's
+    spans."""
+    path = "kernel" if _joint_zp(p.zp) else "loop"
+    with span("rescale", L=len(p.qs), k_drop=k_drop, path=path):
+        if path == "loop":
+            return _rescale_loop(p, ct, k_drop)
         out = ct
-        qs = tuple(p.qs)
-        pz = p.zp
-        mask = pz - 1
-        for _ in range(k_drop):
-            coeff = _intt_p(replace(p, qs=qs), out)
-            RESCALES_BY_L[len(qs)] = RESCALES_BY_L.get(len(qs), 0) + 1
-            with span("glue.rescale"):
-                coeff = widen(coeff)
-                qk = qs[-1]
-                qs = qs[:-1]
-                r = coeff[..., -1, :]
-                is_neg = r > qk // 2
-                r_mod_p = r & mask
-                rc_mod_p = torch.where(is_neg, (r_mod_p + pz - ((qk % pz) & mask)) & mask,
-                                       r_mod_p)
-                t = (((pz - rc_mod_p) & mask) * pow(qk, -1, pz)) & mask  # (−r_c)·q_k⁻¹ mod p
-                t_neg = t > pz // 2
-                rows = []
-                for j, qj in enumerate(qs):
-                    qk_mod = qk % qj
-                    r_red = r % qj
-                    rc = torch.where(is_neg, (r_red - qk_mod) % qj, r_red)
-                    tc = torch.where(t_neg, qj - (pz - t), t)
-                    delta = (rc + tc * qk_mod % qj) % qj
-                    diff = (coeff[..., j, :] - delta) % qj
-                    rows.append(diff * pow(qk, -1, qj) % qj)
-                rows = narrow(torch.stack(rows, dim=-2))
-            out = _ntt_p(replace(p, qs=qs), rows)
+        for i in range(k_drop):
+            if i:
+                p = replace(p, qs=p.qs[:-1])
+            _count_rescale(len(p.qs), path)
+            out = _rescale_joint(p, out, 1, plain=False)
         return out
+
+
+def _rescale_loop(p: FastParams, ct: torch.Tensor, k_drop: int) -> torch.Tensor:
+    """`rescale` limb by limb in int64 torch ops: per limb an inverse
+    transform, the division (one `glue.rescale` span), then a forward
+    transform. Its masks take zp to be a power of two, as the JAX package's
+    do; unlike kernel 7 it has no bound on zp."""
+    out = ct
+    qs = tuple(p.qs)
+    pz = p.zp
+    mask = pz - 1
+    for _ in range(k_drop):
+        coeff = _intt_p(replace(p, qs=qs), out)
+        _count_rescale(len(qs), "loop")
+        with span("glue.rescale"):
+            coeff = widen(coeff)
+            qk = qs[-1]
+            qs = qs[:-1]
+            r = coeff[..., -1, :]
+            is_neg = r > qk // 2
+            r_mod_p = r & mask
+            rc_mod_p = torch.where(is_neg, (r_mod_p + pz - ((qk % pz) & mask)) & mask,
+                                   r_mod_p)
+            t = (((pz - rc_mod_p) & mask) * pow(qk, -1, pz)) & mask  # (−r_c)·q_k⁻¹ mod p
+            t_neg = t > pz // 2
+            rows = []
+            for j, qj in enumerate(qs):
+                qk_mod = qk % qj
+                r_red = r % qj
+                rc = torch.where(is_neg, (r_red - qk_mod) % qj, r_red)
+                tc = torch.where(t_neg, qj - (pz - t), t)
+                delta = (rc + tc * qk_mod % qj) % qj
+                diff = (coeff[..., j, :] - delta) % qj
+                rows.append(diff * pow(qk, -1, qj) % qj)
+            rows = narrow(torch.stack(rows, dim=-2))
+        out = _ntt_p(replace(p, qs=qs), rows)
+    return out

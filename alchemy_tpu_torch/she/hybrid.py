@@ -42,11 +42,6 @@ from alchemy_tpu_torch.backend.cuda.mul_relin import (
     tensor_intt,
     tensor_intt_plain,
 )
-from alchemy_tpu_torch.backend.cuda.rescale import (
-    grid_transforms,
-    rescale_fwd,
-    rescale_fwd_plain,
-)
 from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
     _sub_mod,
@@ -56,31 +51,20 @@ from alchemy_tpu_torch.backend.modarith import (
     widen,
 )
 from alchemy_tpu_torch.nt.primes import find_ntt_prime
-from alchemy_tpu_torch.she.fast import FastParams, _ntt_p, _residues, _uniform, kernel_hint
+from alchemy_tpu_torch.she.fast import (
+    FastParams,
+    _ntt_p,
+    _rescale_joint,
+    _residues,
+    _uniform,
+    kernel_hint,
+)
 from alchemy_tpu_torch.she.keys import gaussian_coeffs
 from alchemy_tpu_torch.utils.profiling import span
 
 # ---------------------------------------------------------------------------
 # joint rescale: drop the last k limbs in one inverse/forward round trip
 # ---------------------------------------------------------------------------
-
-
-def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, plain: bool,
-                   c01=None) -> torch.Tensor:
-    """`rescale_joint`; with c01 = (c0, c1), each [Bt, L − k_drop, n], ct
-    is the hybrid product's (t0, t1) [2, Bt, T, n] and the result [Bt, 2,
-    L − k_drop, n] has (c0, c1) added (kernel 7's store)."""
-    with span("rescale_joint"):
-        if p.zp & (p.zp - 1) or p.zp > (1 << 16):
-            # the mod-zp sums of the sign terms multiply two values < zp
-            raise ValueError("rescale_joint requires a power-of-two zp <= 2^16")
-        intt = grid_transforms(p.order, plain)[1]
-        fwd = rescale_fwd_plain if plain else rescale_fwd
-        qs = tuple(p.qs)
-        keep, drop = qs[:-k_drop], qs[-k_drop:]
-        coeff = intt(p.n, qs, ct.reshape(-1, len(qs), p.n).contiguous())   # [G, T, n]
-        out = fwd(p.n, keep, drop, p.zp, coeff, p.order, c01)
-        return out if c01 is not None else out.reshape(*ct.shape[:-2], len(keep), p.n)
 
 
 def rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int) -> torch.Tensor:

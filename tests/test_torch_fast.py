@@ -257,6 +257,35 @@ def test_rescale_matches_jax_mxu():
     assert _eq(jfast.rescale(jp, jnp.asarray(ct), 2), tfast.rescale(tp, to_torch(ct, "cpu"), 2))
 
 
+@pytest.mark.parametrize("impl", ["mxu", "pallas"])
+@pytest.mark.parametrize("k_drop", [1, 2, 3])
+@pytest.mark.parametrize("zp", [2, 4, 1 << 16, 1 << 17])
+def test_rescale_paths_match_the_loop(zp, k_drop, impl):
+    """`rescale` on ciphertexts [3, 2, L, n]: at a power-of-two zp ≤ 2^16
+    the joint-rescale path, one limb at a time, equal to the limb-by-limb
+    loop bit for bit; above 2^16 the loop, equal to the JAX package's
+    rescale. `RESCALES_BY_PATH` counts one rescale a limb on the path
+    taken."""
+    log_n, L = 10, 5
+    tp = tfast.FastParams.make(log_n, L, zp=zp, impl=impl)
+    rng = np.random.default_rng(zp + 10 * k_drop)
+    ct = np.stack([[[rng.integers(0, q, tp.n) for q in tp.qs] for _ in range(2)]
+                   for _ in range(3)]).astype(np.uint32)
+    tfast.reset_rescales()
+    got = tfast.rescale(tp, to_torch(ct, "cpu"), k_drop)
+    path = "kernel" if zp <= 1 << 16 else "loop"
+    assert tfast.RESCALES_BY_PATH == {path: k_drop}
+    assert tfast.RESCALES_BY_L == {L - i: 1 for i in range(k_drop)}
+    assert got.shape == (3, 2, L - k_drop, tp.n) and got.dtype == torch.int32
+    if path == "kernel":
+        assert torch.equal(got, tfast._rescale_loop(tp, to_torch(ct, "cpu"), k_drop))
+    else:
+        jp = jfast.FastParams.make(log_n, L, zp=zp, impl=impl)
+        assert _eq(jfast.rescale(jp, jnp.asarray(ct), k_drop), got)
+    tfast.reset_rescales()
+    assert tfast.RESCALES_BY_PATH == {} and tfast.RESCALES_BY_L == {}
+
+
 def test_impl_is_checked():
     """Every impl of the JAX package's FastParams is accepted, with the slot
     order the kernels take; anything else raises."""

@@ -247,6 +247,35 @@ def test_kernels_5_6_match_plain_on_the_card_at_2e16(G, order):
     assert rk.LAUNCHES_BY_SHAPE[inv_name, G, 3, p.n] >= 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["mxu", "pallas"])
+@pytest.mark.parametrize("L,k_drop", [(18, 1), (18, 2), (12, 1), (9, 1), (3, 1)])
+def test_fast_rescale_kernel_path_matches_the_loop_on_the_card(L, k_drop, order):
+    """`fast.rescale` at widths of the depth-16 chain (its 18 primes cut to
+    L), one ciphertext [2, L, 2^15]: the kernel path equals the limb-by-limb
+    loop run on the same card tensors, residue for residue, and launches
+    one inverse transform and one kernel 7 at K = 1 a dropped limb."""
+    from dataclasses import replace
+
+    _need_card()
+    p = tfast.FastParams.make(15, 18, impl=order)
+    p = replace(p, qs=p.qs[:L])
+    ct = to_torch(_rows(p, 2, seed=L + k_drop), "cuda")
+    inv_name, _ = _grid_names(order)
+    before, shapes = dict(rk.LAUNCHES), dict(rk.LAUNCHES_BY_SHAPE)
+    tfast.reset_rescales()
+    got = tfast.rescale(p, ct, k_drop)
+    assert rk.LAUNCHES == {**before, inv_name: before[inv_name] + k_drop,
+                           "rescale_fwd": before["rescale_fwd"] + k_drop}
+    for i in range(k_drop):
+        key = ("rescale_fwd", 2, L - 1 - i, 1, p.n)
+        assert rk.LAUNCHES_BY_SHAPE[key] == shapes.get(key, 0) + 1
+    assert tfast.RESCALES_BY_PATH == {"kernel": k_drop}
+    assert got.is_cuda and got.shape == (2, L - k_drop, p.n)
+    assert torch.equal(got, tfast._rescale_loop(p, ct, k_drop))
+    tfast.reset_rescales()
+
+
 def _kernel_7_inputs(log_n: int, L: int, K: int, G: int, device: str):
     """(keep, drop, coeff, (c0, c1)) as rescale_joint and the hybrid product
     hand them to kernel 7: canonical coefficients [G, L + K, n] whose first

@@ -5,7 +5,7 @@
 system equal to the plain reference (`benchmark/reference_chain.py`)
 residue for residue and decrypting to the message's 2^depth-th power; the
 chain judge failing a broken chain and the float64 control; the chain's
-spans and the rescale counter."""
+spans and the rescale counters."""
 
 from __future__ import annotations
 
@@ -127,9 +127,10 @@ def test_chain_judge_fails_a_wrong_chain(side):
 
 def test_traced_chain_has_its_span_tree_and_counts_its_rescales():
     """One `square_chain` root; `depth` `chain.level` spans under it, each
-    over one `mul_relin_hybrid` and one `rescale` holding one
-    `glue.rescale` between its two transforms' launch spans; the rescale
-    counter's delta equals the `rescale` spans, by L."""
+    over one `mul_relin_hybrid` and one `rescale` on the kernel path
+    holding one `rescale_joint` over its two launch spans (the inverse
+    transform's, then kernel 7's) and no `glue.rescale`; the rescale
+    counters' deltas equal the `rescale` spans, by L and by path."""
     cfg = tiny_chain_config()
     system = bgv_square_chain.System(cfg, TRAFFIC, SEED, torch.device("cpu"))
     profiling.reset()
@@ -152,13 +153,16 @@ def test_traced_chain_has_its_span_tree_and_counts_its_rescales():
     for lv in levels:
         assert [s.name for s in children(lv)] == ["mul_relin_hybrid", "rescale"]
         rs = children(lv, "rescale")[0]
-        assert rs.attrs == {"L": lv.attrs["L"], "k_drop": 1}
-        assert [s.name for s in children(rs)] == ["launch.intt2_grid", "glue.rescale",
-                                                  "launch.ntt2_grid"]
+        assert rs.attrs == {"L": lv.attrs["L"], "k_drop": 1, "path": "kernel"}
+        assert [s.name for s in children(rs)] == ["rescale_joint"]
+        assert [s.name for s in children(children(rs)[0])] == ["launch.intt2_grid",
+                                                               "launch.rescale_fwd"]
         rescales.append(rs)
+    assert not [s for s in buf if s.name == "glue.rescale"]
     assert fast.RESCALES_BY_L == {L: 1 for L in (6, 5, 4, 3)}
     assert sum(fast.RESCALES_BY_L.values()) == len(rescales)
+    assert fast.RESCALES_BY_PATH == {"kernel": DEPTH}
     fast.reset_rescales()
-    assert fast.RESCALES_BY_L == {}
+    assert fast.RESCALES_BY_L == {} and fast.RESCALES_BY_PATH == {}
     assert torch.equal(out, system.call(0)) and not profiling.spans()
     system.close()
