@@ -324,9 +324,9 @@ def bench_ntt(device, p, min_seconds=1.0, batch: int = 1):
 def launch_counts() -> dict:
     """The kernel wrappers' launch counters (a graph's replays are not
     counted: its capture is one launch of each kernel in it)."""
-    from alchemy_tpu_torch.backend.cuda import mul_relin, rescale
+    from alchemy_tpu_torch.backend.cuda.launch import LAUNCHES
 
-    return {k: v for k, v in {**mul_relin.LAUNCHES, **rescale.LAUNCHES}.items() if v}
+    return {k: v for k, v in LAUNCHES.items() if v}
 
 
 def main(device: str | None = None, argv=None) -> int:

@@ -4,7 +4,7 @@
 it bit for bit against its plain PyTorch version on the same inputs (the
 plain versions are what the tests hold against the JAX package): A and B
 (`fast.mul_relin`, raw and Shoup hints), 4, then 5 and 7
-(`mul_relin_hybrid`, `rescale_joint`), 6 and 5 (`ntt3_grid`, `intt3_grid`),
+(`mul_relin_hybrid`, `rescale_joint`), 6 and 5 (`grid_transforms("pallas")`),
 all in the "pallas" order at the JAX script's shapes (SHAPES): n = 2^14,
 L = 4 and 8, and the bench headline n = 2^15, L = 8, Bt = 16 with Shoup
 hints, so that the recorded PASS guards the recorded number. Kernels 8 and
@@ -110,9 +110,11 @@ def run_checks(device: str = "cuda", shapes: dict = SHAPES) -> dict:
 
     # 4. the standalone 3-factor transforms (kernels 6 and 5)
     rows = _uniform_rows(rng, p8.qs, p8.n, 2, device)
-    fwd = rk.ntt3_grid(p8.n, p8.qs, rows)
-    back = rk.intt3_grid(p8.n, p8.qs, fwd)
-    results["ntt3_grid_bitident"] = bool(torch.equal(fwd, rk.ntt3_grid_plain(p8.n, p8.qs, rows)))
+    (ntt3, intt3), (ntt3_plain, _) = (rk.grid_transforms("pallas", plain)
+                                      for plain in (False, True))
+    fwd = ntt3(p8.n, p8.qs, rows)
+    back = intt3(p8.n, p8.qs, fwd)
+    results["ntt3_grid_bitident"] = bool(torch.equal(fwd, ntt3_plain(p8.n, p8.qs, rows)))
     results["ntt3_grid_roundtrip"] = bool(torch.equal(back, rows))
 
     # 5. the bench headline: n = 2^15, L = 8, Bt = 16, Shoup hint pairs

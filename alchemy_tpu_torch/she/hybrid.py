@@ -13,13 +13,14 @@ relinearization runs over the extended chain Q·P of T = L + K limbs:
 On the card `mul_relin_hybrid` launches five kernels and no torch op:
 kernel A (tensor product + inverse NTT of c2), `garner_pack` (c2's Garner
 digits), kernel 4 (base extension, digit NTTs, hint products) and
-`rescale_joint`'s kernel 9 ("mxu") or 5 ("pallas") and kernel 7, which
-computes the dropped limbs' Garner digits and sign terms in its load and
-adds (c0, c1) in its store; every kernel in the slot order of
-`FastParams.impl`. On CPU tensors every kernel wrapper runs its plain
-version; `mul_relin_hybrid_plain` and `_rescale_joint_plain` run the plain
-versions on any device, the reference the kernel path is held against on
-the card. Sampling follows the JAX package call for call, so one seed gives
+`rescale_joint`'s kernel 9 ("mxu") or 5 ("pallas", "vpu") and kernel 7,
+which computes the dropped limbs' Garner digits and sign terms in its load
+and adds (c0, c1) in its store; every kernel in the slot order of
+`FastParams.impl`. `fast.rescale` runs the same joint rescale one limb at a
+time. On CPU tensors every kernel wrapper runs its plain version
+(`backend/cuda/launch.py`); `mul_relin_hybrid_plain` and
+`_rescale_joint_plain` run the plain versions on any device, the reference
+the kernel path is held against on the card. Sampling follows the JAX package call for call, so one seed gives
 bit-identical keys and hints. The Garner lifting, base extension and sign
 terms of hybrid.py:78-125, 175-197 (`garner_digits`, `extend_digits`,
 `_sign_terms`) live in `backend/modarith.py`, where the plain versions of
@@ -42,6 +43,7 @@ from alchemy_tpu_torch.backend.cuda.mul_relin import (
     tensor_intt,
     tensor_intt_plain,
 )
+from alchemy_tpu_torch.backend.cuda.rescale import ZP_MAX
 from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
     _sub_mod,
@@ -74,6 +76,8 @@ def rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int) -> torch.Tensor:
     ("mxu") or 5 ("pallas"), then kernel 7, which computes the Garner digits
     and sign terms of the dropped rows in its load. At k_drop = 1 it equals
     `fast.rescale`."""
+    if p.zp > ZP_MAX:
+        raise ValueError(f"zp={p.zp}: kernel 7 takes a zp <= {ZP_MAX}")
     return _rescale_joint(p, ct, k_drop, plain=False)
 
 

@@ -12,7 +12,8 @@ and the program's spans.
   entry ops (`she.fast.mul_relin`, `she.hybrid.mul_relin_hybrid`,
   `she.hybrid.rescale_joint`, `she.fast.rescale`), the squaring chain
   (`examples.deep_circuit.square_chain` and its levels) and the kernel
-  wrappers, kept in memory.
+  wrappers (`launch.<kernel>`, which `backend/cuda/launch.py` opens and
+  counts), kept in memory.
 
 A span records its name, its start and end (`time.time_ns()`, Unix-epoch
 ns: the clock in which `torch.profiler` reports host and device events, so

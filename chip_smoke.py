@@ -127,9 +127,9 @@ local stages of the distributed NTT are torch ops, no kernel of their own):
 
 The first four run at impl="pallas", the 3-factor slot order. Kernels 5,
 6, 8 and 9 then run again, checked and timed, at every [G, T, n] a path
-launched them with (rescale.LAUNCHES_BY_SHAPE, read per path) and at
+launched them with (launch.LAUNCHES_BY_SHAPE, read per path) and at
 GRID_SHAPES in both orders: one `[grid]` line each with the launches, device
-ms and bound by shape. Kernels A (by [Bt, L, n], mul_relin.LAUNCHES_BY_SHAPE)
+ms and bound by shape. Kernels A (by [Bt, L, n], launch.LAUNCHES_BY_SHAPE)
 and 7 (by [G, L, K, n]) follow, at every shape a path launched them with and
 at FUSED_SHAPES, both orders, 2^15 and 2^16: one `[fused]` line each.
 
@@ -304,27 +304,25 @@ def max_abs_err(a, b) -> int:
 
 
 def reset_launches() -> None:
-    from alchemy_tpu_torch.backend.cuda import mul_relin as mr
-    from alchemy_tpu_torch.backend.cuda import rescale as rk
+    from alchemy_tpu_torch.backend.cuda import launch
 
-    mr.reset_launches()
-    rk.reset_launches()
+    launch.reset_launches()
 
 
 def launches() -> dict:
-    from alchemy_tpu_torch.backend.cuda import mul_relin as mr
-    from alchemy_tpu_torch.backend.cuda import rescale as rk
+    """A copy of the launch counters (`launch.LAUNCHES`)."""
+    from alchemy_tpu_torch.backend.cuda import launch
 
-    return {**mr.LAUNCHES, **rk.LAUNCHES}
+    return dict(launch.LAUNCHES)
 
 
 def shape_launches() -> dict:
-    """Launches by shape since the reset: kernels 5, 6, 8, 9 by (name, G, T,
-    n), A by ("tensor_intt", Bt, L, n), 7 by ("rescale_fwd", G, L, K, n)."""
-    from alchemy_tpu_torch.backend.cuda import mul_relin as mr
-    from alchemy_tpu_torch.backend.cuda import rescale as rk
+    """A copy of the launches by shape since the reset (`launch.LAUNCHES_BY_SHAPE`):
+    kernels 5, 6, 8, 9 by (name, G, T, n), A by ("tensor_intt", Bt, L, n), 7
+    by ("rescale_fwd", G, L, K, n)."""
+    from alchemy_tpu_torch.backend.cuda import launch
 
-    return {**mr.LAUNCHES_BY_SHAPE, **rk.LAUNCHES_BY_SHAPE}
+    return dict(launch.LAUNCHES_BY_SHAPE)
 
 
 def host_ms(fn):
@@ -1199,12 +1197,12 @@ os.kill(os.getpid(), 9)
 
 RESUME_CHILD = """
 import json, time
-from alchemy_tpu_torch.backend.cuda import mul_relin as mr, rescale as rk
+from alchemy_tpu_torch.backend.cuda.launch import LAUNCHES
 from alchemy_tpu_torch.examples.deep_circuit import run
 t0 = time.perf_counter()
 ok, ct, level_ms = run(resume=True, state_path={path!r}, device={device!r}, verbose=False)
 print(json.dumps({{"ok": ok, "levels": len(level_ms), "wall_s": time.perf_counter() - t0,
-                  "device": str(ct.device), "launches": {{**mr.LAUNCHES, **rk.LAUNCHES}}}}))
+                  "device": str(ct.device), "launches": LAUNCHES}}))
 """
 
 

@@ -16,6 +16,7 @@ import torch
 from alchemy_tpu.she import fast as jfast
 from alchemy_tpu_torch.convert import to_numpy, to_torch
 from alchemy_tpu_torch.she import fast as tfast
+from alchemy_tpu_torch.utils import profiling
 
 
 def _params(log_n, L, zp=2):
@@ -261,29 +262,39 @@ def test_rescale_matches_jax_mxu():
 @pytest.mark.parametrize("k_drop", [1, 2, 3])
 @pytest.mark.parametrize("zp", [2, 4, 1 << 16, 1 << 17])
 def test_rescale_paths_match_the_loop(zp, k_drop, impl):
-    """`rescale` on ciphertexts [3, 2, L, n]: at a power-of-two zp ≤ 2^16
-    the joint-rescale path, one limb at a time, equal to the limb-by-limb
-    loop bit for bit; above 2^16 the loop, equal to the JAX package's
-    rescale. `RESCALES_BY_PATH` counts one rescale a limb on the path
-    taken."""
+    """`rescale` on ciphertexts [3, 2, L, n], one limb at a time, equal to
+    the JAX package's limb-by-limb rescale, through the kernel wrappers
+    (their plain versions on the CPU) at every power-of-two zp. Traced as
+    one `rescale` span (L, k_drop) over one `rescale_joint` span a limb,
+    which holds the inverse transform's and kernel 7's launch spans."""
     log_n, L = 10, 5
     tp = tfast.FastParams.make(log_n, L, zp=zp, impl=impl)
     rng = np.random.default_rng(zp + 10 * k_drop)
     ct = np.stack([[[rng.integers(0, q, tp.n) for q in tp.qs] for _ in range(2)]
                    for _ in range(3)]).astype(np.uint32)
-    tfast.reset_rescales()
-    got = tfast.rescale(tp, to_torch(ct, "cpu"), k_drop)
-    path = "kernel" if zp <= 1 << 16 else "loop"
-    assert tfast.RESCALES_BY_PATH == {path: k_drop}
-    assert tfast.RESCALES_BY_L == {L - i: 1 for i in range(k_drop)}
+    profiling.reset()
+    with profiling.tracing():
+        got = tfast.rescale(tp, to_torch(ct, "cpu"), k_drop)
+    buf = profiling.spans()
+    profiling.reset()
+    (root,) = [s for s in buf if s.parent is None]
+    assert (root.name, root.attrs) == ("rescale", {"L": L, "k_drop": k_drop})
+    joints = [s for s in buf if s.parent == root.index]
+    assert [s.name for s in joints] == ["rescale_joint"] * k_drop
+    inverse = {"mxu": "launch.intt2_grid", "pallas": "launch.intt_grid"}[impl]
+    for s in joints:
+        assert [c.name for c in buf if c.parent == s.index] == [inverse, "launch.rescale_fwd"]
     assert got.shape == (3, 2, L - k_drop, tp.n) and got.dtype == torch.int32
-    if path == "kernel":
-        assert torch.equal(got, tfast._rescale_loop(tp, to_torch(ct, "cpu"), k_drop))
-    else:
-        jp = jfast.FastParams.make(log_n, L, zp=zp, impl=impl)
-        assert _eq(jfast.rescale(jp, jnp.asarray(ct), k_drop), got)
-    tfast.reset_rescales()
-    assert tfast.RESCALES_BY_PATH == {} and tfast.RESCALES_BY_L == {}
+    jp = jfast.FastParams.make(log_n, L, zp=zp, impl=impl)
+    assert _eq(jfast.rescale(jp, jnp.asarray(ct), k_drop), got)
+
+
+@pytest.mark.parametrize("zp", [3, 6])
+def test_rescale_refuses_a_zp_that_is_not_a_power_of_two(zp):
+    """The exact division's sign terms take zp to be a power of two."""
+    p = tfast.FastParams.make(10, 3, zp=zp)
+    with pytest.raises(ValueError, match="power-of-two zp"):
+        tfast.rescale(p, torch.zeros((2, 3, p.n), dtype=torch.int32), 1)
 
 
 def test_impl_is_checked():

@@ -14,7 +14,7 @@ import torch
 from alchemy_tpu.she import fast as jfast
 from alchemy_tpu.she import hybrid as jhyb
 from alchemy_tpu_torch.backend import modarith as ma
-from alchemy_tpu_torch.backend.cuda import build
+from alchemy_tpu_torch.backend.cuda import build, launch
 from alchemy_tpu_torch.backend.cuda import mul_relin as mr
 from alchemy_tpu_torch.convert import to_numpy, to_torch
 from alchemy_tpu_torch.she import fast as tfast
@@ -349,9 +349,9 @@ def test_kernel4_matches_plain_on_the_card(log_n, L, Bt):
     x = mr.garner_pack(n, thk.groups, res(thk.p.qs, (Bt, L, n)))
     hb, ha = (res(qs, (thk.dnum, len(qs), n)) for _ in range(2))
     for hints in ((hb, ha), tuple(tfast.shoup_precompute(h, qs) for h in (hb, ha))):
-        before = mr.LAUNCHES["hybrid_digit_relin"]
+        before = launch.LAUNCHES["hybrid_digit_relin"]
         out = mr.hybrid_digit_stage(n, qs, thk.groups, x, *hints)
-        assert mr.LAUNCHES["hybrid_digit_relin"] == before + 1
+        assert launch.LAUNCHES["hybrid_digit_relin"] == before + 1
         assert torch.equal(out, mr.hybrid_digit_stage_plain(n, qs, thk.groups, x, *hints))
 
 
@@ -393,9 +393,9 @@ def test_kernels_4_and_7_match_plain_on_the_card_split(log_n, L, Bt, order):
     c01 = tuple(res(keep, (Bt, L, n)) for _ in range(2))
     for add in (None, c01):
         args = (n, keep, drop, 2, coeff, order, add)
-        before = rk.LAUNCHES["rescale_fwd"]
+        before = launch.LAUNCHES["rescale_fwd"]
         assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
-        assert rk.LAUNCHES["rescale_fwd"] == before + 1
+        assert launch.LAUNCHES["rescale_fwd"] == before + 1
 
 
 @pytest.mark.cuda
@@ -411,9 +411,9 @@ def test_garner_pack_matches_plain_on_the_card(L, dnum, Bt):
     c2c = np.random.default_rng(L + Bt).integers(0, 1 << 62, (Bt, L, n)) % q
     c2c[:, :, 0], c2c[:, :, 1] = q[:, 0] - 1, 0
     c2c = to_torch(c2c, "cuda")
-    before = mr.LAUNCHES_BY_SHAPE.get(("garner_pack", Bt, L, alpha, n), 0)
+    before = launch.LAUNCHES_BY_SHAPE.get(("garner_pack", Bt, L, alpha, n), 0)
     out = mr.garner_pack(n, thk.groups, c2c)
-    assert mr.LAUNCHES_BY_SHAPE[("garner_pack", Bt, L, alpha, n)] == before + 1
+    assert launch.LAUNCHES_BY_SHAPE[("garner_pack", Bt, L, alpha, n)] == before + 1
     assert torch.equal(out, mr.garner_pack_plain(n, thk.groups, c2c))
 
 
@@ -425,8 +425,6 @@ def test_mul_relin_hybrid_matches_plain_on_the_card_eager_and_in_a_graph(order):
     called eagerly (five launches: A, garner_pack, 4, the inverse transform,
     7) and captured in a CUDA graph, replayed on new inputs copied into the
     captured ones."""
-    from alchemy_tpu_torch.backend.cuda import rescale as rk
-
     _need_card()
     hk = thyb.HybridKS.make(tfast.FastParams.make(15, 16, impl=order), dnum=4)
     rng = np.random.default_rng(16)
@@ -434,7 +432,7 @@ def test_mul_relin_hybrid_matches_plain_on_the_card_eager_and_in_a_graph(order):
     cts = [torch.stack([tfast.encrypt(hk.p, s, rng.integers(0, 2, hk.p.n), rng)
                         for _ in range(4)]) for _ in range(2)]
     a, b = cts[0][:2].clone(), cts[0][2:].clone()
-    counted = lambda: sum(mr.LAUNCHES.values()) + sum(rk.LAUNCHES.values())
+    counted = lambda: sum(launch.LAUNCHES.values())
     before = counted()
     out = thyb.mul_relin_hybrid(hk, a, b, *hints)
     assert counted() - before == 5

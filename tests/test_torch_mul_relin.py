@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from alchemy_tpu.she import fast as jfast
+from alchemy_tpu_torch.backend.cuda import launch
 from alchemy_tpu_torch.backend.cuda import mul_relin as mr
 from alchemy_tpu_torch.backend.cuda import rescale as rk
 from alchemy_tpu_torch.backend.modarith import narrow, widen
@@ -145,7 +146,7 @@ def _split_inverse(y, tw, q, slot_inv, n_inv):
 
 def _check_slot_contract(log_n):
     p = jfast.FastParams.make(log_n, 2)
-    t = mr.kernel_tables(p.n, p.qs)
+    t = launch.kernel_tables(p.n, p.qs)
     slot = t["slot_ct"]
     assert np.array_equal(np.sort(slot), np.arange(p.n))          # a permutation
     assert np.array_equal(t["slot_inv"][slot], np.arange(p.n))    # and its inverse
@@ -190,7 +191,7 @@ def test_split_schedule_matches_ntt3(log_n):
     inverse stage) against ntt3/intt3 (exact), at 2^16 (the radix-4 slot
     order) and at small sizes."""
     p = jfast.FastParams.make(log_n, 2)
-    t = mr.kernel_tables(p.n, p.qs)
+    t = launch.kernel_tables(p.n, p.qs)
     rng = np.random.default_rng(log_n)
     x = rng.integers(0, 1 << 32, (2, p.n), dtype=np.uint64).astype(np.int64)  # any uint32
     q = np.array(p.qs, dtype=np.int64)[:, None]
@@ -292,10 +293,10 @@ def test_register_blocked_schedule_matches_plain_ntt(log_n, order, shape):
     threads, max_rl, first_rl, pair = RB_SHAPES[shape]
     p = jfast.FastParams.make(log_n, 2)
     n, half = p.n, p.n // 2
-    t = mr.kernel_tables(n, p.qs, order)
+    t = launch.kernel_tables(n, p.qs, order)
     rng = np.random.default_rng(log_n)
     x = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(np.int64)  # any uint32
-    y = mr.plain_transforms(order)[0](torch.from_numpy(x), n, p.qs).numpy()
+    y = launch.plain_transforms(order)[0](torch.from_numpy(x), n, p.qs).numpy()
     own = t["slot_own"].astype(np.int64).reshape(2, half)
     slots, local = own & 0xFFFF, own >> 16
     assert np.array_equal(np.sort(slots.ravel()), np.arange(n))
@@ -399,8 +400,8 @@ def test_grid_kernel_schedule_matches_plain_ntt(log_n, order, shape, direction):
     parts = 1 << split
     p = jfast.FastParams.make(log_n, 2)
     n, size = p.n, p.n >> split
-    t = mr.kernel_tables(n, p.qs, order)
-    fwd_plain, inv_plain = mr.plain_transforms(order)[:2]
+    t = launch.kernel_tables(n, p.qs, order)
+    fwd_plain, inv_plain = launch.plain_transforms(order)[:2]
     rng = np.random.default_rng(log_n)
     x = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(np.int64)  # any uint32
     q = np.array(p.qs, dtype=np.int64)[:, None]
@@ -447,7 +448,7 @@ def test_kernel_a_schedule_matches_plain(log_n, order, shape):
     parts = 1 << split
     p = jfast.FastParams.make(log_n, 2)
     n, size = p.n, p.n >> split
-    t = mr.kernel_tables(n, p.qs, order)
+    t = launch.kernel_tables(n, p.qs, order)
     rng = np.random.default_rng(log_n)
     q = np.array(p.qs, dtype=np.int64)[:, None]
     ct_a, ct_b = (rng.integers(0, 1 << 62, (1, 2, 2, n)) % q for _ in range(2))
@@ -503,7 +504,7 @@ def _garner_emulated(r, rows, count):
 @pytest.mark.parametrize("L,dnum", [(5, 2), (7, 2), (16, 4), (18, 5)])
 def test_garner_pack_arithmetic_matches_plain(L, dnum):
     """mul_relin.cu garner_pack_kernel as it computes (each group's rows of
-    `_device_garner`'s table, zq::garner in uint32 arithmetic) against
+    `garner_rows`'s table on the device, zq::garner in uint32 arithmetic) against
     `garner_pack_plain`, at uneven groups (3 + 2, 4 + 3, 4 × 4 + 2) and
     with every residue q − 1 and zeros."""
     p = tfast.FastParams.make(10, L, bits=30)
@@ -512,7 +513,8 @@ def test_garner_pack_arithmetic_matches_plain(L, dnum):
     q = np.array(p.qs, dtype=np.int64)[:, None]
     c2c = rng.integers(0, 1 << 62, (2, L, n)) % q
     c2c[:, :, 0], c2c[:, :, 1] = q[:, 0] - 1, 0
-    table = mr._device_garner(groups, "cpu").numpy().view(np.uint32).astype(np.int64)
+    table = launch.uploaded(mr.garner_rows, groups, device="cpu").numpy().view(np.uint32)
+    table = table.astype(np.int64)
     alpha, got = len(groups[0]), np.empty_like(c2c)
     for gi, grp in enumerate(groups):
         k0 = gi * alpha
@@ -566,7 +568,7 @@ def test_kernel_7_schedule_matches_plain(log_n, k_drop, zp, order):
     c01 = rng.integers(0, 1 << 62, (2, 1, 2, n)) % q[:2]
     want = widen(rk.rescale_fwd_plain(n, keep, drop, zp, narrow(torch.from_numpy(coeff)), order,
                                       tuple(map(torch.from_numpy, c01))))
-    t = mr.kernel_tables(n, keep, order)
+    t = launch.kernel_tables(n, keep, order)
     own = t["slot_own"].astype(np.int64).reshape(2, half)
     slots, local = own & 0xFFFF, own >> 16
     consts = rk.rescale_consts(keep, drop).astype(np.int64)
@@ -611,20 +613,20 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         mr.digit_relin(p.n, p.qs, c, c, c, (h, h), (h, h[:1]))
     # the sizes the CUDA path takes, and what it refuses, checked without a card
-    cuda = torch.device("cuda")
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
     for log_n in (10, 15, 16):
-        mr._kernel_device(1 << log_n, cuda)
+        assert launch.on_card(1 << log_n, cuda) and not launch.on_card(1 << log_n, cpu)
     with pytest.raises(NotImplementedError, match="n ≤ 2\\^16"):
-        mr._kernel_device(1 << 17, cuda)
+        launch.on_card(1 << 17, cuda)
     with pytest.raises(ValueError):
-        mr._kernel_device(1 << 15, torch.device("meta"))
+        launch.on_card(1 << 15, torch.device("meta"))
     with pytest.raises(ValueError, match="slot order"):
         mr.tensor_intt(p.n, p.qs, good, good, order="radix4")
     # kernels B and 4 read rows 16 bytes at a time: a view off a 16-byte boundary is refused
     row = torch.zeros(8, dtype=torch.int32)
-    mr._aligned(row, None)
+    launch.aligned(row, None)
     with pytest.raises(ValueError, match="16-byte"):
-        mr._aligned(row[1:])
+        launch.aligned(row[1:])
 
 
 class _Gate(Exception):
@@ -638,17 +640,14 @@ def test_wrapper_gates_by_ring_size(monkeypatch, log_n):
     memory, no card) and the gate asked as for CUDA: every kernel (A, B,
     4–9, both slot orders; half a limb per block) takes 2^15 and 2^16 and
     refuses 2^17."""
-    from alchemy_tpu_torch.backend.cuda import rescale as rk
-
-    real = mr._kernel_device
+    real = launch.on_card
 
     def gate(n, device):
         assert device.type == "meta"
         real(n, torch.device("cuda"))
         raise _Gate(n)
 
-    monkeypatch.setattr(mr, "_kernel_device", gate)
-    monkeypatch.setattr(rk, "_kernel_device", gate)
+    monkeypatch.setattr(launch, "on_card", gate)
     n, qs = 1 << log_n, (12289, 40961, 65537)[:2]
     z = lambda *shape: torch.empty(shape, dtype=torch.int32, device="meta")
     c, h, x = z(1, 2, n), z(2, 2, n), z(1, 2, n)
@@ -657,10 +656,12 @@ def test_wrapper_gates_by_ring_size(monkeypatch, log_n):
         "A_mxu": lambda: mr.tensor_intt(n, qs, z(1, 2, 2, n), z(1, 2, 2, n), order="mxu"),
         "B": lambda: mr.digit_relin(n, qs, c, c, c, h, h),
         "B_shoup": lambda: mr.digit_relin(n, qs, c, c, c, (h, h), (h, h)),
-        "5": lambda: rk.intt3_grid(n, qs, x),
-        "6": lambda: rk.ntt3_grid(n, qs, x),
-        "8": lambda: rk.ntt2_grid(n, qs, x),
-        "9": lambda: rk.intt2_grid(n, qs, x),
+        "5": lambda: rk.grid_transforms("pallas")[1](n, qs, x),
+        "6": lambda: rk.grid_transforms("pallas")[0](n, qs, x),
+        "8": lambda: rk.grid_transforms("mxu")[0](n, qs, x),
+        "9": lambda: rk.grid_transforms("mxu")[1](n, qs, x),
+        "5_vpu": lambda: rk.grid_transforms("vpu")[1](n, qs, x),
+        "6_vpu": lambda: rk.grid_transforms("vpu")[0](n, qs, x),
         "4": lambda: mr.hybrid_digit_stage(n, qs + (7681,), ((qs[0],), (qs[1],)), x,
                                            z(2, 3, n), z(2, 3, n)),
         "7": lambda: rk.rescale_fwd(n, qs[:1], qs[1:], 2, x),
@@ -696,7 +697,7 @@ def test_kernels_match_plain_on_the_card(log_n, L, Bt, order):
     res = lambda shape: to_torch(rng.integers(0, 1 << 62, shape) % q, "cuda")
     ct_a, ct_b = res((Bt, 2, L, p.n)), res((Bt, 2, L, p.n))
     hb, ha = (tfast.shoup_precompute(res((L, L, p.n)), p.qs) for _ in range(2))
-    before = dict(mr.LAUNCHES)
+    before = dict(launch.LAUNCHES)
     c = mr.tensor_intt(p.n, p.qs, ct_a, ct_b, order)
     assert all(torch.equal(x, y)
                for x, y in zip(c, mr.tensor_intt_plain(p.n, p.qs, ct_a, ct_b, order)))
@@ -704,8 +705,8 @@ def test_kernels_match_plain_on_the_card(log_n, L, Bt, order):
     assert torch.equal(out, mr.digit_relin_plain(p.n, p.qs, *c, hb, ha, order))
     # raw hints: the Barrett branch of kernel B, the same residues
     assert torch.equal(mr.digit_relin(p.n, p.qs, *c, hb[0], ha[0], order), out)
-    assert mr.LAUNCHES == {**before, "tensor_intt": before["tensor_intt"] + 1,
-                           "digit_relin": before["digit_relin"] + 2}
+    assert launch.LAUNCHES == {**before, "tensor_intt": before["tensor_intt"] + 1,
+                               "digit_relin": before["digit_relin"] + 2}
 
 
 @pytest.mark.cuda
@@ -724,11 +725,11 @@ def test_kernel_a_launch_forms_match_plain_on_the_card(log_n, L, Bt, order):
     q = np.array(p.qs, dtype=np.int64)[:, None]
     res = lambda shape: to_torch(rng.integers(0, 1 << 62, shape) % q, "cuda")
     ct_a, ct_b = res((Bt, 2, L, p.n)), res((Bt, 2, L, p.n))
-    before = mr.LAUNCHES_BY_SHAPE.get(("tensor_intt", Bt, L, p.n), 0)
+    before = launch.LAUNCHES_BY_SHAPE.get(("tensor_intt", Bt, L, p.n), 0)
     got = mr.tensor_intt(p.n, p.qs, ct_a, ct_b, order)
     assert all(torch.equal(x, y)
                for x, y in zip(got, mr.tensor_intt_plain(p.n, p.qs, ct_a, ct_b, order)))
-    assert mr.LAUNCHES_BY_SHAPE[("tensor_intt", Bt, L, p.n)] == before + 1
+    assert launch.LAUNCHES_BY_SHAPE[("tensor_intt", Bt, L, p.n)] == before + 1
 
 
 @pytest.mark.cuda

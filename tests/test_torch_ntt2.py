@@ -1,6 +1,6 @@
 """alchemy_tpu_torch.backend.ntt2 (the 2-factor slot order of
 `FastParams(impl="mxu")`) and kernels 8 and 9 (backend/cuda/rescale.py
-`ntt2_grid`, `intt2_grid`): the plain transforms against the JAX package's
+`grid_transforms("mxu")`): the plain transforms against the JAX package's
 `ntt_mxu`, `intt_mxu`, `ntt_mxu_bcast` and its Pallas kernels `ntt_pallas`,
 `intt_pallas` in interpret mode, and the kernels' 2-factor slot table against
 a numpy emulation of their split radix-2 schedule (exact equality)."""
@@ -13,10 +13,16 @@ import torch
 from alchemy_tpu.backend import ntt_mxu as jmxu
 from alchemy_tpu.she import fast as jfast
 from alchemy_tpu_torch.backend import ntt2
-from alchemy_tpu_torch.backend.cuda import mul_relin as mr
+from alchemy_tpu_torch.backend.cuda import launch
 from alchemy_tpu_torch.backend.cuda import rescale as rk
+from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
 from alchemy_tpu_torch.convert import to_numpy, to_torch
+from alchemy_tpu_torch.utils import profiling
 from test_torch_mul_relin import _bitrev_forward, _bitrev_inverse, _split_forward, _split_inverse
+
+
+#: kernels 8 and 9, the standalone transforms of the 2-factor slot order
+NTT2_GRID, INTT2_GRID = rk.grid_transforms("mxu")
 
 
 def _u32(rng, shape, hi=1 << 32):
@@ -82,15 +88,15 @@ def test_plain_kernels_8_and_9_match_pallas_kernels_interpret(monkeypatch):
     rng = np.random.default_rng(8)
     x = np.stack([rng.integers(0, q, p.n) for q in p.qs]).astype(np.uint32)
     y = npk.ntt_pallas(jnp.asarray(x), p.n, p.qs)
-    got = rk.ntt2_grid(p.n, p.qs, to_torch(x[None], "cpu"))
+    got = NTT2_GRID(p.n, p.qs, to_torch(x[None], "cpu"))
     assert got.shape == (1, 3, p.n) and np.array_equal(to_numpy(got)[0], np.asarray(y))
-    back = rk.intt2_grid(p.n, p.qs, got)
+    back = INTT2_GRID(p.n, p.qs, got)
     assert np.array_equal(to_numpy(back)[0], np.asarray(npk.intt_pallas(y, p.n, p.qs)))
     assert np.array_equal(to_numpy(back)[0], x)
     # [G, L, n] with any uint32 in: the kernels reduce first, as ntt2/intt2 do
     u = _u32(rng, (2, 3, p.n))
     q = np.array(p.qs, dtype=np.uint64)[:, None]
-    for fn, plain in ((rk.ntt2_grid, ntt2.ntt2), (rk.intt2_grid, ntt2.intt2)):
+    for fn, plain in ((NTT2_GRID, ntt2.ntt2), (INTT2_GRID, ntt2.intt2)):
         want = plain(torch.from_numpy((u % q).astype(np.int64)), p.n, p.qs)
         assert np.array_equal(to_numpy(fn(p.n, p.qs, to_torch(u, "cpu"))).astype(np.int64),
                               want.numpy())
@@ -104,11 +110,11 @@ def test_mxu_slot_table_matches_split_schedule(log_n):
     split schedule of two blocks per limb (slot_inv ownership, fused first
     forward stage, cross-half last inverse stage), against ntt2/intt2."""
     p = jfast.FastParams.make(log_n, 2, impl="mxu")
-    t = mr.kernel_tables(p.n, p.qs, "mxu")
+    t = launch.kernel_tables(p.n, p.qs, "mxu")
     slot = t["slot_ct"]
     assert np.array_equal(np.sort(slot), np.arange(p.n))          # a permutation
     assert np.array_equal(t["slot_inv"][slot], np.arange(p.n))    # and its inverse
-    assert not np.array_equal(slot, mr.kernel_tables(p.n, p.qs)["slot_ct"])
+    assert not np.array_equal(slot, launch.kernel_tables(p.n, p.qs)["slot_ct"])
     rng = np.random.default_rng(log_n)
     x = _u32(rng, (2, p.n)).astype(np.int64)                      # any uint32
     q = np.array(p.qs, dtype=np.int64)[:, None]
@@ -134,14 +140,23 @@ def test_kernels_8_and_9_stay_off_the_card_and_check_inputs(monkeypatch):
     monkeypatch.setattr(build, "library", no_library)
     p = jfast.FastParams.make(10, 3, impl="mxu")
     x = torch.zeros((2, 3, p.n), dtype=torch.int32)
-    assert rk.ntt2_grid(p.n, p.qs, x).shape == rk.intt2_grid(p.n, p.qs, x).shape == x.shape
+    profiling.reset()
+    with profiling.tracing():
+        assert NTT2_GRID(p.n, p.qs, x).shape == INTT2_GRID(p.n, p.qs, x).shape == x.shape
+    assert [s.name for s in profiling.spans()] == ["launch.ntt2_grid", "launch.intt2_grid"]
+    profiling.reset()
     for bad in (x.long(), x[:, :2], x[0]):
         with pytest.raises(ValueError):
-            rk.ntt2_grid(p.n, p.qs, bad)
+            NTT2_GRID(p.n, p.qs, bad)
         with pytest.raises(ValueError):
-            rk.intt2_grid(p.n, p.qs, bad)
-    assert rk.grid_transforms("mxu") == (rk.ntt2_grid, rk.intt2_grid)
-    assert rk.grid_transforms("pallas", plain=True) == (rk.ntt3_grid_plain, rk.intt3_grid_plain)
+            INTT2_GRID(p.n, p.qs, bad)
+    # the plain pair of the 3-factor order: ntt3 and intt3 of the reduced rows
+    u = _u32(np.random.default_rng(2), (2, 3, p.n))
+    q = np.array(p.qs, dtype=np.uint64)[:, None]
+    for fn, plain in zip(rk.grid_transforms("pallas", plain=True), (ntt3, intt3)):
+        want = plain(torch.from_numpy((u % q).astype(np.int64)), p.n, p.qs)
+        assert np.array_equal(to_numpy(fn(p.n, p.qs, to_torch(u, "cpu"))).astype(np.int64),
+                              want.numpy())
     with pytest.raises(ValueError):
         rk.grid_transforms("radix4")
 
@@ -153,8 +168,9 @@ def test_kernels_8_and_9_match_plain_on_the_card(log_n, L, G):
         pytest.skip("needs a CUDA device")
     p = jfast.FastParams.make(log_n, L, impl="mxu")
     x = to_torch(_u32(np.random.default_rng(log_n), (G, L, p.n)), "cuda")
-    before = dict(rk.LAUNCHES)
-    assert torch.equal(rk.ntt2_grid(p.n, p.qs, x), rk.ntt2_grid_plain(p.n, p.qs, x))
-    assert torch.equal(rk.intt2_grid(p.n, p.qs, x), rk.intt2_grid_plain(p.n, p.qs, x))
-    assert rk.LAUNCHES == {**before, "ntt2_grid": before["ntt2_grid"] + 1,
-                           "intt2_grid": before["intt2_grid"] + 1}
+    ntt2_plain, intt2_plain = rk.grid_transforms("mxu", plain=True)
+    before = dict(launch.LAUNCHES)
+    assert torch.equal(NTT2_GRID(p.n, p.qs, x), ntt2_plain(p.n, p.qs, x))
+    assert torch.equal(INTT2_GRID(p.n, p.qs, x), intt2_plain(p.n, p.qs, x))
+    assert launch.LAUNCHES == {**before, "ntt2_grid": before["ntt2_grid"] + 1,
+                               "intt2_grid": before["intt2_grid"] + 1}

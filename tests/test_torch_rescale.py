@@ -10,12 +10,16 @@ import torch
 
 from alchemy_tpu.she import fast as jfast
 from alchemy_tpu.she import hybrid as jhyb
-from alchemy_tpu_torch.backend.cuda import build
+from alchemy_tpu_torch.backend.cuda import build, launch
 from alchemy_tpu_torch.backend.cuda import rescale as rk
 from alchemy_tpu_torch.backend.ntt3 import intt3, ntt3
 from alchemy_tpu_torch.convert import to_numpy, to_torch
 from alchemy_tpu_torch.she import fast as tfast
 from alchemy_tpu_torch.she import hybrid as thyb
+
+
+#: kernels 6 and 5, the standalone transforms of the 3-factor slot order
+NTT3_GRID, INTT3_GRID = rk.grid_transforms("pallas")
 
 
 def _eq(jax_arr, port):
@@ -47,13 +51,13 @@ def test_plain_kernels_5_and_6_match_pallas_kernels_interpret(interpret, log_n, 
     p = jfast.FastParams.make(log_n, L, impl="pallas")
     x = _rows(p, 2, seed=log_n)
     y = interpret.ntt3_grid_pallas(p.n, p.qs, jnp.asarray(x))
-    assert _eq(y, rk.ntt3_grid(p.n, p.qs, to_torch(x, "cpu")))
+    assert _eq(y, NTT3_GRID(p.n, p.qs, to_torch(x, "cpu")))
     assert _eq(interpret.intt3_grid_pallas(p.n, p.qs, y),
-               rk.intt3_grid(p.n, p.qs, to_torch(y, "cpu")))
+               INTT3_GRID(p.n, p.qs, to_torch(y, "cpu")))
     # the port's kernels reduce any uint32 input first, as ntt3/intt3 do
     u = _rows(p, 2, seed=1, hi=1 << 32)
     q = np.array(p.qs, dtype=np.uint64)[:, None]
-    for fn, plain in ((rk.ntt3_grid, ntt3), (rk.intt3_grid, intt3)):
+    for fn, plain in ((NTT3_GRID, ntt3), (INTT3_GRID, intt3)):
         want = plain(torch.from_numpy((u % q).astype(np.int64)), p.n, p.qs)
         got = to_numpy(fn(p.n, p.qs, to_torch(u, "cpu"))).astype(np.int64)
         assert np.array_equal(got, want.numpy())
@@ -66,9 +70,9 @@ def test_kernels_5_and_6_match_pallas_kernels_interpret_at_2e16(interpret):
     p = jfast.FastParams.make(16, 2, impl="pallas")
     x = _rows(p, 1, seed=16)
     y = interpret.ntt3_grid_pallas(p.n, p.qs, jnp.asarray(x))
-    assert _eq(y, rk.ntt3_grid(p.n, p.qs, to_torch(x, "cpu")))
+    assert _eq(y, NTT3_GRID(p.n, p.qs, to_torch(x, "cpu")))
     assert _eq(interpret.intt3_grid_pallas(p.n, p.qs, y),
-               rk.intt3_grid(p.n, p.qs, to_torch(np.asarray(y), "cpu")))
+               INTT3_GRID(p.n, p.qs, to_torch(np.asarray(y), "cpu")))
 
 
 @pytest.mark.parametrize("log_n,L,k_drop", [(10, 4, 1), (10, 6, 2), (11, 5, 3)])
@@ -162,7 +166,7 @@ def test_rescale_wrappers_stay_off_the_card_and_check_inputs(monkeypatch):
     p = tfast.FastParams.make(10, 4)
     n, qs = p.n, p.qs
     x = torch.zeros((2, 4, n), dtype=torch.int32)
-    assert rk.ntt3_grid(n, qs, x).shape == rk.intt3_grid(n, qs, x).shape == x.shape
+    assert NTT3_GRID(n, qs, x).shape == INTT3_GRID(n, qs, x).shape == x.shape
     c = torch.zeros((1, 3, n), dtype=torch.int32)
     assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x).shape == (2, 3, n)
     assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, "pallas", (c, c)).shape == (1, 2, 3, n)
@@ -171,11 +175,11 @@ def test_rescale_wrappers_stay_off_the_card_and_check_inputs(monkeypatch):
     down = tfast.FastParams(n=n, qs=qs[:-1], zp=2)
     assert not tfast.decrypt(down, s[:-1], tfast.rescale(p, ct, 1)).any()
     with pytest.raises(ValueError):
-        rk.ntt3_grid(n, qs, x.long())
+        NTT3_GRID(n, qs, x.long())
     with pytest.raises(ValueError):
-        rk.intt3_grid(n, qs, x[:, :3])                         # not contiguous, wrong T
+        INTT3_GRID(n, qs, x[:, :3])                             # not contiguous, wrong T
     with pytest.raises(ValueError):
-        rk.intt3_grid(n, qs, x[0])
+        INTT3_GRID(n, qs, x[0])
     with pytest.raises(ValueError):
         rk.rescale_fwd(n, qs[:3], qs[3:], 2, x[:, :3].contiguous())
     with pytest.raises(ValueError):                             # c1 of the wrong shape
@@ -215,16 +219,16 @@ def test_kernels_5_6_7_match_plain_on_the_card(log_n, L, G, order):
     x = to_torch(_rows(p, G, seed=log_n, hi=1 << 32), "cuda")
     (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
     inv_name, fwd_name = _grid_names(order)
-    before = dict(rk.LAUNCHES)
+    before = dict(launch.LAUNCHES)
     assert torch.equal(fwd(p.n, p.qs, x), fwd_plain(p.n, p.qs, x))
     assert torch.equal(inv(p.n, p.qs, x), inv_plain(p.n, p.qs, x))
     ct = to_torch(_rows(p, G, seed=1), "cuda")
     for k_drop in (1, 4):
         assert torch.equal(thyb.rescale_joint(p, ct, k_drop),
                            thyb._rescale_joint_plain(p, ct, k_drop))
-    assert rk.LAUNCHES == {**before, inv_name: before[inv_name] + 3,
-                           fwd_name: before[fwd_name] + 1,
-                           "rescale_fwd": before["rescale_fwd"] + 2}
+    assert launch.LAUNCHES == {**before, inv_name: before[inv_name] + 3,
+                               fwd_name: before[fwd_name] + 1,
+                               "rescale_fwd": before["rescale_fwd"] + 2}
 
 
 @pytest.mark.cuda
@@ -239,12 +243,12 @@ def test_kernels_5_6_match_plain_on_the_card_at_2e16(G, order):
     x = to_torch(_rows(p, G, seed=16, hi=1 << 32), "cuda")
     (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
     inv_name, fwd_name = _grid_names(order)
-    before = dict(rk.LAUNCHES)
+    before = dict(launch.LAUNCHES)
     assert torch.equal(fwd(p.n, p.qs, x), fwd_plain(p.n, p.qs, x))
     assert torch.equal(inv(p.n, p.qs, x), inv_plain(p.n, p.qs, x))
-    assert rk.LAUNCHES == {**before, inv_name: before[inv_name] + 1,
-                           fwd_name: before[fwd_name] + 1}
-    assert rk.LAUNCHES_BY_SHAPE[inv_name, G, 3, p.n] >= 1
+    assert launch.LAUNCHES == {**before, inv_name: before[inv_name] + 1,
+                               fwd_name: before[fwd_name] + 1}
+    assert launch.LAUNCHES_BY_SHAPE[inv_name, G, 3, p.n] >= 1
 
 
 @pytest.mark.cuda
@@ -252,9 +256,11 @@ def test_kernels_5_6_match_plain_on_the_card_at_2e16(G, order):
 @pytest.mark.parametrize("L,k_drop", [(18, 1), (18, 2), (12, 1), (9, 1), (3, 1)])
 def test_fast_rescale_kernel_path_matches_the_loop_on_the_card(L, k_drop, order):
     """`fast.rescale` at widths of the depth-16 chain (its 18 primes cut to
-    L), one ciphertext [2, L, 2^15]: the kernel path equals the limb-by-limb
-    loop run on the same card tensors, residue for residue, and launches
-    one inverse transform and one kernel 7 at K = 1 a dropped limb."""
+    L), one ciphertext [2, L, 2^15]: the kernel path equals `fast.rescale`
+    on CPU copies (the plain versions, which the CPU tests hold against the
+    JAX package), residue for residue, and launches one inverse transform
+    and one kernel 7 at K = 1 a dropped limb. A zp above kernel 7's
+    `ZP_MAX` raises on the card."""
     from dataclasses import replace
 
     _need_card()
@@ -262,18 +268,17 @@ def test_fast_rescale_kernel_path_matches_the_loop_on_the_card(L, k_drop, order)
     p = replace(p, qs=p.qs[:L])
     ct = to_torch(_rows(p, 2, seed=L + k_drop), "cuda")
     inv_name, _ = _grid_names(order)
-    before, shapes = dict(rk.LAUNCHES), dict(rk.LAUNCHES_BY_SHAPE)
-    tfast.reset_rescales()
+    before, shapes = dict(launch.LAUNCHES), dict(launch.LAUNCHES_BY_SHAPE)
     got = tfast.rescale(p, ct, k_drop)
-    assert rk.LAUNCHES == {**before, inv_name: before[inv_name] + k_drop,
-                           "rescale_fwd": before["rescale_fwd"] + k_drop}
+    assert launch.LAUNCHES == {**before, inv_name: before[inv_name] + k_drop,
+                               "rescale_fwd": before["rescale_fwd"] + k_drop}
     for i in range(k_drop):
         key = ("rescale_fwd", 2, L - 1 - i, 1, p.n)
-        assert rk.LAUNCHES_BY_SHAPE[key] == shapes.get(key, 0) + 1
-    assert tfast.RESCALES_BY_PATH == {"kernel": k_drop}
+        assert launch.LAUNCHES_BY_SHAPE[key] == shapes.get(key, 0) + 1
     assert got.is_cuda and got.shape == (2, L - k_drop, p.n)
-    assert torch.equal(got, tfast._rescale_loop(p, ct, k_drop))
-    tfast.reset_rescales()
+    assert torch.equal(got.cpu(), tfast.rescale(p, ct.cpu(), k_drop))
+    with pytest.raises(ValueError, match="power-of-two zp"):
+        tfast.rescale(replace(p, zp=2 * rk.ZP_MAX), ct, k_drop)
 
 
 def _kernel_7_inputs(log_n: int, L: int, K: int, G: int, device: str):
@@ -314,11 +319,11 @@ def test_kernel_7_matches_plain_on_the_card(log_n, L, K, G, order, add_back):
     _need_card()
     keep, drop, coeff, c01 = _kernel_7_inputs(log_n, L, K, G, "cuda")
     args = (1 << log_n, keep, drop, 2, coeff, order, c01 if add_back else None)
-    before = rk.LAUNCHES_BY_SHAPE.get(("rescale_fwd", G, L, K, 1 << log_n), 0)
+    before = launch.LAUNCHES_BY_SHAPE.get(("rescale_fwd", G, L, K, 1 << log_n), 0)
     out = rk.rescale_fwd(*args)
     assert out.shape == ((G // 2, 2, L, 1 << log_n) if add_back else (G, L, 1 << log_n))
     assert torch.equal(out, rk.rescale_fwd_plain(*args))
-    assert rk.LAUNCHES_BY_SHAPE[("rescale_fwd", G, L, K, 1 << log_n)] == before + 1
+    assert launch.LAUNCHES_BY_SHAPE[("rescale_fwd", G, L, K, 1 << log_n)] == before + 1
 
 
 @pytest.mark.cuda

@@ -23,6 +23,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from alchemy_tpu_torch.backend.cuda import launch
 from alchemy_tpu_torch.backend.cuda import mul_relin as mr
 from alchemy_tpu_torch.backend.cuda import rescale as rk
 from alchemy_tpu_torch.she import fast, hybrid
@@ -187,6 +188,30 @@ def test_a_block_that_raises_is_flagged():
     assert profiling.span("off") is profiling.span("off again")    # the shared no-op
 
 
+def test_every_wrapper_opens_a_launch_span_its_counter_names():
+    """Each kernel wrapper, run once on tiny CPU tensors (its plain
+    version), opens one span `launch.<name>`: its names are the keys of the
+    one `launch.LAUNCHES`, all 11 of them, and each span's `entry` is the C
+    entry point its kernel's counter names. The CPU counts no launch."""
+    chain = fast.FastParams.make(6, 4).qs
+    n, qs, groups = 1 << 6, chain[:3], ((chain[0], chain[1]), (chain[2],))
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    before = dict(launch.LAUNCHES)
+    with profiling.tracing():
+        c0, c1, c2c = mr.tensor_intt(n, qs, z(1, 2, 3, n), z(1, 2, 3, n))
+        mr.digit_relin(n, qs, c0, c1, c2c, z(3, 3, n), z(3, 3, n))
+        x = mr.garner_pack(n, groups, c2c)
+        mr.hybrid_digit_stage(n, chain, groups, x, (z(2, 4, n),) * 2, (z(2, 4, n),) * 2)
+        for order in launch.ORDERS:
+            for transform in rk.grid_transforms(order):
+                transform(n, qs, z(1, 3, n))
+        rk.rescale_fwd(n, qs[:2], qs[2:], 2, z(2, 3, n))
+    names = [s.name.removeprefix("launch.") for s in profiling.spans()]
+    assert sorted(names) == sorted(launch.LAUNCHES)
+    assert [s.attrs for s in profiling.spans()] == [{"entry": launch.ENTRIES[k]} for k in names]
+    assert launch.LAUNCHES == before
+
+
 def test_exported_trace_holds_the_spans_as_ranges_on_the_profilers_clock(tmp_path):
     call, tree, _ = CASES["trivgad"]()
     with profiling.trace(str(tmp_path)):
@@ -243,7 +268,7 @@ def _cell_call(name: str, device: str):
 
 
 def _launches() -> int:
-    return sum(mr.LAUNCHES.values()) + sum(rk.LAUNCHES.values())
+    return sum(launch.LAUNCHES.values())
 
 
 @pytest.mark.cuda
@@ -251,8 +276,7 @@ def _launches() -> int:
 def test_launch_spans_equal_the_launch_counters_on_the_card(card, name):
     call = _cell_call(name, card)
     call()
-    mr.reset_launches()
-    rk.reset_launches()
+    launch.reset_launches()
     before = _launches()
     with profiling.tracing():
         call()
@@ -260,10 +284,10 @@ def test_launch_spans_equal_the_launch_counters_on_the_card(card, name):
     launch_spans = [s for s in profiling.spans() if s.name.startswith("launch.")]
     assert len(launch_spans) == _launches() - before == (2 if name == "trivgad" else 5)
     if name == "trivgad":
-        assert mr.LAUNCHES_BY_SHAPE[("digit_relin", 1, 8, 1 << 15)] == 1
+        assert launch.LAUNCHES_BY_SHAPE[("digit_relin", 1, 8, 1 << 15)] == 1
     else:
-        assert mr.LAUNCHES_BY_SHAPE[("hybrid_digit_relin", 1, 16, 20, 4, 1 << 15)] == 1
-        assert mr.LAUNCHES_BY_SHAPE[("garner_pack", 1, 16, 4, 1 << 15)] == 1
+        assert launch.LAUNCHES_BY_SHAPE[("hybrid_digit_relin", 1, 16, 20, 4, 1 << 15)] == 1
+        assert launch.LAUNCHES_BY_SHAPE[("garner_pack", 1, 16, 4, 1 << 15)] == 1
 
 
 #: how far the profiler's device timestamps may stray from the host's

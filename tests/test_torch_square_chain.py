@@ -127,14 +127,13 @@ def test_chain_judge_fails_a_wrong_chain(side):
 
 def test_traced_chain_has_its_span_tree_and_counts_its_rescales():
     """One `square_chain` root; `depth` `chain.level` spans under it, each
-    over one `mul_relin_hybrid` and one `rescale` on the kernel path
-    holding one `rescale_joint` over its two launch spans (the inverse
-    transform's, then kernel 7's) and no `glue.rescale`; the rescale
-    counters' deltas equal the `rescale` spans, by L and by path."""
+    over one `mul_relin_hybrid` and one `rescale` holding one
+    `rescale_joint` over its two launch spans (the inverse transform's, then
+    kernel 7's), and no span of any other name; the `rescale` spans count
+    one rescale a level, by L."""
     cfg = tiny_chain_config()
     system = bgv_square_chain.System(cfg, TRAFFIC, SEED, torch.device("cpu"))
     profiling.reset()
-    fast.reset_rescales()
     with profiling.tracing():
         out = system.call(0)
     buf = profiling.spans()
@@ -153,16 +152,15 @@ def test_traced_chain_has_its_span_tree_and_counts_its_rescales():
     for lv in levels:
         assert [s.name for s in children(lv)] == ["mul_relin_hybrid", "rescale"]
         rs = children(lv, "rescale")[0]
-        assert rs.attrs == {"L": lv.attrs["L"], "k_drop": 1, "path": "kernel"}
+        assert rs.attrs == {"L": lv.attrs["L"], "k_drop": 1}
         assert [s.name for s in children(rs)] == ["rescale_joint"]
         assert [s.name for s in children(children(rs)[0])] == ["launch.intt2_grid",
                                                                "launch.rescale_fwd"]
         rescales.append(rs)
-    assert not [s for s in buf if s.name == "glue.rescale"]
-    assert fast.RESCALES_BY_L == {L: 1 for L in (6, 5, 4, 3)}
-    assert sum(fast.RESCALES_BY_L.values()) == len(rescales)
-    assert fast.RESCALES_BY_PATH == {"kernel": DEPTH}
-    fast.reset_rescales()
-    assert fast.RESCALES_BY_L == {} and fast.RESCALES_BY_PATH == {}
+    product = {"mul_relin_hybrid", "rescale_joint", "launch.tensor_intt", "launch.garner_pack",
+               "launch.hybrid_digit_relin", "launch.intt2_grid", "launch.rescale_fwd"}
+    assert {s.name for s in buf} == {"square_chain", "chain.level", "rescale"} | product
+    assert sorted(s.attrs["L"] for s in buf if s.name == "rescale") == [3, 4, 5, 6]
+    assert len([s for s in buf if s.name == "rescale"]) == len(rescales) == DEPTH
     assert torch.equal(out, system.call(0)) and not profiling.spans()
     system.close()

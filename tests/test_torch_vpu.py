@@ -13,11 +13,14 @@ from alchemy_tpu.backend.ntt import intt_negacyclic, ntt_negacyclic
 from alchemy_tpu.she import fast as jfast
 from alchemy_tpu.she import hybrid as jhyb
 from alchemy_tpu_torch.backend import ntt as tntt
+from alchemy_tpu_torch.backend.cuda import launch
 from alchemy_tpu_torch.backend.cuda import mul_relin as mr
 from alchemy_tpu_torch.backend.cuda import rescale as rk
+from alchemy_tpu_torch.backend.modarith import narrow, widen
 from alchemy_tpu_torch.convert import to_numpy, to_torch
 from alchemy_tpu_torch.she import fast as tfast
 from alchemy_tpu_torch.she import hybrid as thyb
+from alchemy_tpu_torch.utils import profiling
 
 
 def _eq(jax_arr, port):
@@ -66,9 +69,9 @@ def test_vpu_slot_table_is_the_identity(log_n):
     x(ψ^{2·bitrev(s)+1}) at index s): slot_ct and slot_inv are the identity,
     and each part of a limb owns its own contiguous run of slots."""
     n = 1 << log_n
-    slot_ct, slot_inv = mr.slot_tables(n, "vpu")
+    slot_ct, slot_inv = launch.slot_tables(n, "vpu")
     assert np.array_equal(slot_ct, np.arange(n)) and np.array_equal(slot_inv, np.arange(n))
-    t = mr.kernel_tables(n, tfast.FastParams.make(log_n, 1).qs, "vpu")
+    t = launch.kernel_tables(n, tfast.FastParams.make(log_n, 1).qs, "vpu")
     for parts, key in ((2, "slot_own"), (4, "slot_own4")):
         own = t[key].astype(np.int64)
         local = np.tile(np.arange(n // parts), parts)
@@ -150,11 +153,15 @@ def test_vpu_grid_wrappers_stay_off_the_card(monkeypatch):
     p = tfast.FastParams.make(10, 3, impl="vpu")
     x = torch.from_numpy(np.random.default_rng(3).integers(0, 1 << 30, (2, 3, p.n))
                          .astype(np.int32))
-    fwd, inv = rk.grid_transforms("vpu")
-    assert (fwd, inv) == (rk.ntt_vpu_grid, rk.intt_vpu_grid)
-    y = fwd(p.n, p.qs, x)
-    assert torch.equal(y, rk.ntt_vpu_grid_plain(p.n, p.qs, x))
-    assert torch.equal(inv(p.n, p.qs, y), rk.intt_vpu_grid_plain(p.n, p.qs, y))
+    (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms("vpu"), rk.grid_transforms("vpu", True)
+    profiling.reset()
+    with profiling.tracing():
+        y = fwd(p.n, p.qs, x)
+        assert torch.equal(inv(p.n, p.qs, y), inv_plain(p.n, p.qs, y))
+    assert [s.name for s in profiling.spans()] == ["launch.ntt_vpu_grid", "launch.intt_vpu_grid"]
+    profiling.reset()
+    assert torch.equal(y, fwd_plain(p.n, p.qs, x))
+    assert torch.equal(y, narrow(tntt.ntt_vpu(widen(x), p.n, p.qs)))
     with pytest.raises(ValueError):
         fwd(p.n, p.qs, x[:, :2])
 
@@ -176,7 +183,7 @@ def test_vpu_kernels_match_plain_on_the_card(log_n, L, Bt):
     hb, ha = rand(L, L, p.n), rand(L, L, p.n)
     assert torch.equal(mr.digit_relin(p.n, p.qs, *ka, hb, ha, "vpu"),
                        mr.digit_relin_plain(p.n, p.qs, *ka, hb, ha, "vpu"))
-    fwd, inv = rk.grid_transforms("vpu")
+    (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms("vpu"), rk.grid_transforms("vpu", True)
     x = rand(2 * Bt, L, p.n)
-    assert torch.equal(fwd(p.n, p.qs, x), rk.ntt_vpu_grid_plain(p.n, p.qs, x))
-    assert torch.equal(inv(p.n, p.qs, x), rk.intt_vpu_grid_plain(p.n, p.qs, x))
+    assert torch.equal(fwd(p.n, p.qs, x), fwd_plain(p.n, p.qs, x))
+    assert torch.equal(inv(p.n, p.qs, x), inv_plain(p.n, p.qs, x))
