@@ -75,11 +75,11 @@ def library() -> ctypes.CDLL:
     lib.hybrid_digit_relin.argtypes = [P] * 10 + [I] * 7 + [P]
     lib.hybrid_digit_relin.restype = I
     for name in ("intt_grid", "ntt_grid"):
-        getattr(lib, name).argtypes = [P] * 5 + [I] * 3 + [P]
+        getattr(lib, name).argtypes = [P] * 5 + [I] * 4 + [P]
         getattr(lib, name).restype = I
     lib.garner_pack.argtypes = [P] * 3 + [I] * 4 + [P]
     lib.garner_pack.restype = I
-    lib.rescale_fwd.argtypes = [P] * 9 + [I] * 4 + [P]
+    lib.rescale_fwd.argtypes = [P] * 10 + [I] * 4 + [P]
     lib.rescale_fwd.restype = I
     lib.zq_error_string.argtypes = [I]
     lib.zq_error_string.restype = ctypes.c_char_p

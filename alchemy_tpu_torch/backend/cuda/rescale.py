@@ -4,18 +4,22 @@ forward half of the joint rescale by P — wrappers and plain versions.
 Kernel 5, `grid_transforms("pallas")[1]` (replaces `alchemy_tpu/backend/
 pallas/rescale_pallas.py:52 _intt_grid_kernel`, "kernel C", wrapper
 `intt3_grid_pallas` :109): rows [G, T, n] in the 3-factor slot order →
-natural-order coefficients, per limb.
+natural-order coefficients, per limb; given [G, S, n] with S > T, the last
+T rows of each group, read in place (the joint rescale's dropped rows).
 
 Kernel 6, `grid_transforms("pallas")[0]` (replaces `rescale_pallas.py:142
 _ntt_grid_kernel`, wrapper `ntt3_grid_pallas` :180): the forward transform,
 any uint32 input.
 
 Kernel 7, `rescale_fwd` (replaces `rescale_pallas.py:206
-_rescale_fwd_kernel`, "kernel D", wrapper `rescale_joint_pallas` :306): for
-every keep limb q_j, the Garner digits and sign terms of the K dropped
-limbs, their base extension, the centered correction δ, the exact division
-by P, and the forward NTT, in either slot order; in the hybrid product it
-also adds c0 and c1 as it stores.
+_rescale_fwd_kernel`, "kernel D", wrapper `rescale_joint_pallas` :306,
+which inverts all T rows first): for every keep limb q_j, from the K
+dropped limbs' coefficients (kernel 5 or 9 on those rows alone), their
+Garner digits and sign terms, their base extension, the centered
+correction δ and the forward NTT of −δ·P⁻¹ alone; the keep rows stay in
+the NTT domain, where (c_j − δ)·P⁻¹ transforms to c_j·P⁻¹ − NTT(δ·P⁻¹)
+slot for slot, and the store adds each keep slot times P⁻¹ (and c0 and c1
+in the hybrid product), in any slot order.
 
 Kernels 8 and 9, `grid_transforms("mxu")` (replace `alchemy_tpu/backend/
 pallas/ntt_pallas.py:211 _fwd_kernel` and `:232 _inv_kernel`, wrappers
@@ -81,8 +85,10 @@ ZP_MAX = 1 << 16
 
 def _grid_plain(inverse: bool, n: int, qs: tuple[int, ...], x: torch.Tensor,
                 order: str) -> torch.Tensor:
-    """Plain kernels 5, 6, 8, 9: [G, T, n] int32 → [G, T, n] int32."""
-    return narrow(launch.plain_transforms(order)[inverse](widen(x), n, qs))
+    """Plain kernels 5, 6, 8, 9: the last T = len(qs) rows of each group of
+    x [G, S, n] int32 → [G, T, n] int32."""
+    return narrow(launch.plain_transforms(order)[inverse](widen(x[:, x.shape[1] - len(qs):]),
+                                                          n, qs))
 
 
 def rescale_consts(keep: tuple[int, ...], drop: tuple[int, ...]) -> np.ndarray:
@@ -122,23 +128,23 @@ def drop_consts(drop: tuple[int, ...], zp: int) -> np.ndarray:
 
 
 def rescale_fwd_plain(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: int,
-                      coeff, order: str = "pallas", c01=None) -> torch.Tensor:
+                      ntt, dropped, order: str = "pallas", c01=None) -> torch.Tensor:
     """Plain kernel 7: → [G, L, n] int32, or [G/2, 2, L, n] with c01 (see
     `rescale_fwd`)."""
-    ntt = launch.plain_transforms(order)[0]
-    dev, L, P = coeff.device, len(keep), math.prod(drop)
+    fwd = launch.plain_transforms(order)[0]
+    dev, L, P = ntt.device, len(keep), math.prod(drop)
     q = qcol(keep, dev)
     p_mod = torch.tensor([P % qj for qj in keep], device=dev)[:, None]
     p_inv = torch.tensor([pow(P % qj, -1, qj) for qj in keep], device=dev)[:, None]
-    xs = garner_digits(widen(coeff[:, L:]), drop)
+    xs = garner_digits(widen(dropped), drop)
     is_neg, t, t_neg = _sign_terms(xs, drop, zp)
     v = extend_digits(xs, drop, keep)                                     # [G, L, n]
     v = torch.where(is_neg[:, None, :], _sub_mod(v, p_mod, q), v)
     tw = t[:, None, :]
     tc = torch.where(t_neg[:, None, :], q - (zp - tw), tw)
     delta = _add_mod(v, tc * p_mod % q, q)
-    diff = _sub_mod(widen(coeff[:, :L]), delta, q)
-    out = ntt(diff * p_inv % q, n, keep)
+    correction = fwd(_sub_mod(torch.zeros_like(delta), delta, q) * p_inv % q, n, keep)
+    out = _add_mod(correction, widen(ntt[:, :L]) * p_inv % q, q)
     if c01 is not None:
         r01 = out.reshape(2, -1, L, n)
         out = torch.stack([_add_mod(widen(c), r, q) for c, r in zip(c01, r01)], dim=1)
@@ -152,20 +158,24 @@ def rescale_fwd_plain(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: 
 
 def _grid(inverse: bool, n: int, qs: tuple[int, ...], x: torch.Tensor,
           order: str) -> torch.Tensor:
-    """Kernel 6, 8 (forward) or 5, 9 (inverse) of `order`: rows x [G, T, n]
-    (int32, any uint32) → [G, T, n], canonical: the slot order from
-    coefficients, or natural-order coefficients from the slot order."""
+    """Kernel 6, 8 (forward) or 5, 9 (inverse) of `order` on the last T =
+    len(qs) rows of each group of x [G, S, n] (int32, any uint32; S = T for
+    the whole tensor) → [G, T, n], canonical: the slot order from
+    coefficients, or natural-order coefficients from the slot order. The
+    rows are read in place."""
     name = launch.GRID_NAMES[order][inverse]
     with launch.span(name):
         qs = tuple(qs)
         G, T, dev = x.shape[0], len(qs), x.device
-        launch.check("x", x, (G, T, n), dev)
+        S = x.shape[1] if x.dim() == 3 else T             # rows a group, the last T taken
+        launch.check("x", x, (G, max(S, T), n), dev)
         if not launch.on_card(n, dev):
             return _grid_plain(inverse, n, qs, x, order)
         t = launch.device_tables(n, qs, order, str(dev))
-        out = torch.empty_like(x)
-        launch.run(name, n, dev, (G, T), x.data_ptr(), out.data_ptr(), t["limbs"].data_ptr(),
-                   t["inv" if inverse else "fwd"].data_ptr(), t["grid_own"].data_ptr(), G, T)
+        out = x.new_empty(G, T, n)
+        launch.run(name, n, dev, (G, T), x.data_ptr() + 4 * (S - T) * n, out.data_ptr(),
+                   t["limbs"].data_ptr(), t["inv" if inverse else "fwd"].data_ptr(),
+                   t["grid_own"].data_ptr(), G, T, S)
         return out
 
 
@@ -181,34 +191,40 @@ def grid_transforms(order: str, plain: bool = False):
 
 
 def rescale_fwd(n: int, keep: tuple[int, ...], drop: tuple[int, ...], zp: int,
-                coeff: torch.Tensor, order: str = "pallas", c01=None) -> torch.Tensor:
-    """Kernel 7: canonical coefficients coeff [G, L + K, n] (int32) over
-    keep + drop → the rows rescaled by P = ∏ drop [G, L, n] over keep, NTT
-    domain in slot `order`; the Garner digits and sign terms of the K
-    dropped rows (`she.hybrid.rescale_joint`) are computed in the kernel's
-    load. With c01 = (c0, c1), each [G/2, L, n] in slot order, → [G/2, 2,
-    L, n]: row g < G/2 plus c0[g] at [g, 0], row G/2 + g plus c1[g] at
-    [g, 1] (the hybrid product's add-back). zp must be one `drop_consts`
-    takes, and K ≤ GARNER_MAX_DIGITS on the card."""
+                ntt: torch.Tensor, dropped: torch.Tensor, order: str = "pallas",
+                c01=None) -> torch.Tensor:
+    """Kernel 7: the rows ntt [G, L + K, n] (int32, NTT domain in slot
+    `order` over keep + drop; the first L of each group read, any uint32)
+    rescaled by P = ∏ drop, with the K dropped rows as canonical
+    coefficients dropped [G, K, n] (kernel 9 or 5 on the last K rows) →
+    [G, L, n] over keep, NTT domain in slot `order`. The kernel's load
+    computes the dropped rows' Garner digits and sign terms
+    (`she.hybrid.rescale_joint`) and the correction δ, and transforms only
+    (q_j − δ)·P⁻¹; its store adds each keep slot times P⁻¹. With c01 =
+    (c0, c1), each [G/2, L, n] in slot order, → [G/2, 2, L, n]: row g < G/2
+    plus c0[g] at [g, 0], row G/2 + g plus c1[g] at [g, 1] (the hybrid
+    product's add-back). zp must be one `drop_consts` takes, and K ≤
+    GARNER_MAX_DIGITS on the card."""
     with launch.span("rescale_fwd"):
         keep, drop = tuple(keep), tuple(drop)
         L, K = len(keep), len(drop)
-        G, dev = coeff.shape[0], coeff.device
-        launch.check("coeff", coeff, (G, L + K, n), dev)
+        G, dev = ntt.shape[0], ntt.device
+        launch.check("ntt", ntt, (G, L + K, n), dev)
+        launch.check("dropped", dropped, (G, K, n), dev)
         if c01 is not None:
             if G % 2:
-                raise ValueError(f"coeff: {G} rows, want the t0 and t1 rows of each ciphertext")
+                raise ValueError(f"ntt: {G} rows, want the t0 and t1 rows of each ciphertext")
             for name, c in zip(("c0", "c1"), c01):
                 launch.check(name, c, (G // 2, L, n), dev)
         if not launch.on_card(n, dev):
-            return rescale_fwd_plain(n, keep, drop, zp, coeff, order, c01)
+            return rescale_fwd_plain(n, keep, drop, zp, ntt, dropped, order, c01)
         words = drop_consts(drop, zp)
         t = launch.device_tables(n, keep, order, str(dev))
         consts = launch.uploaded(rescale_consts, keep, drop, device=str(dev))
         c0, c1 = (None, None) if c01 is None else c01
-        out = torch.empty((G, L, n) if c01 is None else (G // 2, 2, L, n), dtype=torch.int32,
-                          device=dev)
-        launch.run("rescale_fwd", n, dev, (G, L, K), coeff.data_ptr(), launch.ptr(c0),
-                   launch.ptr(c1), consts.data_ptr(), words.ctypes.data, out.data_ptr(),
-                   t["limbs"].data_ptr(), t["fwd"].data_ptr(), t["slot_own"].data_ptr(), G, L, K)
+        out = ntt.new_empty(*((G, L, n) if c01 is None else (G // 2, 2, L, n)))
+        launch.run("rescale_fwd", n, dev, (G, L, K), ntt.data_ptr(), dropped.data_ptr(),
+                   launch.ptr(c0), launch.ptr(c1), consts.data_ptr(), words.ctypes.data,
+                   out.data_ptr(), t["limbs"].data_ptr(), t["fwd"].data_ptr(),
+                   t["slot_own"].data_ptr(), G, L, K)
         return out

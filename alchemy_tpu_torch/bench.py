@@ -5,7 +5,8 @@ North-star config: ring with 2^15 coefficients (m' = 2^16), 8 RNS limbs
 (~30-bit NTT primes), CRT-gadget relinearization (TrivGad, Shoup hint
 pairs), 16 ciphertexts a call: `she/fast.py`'s `mul_relin` through CUDA
 kernels A and B; `BENCH_KS=hybrid` times `she/hybrid.py`'s
-`mul_relin_hybrid` (kernels A, 4, then 5 and 7 in `rescale_joint`).
+`mul_relin_hybrid` (kernels A, `garner_pack`, 4, then in `rescale_joint`
+5 on the dropped rows alone and 7).
 
     python -m alchemy_tpu_torch.bench                 # on the card
     python -m alchemy_tpu_torch.bench --device cpu    # the plain versions

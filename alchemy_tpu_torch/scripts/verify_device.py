@@ -3,8 +3,8 @@
 `run_checks(device)` runs every kernel of the harness on the card and holds
 it bit for bit against its plain PyTorch version on the same inputs (the
 plain versions are what the tests hold against the JAX package): A and B
-(`fast.mul_relin`, raw and Shoup hints), 4, then 5 and 7
-(`mul_relin_hybrid`, `rescale_joint`), 6 and 5 (`grid_transforms("pallas")`),
+(`fast.mul_relin`, raw and Shoup hints), 4, then 5 (on the dropped rows)
+and 7 (`mul_relin_hybrid`, `rescale_joint`), 6 and 5 (`grid_transforms("pallas")`),
 all in the "pallas" order at the JAX script's shapes (SHAPES): n = 2^14,
 L = 4 and 8, and the bench headline n = 2^15, L = 8, Bt = 16 with Shoup
 hints, so that the recorded PASS guards the recorded number. Kernels 8 and
@@ -101,7 +101,8 @@ def run_checks(device: str = "cuda", shapes: dict = SHAPES) -> dict:
     got_hs = mul_relin_hybrid(hk, c1, c2, hsb_h, hsa_h)
     results["hybrid_shoup_bitident"] = bool(torch.equal(got_hs, want_h))
 
-    # 3. the joint P-rescale (kernels 5 and 7) against its plain version
+    # 3. the joint P-rescale (kernel 5 on the dropped rows alone, then kernel 7,
+    #    which takes the kept rows in the NTT domain) against its plain version
     pe = hk.pe
     x = _uniform_rows(rng, pe.qs, pe.n, 2, device)
     got_r = rescale_joint(pe, x, len(hk.ps))

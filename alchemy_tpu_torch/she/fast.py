@@ -266,8 +266,10 @@ def mul_relin(p: FastParams, ct_a: torch.Tensor, ct_b: torch.Tensor,
 
 def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, plain: bool,
                    c01=None) -> torch.Tensor:
-    """`hybrid.rescale_joint`: kernel 9 or 5 (its plain version with
-    plain=True), then kernel 7. ct [..., T, n] → [..., T − k_drop, n]; with
+    """`hybrid.rescale_joint` in the NTT domain: kernel 9 or 5 (its plain
+    version with plain=True) inverts only the last k_drop rows of each
+    ciphertext, read in place, and kernel 7 takes the kept rows as they are
+    with those coefficients. ct [..., T, n] → [..., T − k_drop, n]; with
     c01 = (c0, c1), each [Bt, L − k_drop, n], ct is the hybrid product's
     (t0, t1) [2, Bt, T, n] and the result [Bt, 2, L − k_drop, n] has (c0,
     c1) added (kernel 7's store). zp must be a power of two, on the card
@@ -279,8 +281,9 @@ def _rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int, plain: bool,
         fwd = rescale_fwd_plain if plain else rescale_fwd
         qs = tuple(p.qs)
         keep, drop = qs[:-k_drop], qs[-k_drop:]
-        coeff = intt(p.n, qs, ct.reshape(-1, len(qs), p.n).contiguous())   # [G, T, n]
-        out = fwd(p.n, keep, drop, p.zp, coeff, p.order, c01)
+        rows = ct.reshape(-1, len(qs), p.n).contiguous()                   # [G, T, n]
+        dropped = intt(p.n, drop, rows)                                    # [G, K, n]
+        out = fwd(p.n, keep, drop, p.zp, rows, dropped, p.order, c01)
         return out if c01 is not None else out.reshape(*ct.shape[:-2], len(keep), p.n)
 
 
@@ -288,9 +291,9 @@ def rescale(p: FastParams, ct: torch.Tensor, k_drop: int = 1) -> torch.Tensor:
     """Exact BGV rescale dropping the last k_drop limbs, one at a time, NTT
     domain in and out (fast.py:389); plaintext-scale bookkeeping is the
     caller's. Each limb is a joint rescale by that one limb (`_rescale_joint`):
-    kernel 9 or 5, then kernel 7 at K = 1, two launches and no torch op on
-    the card. Traced as the span `rescale` (attributes L, k_drop) over a
-    `rescale_joint` span a limb."""
+    kernel 9 or 5 on the dropped row alone, then kernel 7 at K = 1, two
+    launches and no torch op on the card. Traced as the span `rescale`
+    (attributes L, k_drop) over a `rescale_joint` span a limb."""
     with span("rescale", L=len(p.qs), k_drop=k_drop):
         for i in range(k_drop):
             if i:

@@ -13,9 +13,10 @@ relinearization runs over the extended chain Q·P of T = L + K limbs:
 On the card `mul_relin_hybrid` launches five kernels and no torch op:
 kernel A (tensor product + inverse NTT of c2), `garner_pack` (c2's Garner
 digits), kernel 4 (base extension, digit NTTs, hint products) and
-`rescale_joint`'s kernel 9 ("mxu") or 5 ("pallas", "vpu") and kernel 7,
-which computes the dropped limbs' Garner digits and sign terms in its load
-and adds (c0, c1) in its store; every kernel in the slot order of
+`rescale_joint`'s kernel 9 ("mxu") or 5 ("pallas", "vpu") on the K dropped
+limbs alone and kernel 7, which computes their Garner digits and sign terms
+in its load and scales the kept limbs, still in the NTT domain, by P⁻¹ and
+adds (c0, c1) in its store; every kernel in the slot order of
 `FastParams.impl`. `fast.rescale` runs the same joint rescale one limb at a
 time. On CPU tensors every kernel wrapper runs its plain version
 (`backend/cuda/launch.py`); `mul_relin_hybrid_plain` and
@@ -65,17 +66,19 @@ from alchemy_tpu_torch.she.keys import gaussian_coeffs
 from alchemy_tpu_torch.utils.profiling import span
 
 # ---------------------------------------------------------------------------
-# joint rescale: drop the last k limbs in one inverse/forward round trip
+# joint rescale: drop the last k limbs, only they leave the NTT domain
 # ---------------------------------------------------------------------------
 
 
 def rescale_joint(p: FastParams, ct: torch.Tensor, k_drop: int) -> torch.Tensor:
-    """Exact BGV rescale by P = ∏ of the last k_drop limbs, in one inverse/
-    forward NTT round trip (hybrid.py:134): ct [..., T, n] int32, NTT
-    domain → [..., T − k_drop, n]. zp must be a power of two ≤ 2^16. Kernel 9
-    ("mxu") or 5 ("pallas"), then kernel 7, which computes the Garner digits
-    and sign terms of the dropped rows in its load. At k_drop = 1 it equals
-    `fast.rescale`."""
+    """Exact BGV rescale by P = ∏ of the last k_drop limbs (hybrid.py:134):
+    ct [..., T, n] int32, NTT domain → [..., T − k_drop, n]. zp must be a
+    power of two ≤ 2^16. Kernel 9 ("mxu") or 5 ("pallas", "vpu") inverts
+    only the k_drop dropped rows; kernel 7 computes their Garner digits and
+    sign terms in its load, transforms only the correction −δ·P⁻¹, and
+    multiplies the kept rows, still in the NTT domain, by P⁻¹ as it stores.
+    The residues equal those of the JAX package's inverse/forward round
+    trip. At k_drop = 1 it equals `fast.rescale`."""
     if p.zp > ZP_MAX:
         raise ValueError(f"zp={p.zp}: kernel 7 takes a zp <= {ZP_MAX}")
     return _rescale_joint(p, ct, k_drop, plain=False)

@@ -548,11 +548,12 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
                              .astype("uint32").view("int32")).cuda()
     rows6 = torch.from_numpy(rng.integers(0, 1 << 32, (2, L, n), dtype="uint64")
                              .astype("uint32").view("int32")).cuda()
-    # kernel 7 inputs as rescale_joint makes them from canonical coefficients,
-    # alone and with the hybrid product's add-back
-    coeff = random_residues(rng, pe.qs, (2 * Bt, T, n)).cuda()
+    # kernel 7 inputs as rescale_joint hands them over: kernel 4's rows (any
+    # uint32, NTT domain) and the dropped rows' canonical coefficients, alone
+    # and with the hybrid product's add-back
+    dropped = random_residues(rng, drop, (2 * Bt, K, n)).cuda()
     c01 = tuple(random_residues(rng, keep, (Bt, L, n)).cuda() for _ in range(2))
-    args7 = (n, keep, drop, pe.zp, coeff, order)
+    args7 = (n, keep, drop, pe.zp, rows5, dropped, order)
     ntt = ntt_muls(n)
     (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
     inv_name, fwd_name = grid_names(order)
@@ -576,6 +577,8 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
             lambda: mr.hybrid_digit_stage_plain(n, pe.qs, groups, x, *shoup, order),
             k4_cost(4, MUL_CONST)),
         inv_name: (lambda: inv(n, pe.qs, rows5), lambda: inv_plain(n, pe.qs, rows5), None),
+        f"{inv_name}_dropped": (lambda: inv(n, drop, rows5), lambda: inv_plain(n, drop, rows5),
+                                None),
         fwd_name: (lambda: fwd(n, keep, rows6), lambda: fwd_plain(n, keep, rows6), None),
         "rescale_fwd": (lambda: rk.rescale_fwd(*args7), lambda: rk.rescale_fwd_plain(*args7),
                         rescale_cost(G7, L, K, n)),
@@ -593,8 +596,8 @@ def hybrid_kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool,
             res[name].update(bytes=cost[0], muls=cost[1], ms=device_ms(kern, 20),
                              plain_ms=device_ms(plain, 3))
     print(f"[kernels] n=2^{log_n} L={L} dnum={hk.dnum} K={K} T={T} Bt={Bt} order={order}: "
-          f"garner_pack, kernels 4 (raw, Shoup), {inv_name}, {fwd_name}, 7 (alone, adding c0 and "
-          "c1) bit-identical to plain " + fmt(res),
+          f"garner_pack, kernels 4 (raw, Shoup), {inv_name} (all rows, the dropped rows), "
+          f"{fwd_name}, 7 (alone, adding c0 and c1) bit-identical to plain " + fmt(res),
           flush=True)
     return res
 
@@ -2274,8 +2277,11 @@ FUSED_SHAPES = {("tensor_intt", 16, 8), ("tensor_intt", 16, 16), ("rescale_fwd",
 
 def fused_inputs(log_n: int, key: tuple, rng, order: str):
     """(kernel call, plain call) of kernel A ("tensor_intt", Bt, L) or 7
-    ("rescale_fwd", G, L, K) on random canonical inputs at n = 2^log_n, in a
-    slot order; 7's inputs are made as rescale_joint makes them."""
+    ("rescale_fwd", G, L, K) on random inputs at n = 2^log_n, in a slot
+    order; 7's inputs are made as rescale_joint hands them over (rows of any
+    uint32, canonical coefficients of the dropped rows)."""
+    import torch
+
     from alchemy_tpu_torch.backend.cuda import mul_relin as mr
     from alchemy_tpu_torch.backend.cuda import rescale as rk
     from alchemy_tpu_torch.she import fast
@@ -2289,8 +2295,10 @@ def fused_inputs(log_n: int, key: tuple, rng, order: str):
         return lambda: mr.tensor_intt(*args), lambda: mr.tensor_intt_plain(*args)
     _, G, L, K = key
     chain = fast.FastParams.make(log_n, L + K).qs
-    coeff = random_residues(rng, chain, (G, L + K, n)).cuda()
-    args = (n, chain[:L], chain[L:], 2, coeff, order)
+    rows = torch.from_numpy(rng.integers(0, 1 << 32, (G, L + K, n), dtype="uint64")
+                            .astype("uint32").view("int32")).cuda()
+    dropped = random_residues(rng, chain[L:], (G, K, n)).cuda()
+    args = (n, chain[:L], chain[L:], 2, rows, dropped, order)
     return lambda: rk.rescale_fwd(*args), lambda: rk.rescale_fwd_plain(*args)
 
 

@@ -163,9 +163,10 @@ def test_garner_pack_plain_matches_jax(L):
 @pytest.mark.parametrize("zp", [2, 4, 1 << 16])
 @pytest.mark.parametrize("add_back", [False, True], ids=["alone", "add_back"])
 def test_rescale_plain_matches_jax_at_the_sign_boundaries(k_drop, zp, add_back):
-    """`_rescale_joint_plain` (kernels 5 and 7's plain versions: the Garner
-    digits and sign terms of the dropped rows, and with c01 the add-back of
-    the hybrid product) against the JAX package's `_rescale_joint_jnp`, on
+    """`_rescale_joint_plain` (the plain versions of kernel 5 on the dropped
+    rows and of kernel 7: their Garner digits and sign terms, the kept rows
+    scaled in the NTT domain, and with c01 the add-back of the hybrid
+    product) against the JAX package's `_rescale_joint_jnp`, on
     coefficients whose dropped part V takes P//2, P//2 ± 1, 0, 1 and P − 1,
     and keep rows with zeros and q − 1."""
     jp = jfast.FastParams.make(10, 3 + k_drop, zp=zp, bits=30, impl="pallas")
@@ -373,9 +374,9 @@ def test_mul_relin_hybrid_on_the_card_matches_jax(monkeypatch):
 @pytest.mark.parametrize("log_n,L,Bt,order", [(16, 5, 2, "pallas"), (16, 16, 2, "pallas"),
                                               (15, 5, 2, "mxu"), (15, 5, 2, "vpu")])
 def test_kernels_4_and_7_match_plain_on_the_card_split(log_n, L, Bt, order):
-    """Kernels 4 and 7 (alone and with the add-back) with two blocks per
-    limb, at 2^16 and in the 2-factor slot order; L = 5 gives uneven groups
-    3 + 2, K = 3."""
+    """Kernels 4 and 7 (alone and with the add-back; the kept rows any
+    uint32 in the NTT domain) with two blocks per limb, at 2^16 and in the
+    2-factor slot order; L = 5 gives uneven groups 3 + 2, K = 3."""
     from alchemy_tpu_torch.backend.cuda import rescale as rk
 
     _need_card()
@@ -389,10 +390,11 @@ def test_kernels_4_and_7_match_plain_on_the_card_split(log_n, L, Bt, order):
     for hints in ((hb, ha), tuple(tfast.shoup_precompute(h, qs) for h in (hb, ha))):
         out = mr.hybrid_digit_stage(n, qs, thk.groups, x, *hints, order)
         assert torch.equal(out, mr.hybrid_digit_stage_plain(n, qs, thk.groups, x, *hints, order))
-    coeff = res(qs, (2 * Bt, len(qs), n))
+    ntt = to_torch(rng.integers(0, 1 << 32, (2 * Bt, len(qs), n), dtype=np.uint64), "cuda")
+    dropped = res(drop, (2 * Bt, len(drop), n))
     c01 = tuple(res(keep, (Bt, L, n)) for _ in range(2))
     for add in (None, c01):
-        args = (n, keep, drop, 2, coeff, order, add)
+        args = (n, keep, drop, 2, ntt, dropped, order, add)
         before = launch.LAUNCHES["rescale_fwd"]
         assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
         assert launch.LAUNCHES["rescale_fwd"] == before + 1
@@ -422,8 +424,8 @@ def test_garner_pack_matches_plain_on_the_card(L, dnum, Bt):
 def test_mul_relin_hybrid_matches_plain_on_the_card_eager_and_in_a_graph(order):
     """`mul_relin_hybrid` at the hybrid cells' chain (n = 2^15, L = 16,
     dnum = 4, K = 4), two ciphertexts, against `mul_relin_hybrid_plain`:
-    called eagerly (five launches: A, garner_pack, 4, the inverse transform,
-    7) and captured in a CUDA graph, replayed on new inputs copied into the
+    called eagerly (five launches: A, garner_pack, 4, the inverse transform
+    of the dropped rows, [2·Bt, K, n], and 7) and captured in a CUDA graph, replayed on new inputs copied into the
     captured ones."""
     _need_card()
     hk = thyb.HybridKS.make(tfast.FastParams.make(15, 16, impl=order), dnum=4)
@@ -433,9 +435,13 @@ def test_mul_relin_hybrid_matches_plain_on_the_card_eager_and_in_a_graph(order):
                         for _ in range(4)]) for _ in range(2)]
     a, b = cts[0][:2].clone(), cts[0][2:].clone()
     counted = lambda: sum(launch.LAUNCHES.values())
-    before = counted()
+    before, shapes = counted(), dict(launch.LAUNCHES_BY_SHAPE)
     out = thyb.mul_relin_hybrid(hk, a, b, *hints)
     assert counted() - before == 5
+    # the inverse transform takes the K = 4 dropped rows of each (t0, t1) row alone
+    inverse = launch.GRID_NAMES[order][1]
+    for key in ((inverse, 4, 4, hk.p.n), ("rescale_fwd", 4, 16, 4, hk.p.n)):
+        assert launch.LAUNCHES_BY_SHAPE[key] == shapes.get(key, 0) + 1
     assert torch.equal(out, thyb.mul_relin_hybrid_plain(hk, a, b, *hints))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

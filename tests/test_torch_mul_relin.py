@@ -546,14 +546,15 @@ def _drop_consts_fields(drop, zp):
                                              (16, 3, 2)])
 def test_kernel_7_schedule_matches_plain(log_n, k_drop, zp, order):
     """Kernel 7 as it runs (rescale.cu rescale_fwd_kernel): the prologue as
-    the kernel's `rescaled` computes it (zq::garner on the dropped rows from
-    `drop_consts`, V > P//2 by digits in ascending k, V mod zp and t, the base
-    extension in ascending k, the sign corrections, ×P⁻¹) as the load of the
-    register-blocked forward passes, each block of the cluster pair
-    evaluating it on its own half, then each block's slots stored in slot
-    order with c0 or c1 added → against `rescale_fwd_plain` with c01 exactly,
-    in each order, where V takes P//2, P//2 ± 1, 0 and P − 1. Every slot is
-    written once."""
+    the kernel's `correction` computes it (zq::garner on the dropped rows'
+    coefficients from `drop_consts`, V > P//2 by digits in ascending k, V
+    mod zp and t, the base extension in ascending k, the sign corrections,
+    (q_j − δ)·P⁻¹) as the load of the register-blocked forward passes, each
+    block of the cluster pair evaluating it on its own half, then each
+    block's slots stored in slot order with the kept row's slot (any
+    uint32, NTT domain) times P⁻¹ and c0 or c1 added → against
+    `rescale_fwd_plain` with c01 exactly, in each order, where V takes P//2,
+    P//2 ± 1, 0 and P − 1. Every slot is written once."""
     import math
 
     p = jfast.FastParams.make(log_n, 2 + k_drop)
@@ -562,11 +563,13 @@ def test_kernel_7_schedule_matches_plain(log_n, k_drop, zp, order):
     P = math.prod(drop)
     rng = np.random.default_rng(log_n)
     q = np.array(p.qs, dtype=np.int64)[:, None]
-    coeff = rng.integers(0, 1 << 62, (2, 2 + k_drop, n)) % q
+    ntt = rng.integers(0, 1 << 32, (2, 2 + k_drop, n))                 # any uint32
+    dropped = rng.integers(0, 1 << 62, (2, k_drop, n)) % q[2:]
     for i, v in enumerate((P // 2, P // 2 + 1, P // 2 - 1, 0, P - 1)):
-        coeff[:, 2:, i] = np.array([v % g for g in drop])
+        dropped[:, :, i] = np.array([v % g for g in drop])[None]
     c01 = rng.integers(0, 1 << 62, (2, 1, 2, n)) % q[:2]
-    want = widen(rk.rescale_fwd_plain(n, keep, drop, zp, narrow(torch.from_numpy(coeff)), order,
+    want = widen(rk.rescale_fwd_plain(n, keep, drop, zp, narrow(torch.from_numpy(ntt)),
+                                      narrow(torch.from_numpy(dropped)), order,
                                       tuple(map(torch.from_numpy, c01))))
     t = launch.kernel_tables(n, keep, order)
     own = t["slot_own"].astype(np.int64).reshape(2, half)
@@ -575,7 +578,7 @@ def test_kernel_7_schedule_matches_plain(log_n, k_drop, zp, order):
     rows, half_digits, pi_zp, dzp, p_zp, p_inv_zp = _drop_consts_fields(drop, zp)
     mask = dzp - 1
     for g in range(2):
-        x = _garner_emulated(coeff[g, 2:], rows, k_drop)
+        x = _garner_emulated(dropped[g], rows, k_drop)
         neg = np.zeros(n, dtype=bool)
         vz = np.zeros(n, dtype=np.int64)
         for k in range(k_drop):
@@ -591,13 +594,15 @@ def test_kernel_7_schedule_matches_plain(log_n, k_drop, zp, order):
             v = np.where(neg, (v - c[0]) % qj, v)
             tc = np.where(tz > dzp >> 1, qj - (dzp - tz), tz)
             delta = (v + _shoup(tc, c[0], c[1], qj)) % qj
-            row = _shoup((coeff[g, j] - delta) % qj, c[2], c[3], qj)
+            row = _shoup((0 - delta) % qj, c[2], c[3], qj)
             fwd = t["fwd"][j, 0].astype(np.int64)
             got = np.full(n, -1, dtype=np.int64)
             for part in (0, 1):
                 smem = _rb_forward(row, fwd, qj, part, RESCALE_MAX_RL, RESCALE_MAX_RL, True)
-                assert (got[slots[part]] == -1).all()
-                got[slots[part]] = (smem[_pad(local[part])] + c01[g, 0, j, slots[part]]) % qj
+                s = slots[part]
+                assert (got[s] == -1).all()
+                kept = _shoup(ntt[g, j, s], c[2], c[3], qj)
+                got[s] = ((smem[_pad(local[part])] + kept) % qj + c01[g, 0, j, s]) % qj
             assert np.array_equal(got, want[0, g, j].numpy())
 
 
@@ -660,12 +665,13 @@ def test_wrapper_gates_by_ring_size(monkeypatch, log_n):
         "6": lambda: rk.grid_transforms("pallas")[0](n, qs, x),
         "8": lambda: rk.grid_transforms("mxu")[0](n, qs, x),
         "9": lambda: rk.grid_transforms("mxu")[1](n, qs, x),
+        "9_window": lambda: rk.grid_transforms("mxu")[1](n, qs[1:], x),
         "5_vpu": lambda: rk.grid_transforms("vpu")[1](n, qs, x),
         "6_vpu": lambda: rk.grid_transforms("vpu")[0](n, qs, x),
         "4": lambda: mr.hybrid_digit_stage(n, qs + (7681,), ((qs[0],), (qs[1],)), x,
                                            z(2, 3, n), z(2, 3, n)),
-        "7": lambda: rk.rescale_fwd(n, qs[:1], qs[1:], 2, x),
-        "7_add_back": lambda: rk.rescale_fwd(n, qs[:1], qs[1:], 2, z(2, 2, n), "mxu",
+        "7": lambda: rk.rescale_fwd(n, qs[:1], qs[1:], 2, x, z(1, 1, n)),
+        "7_add_back": lambda: rk.rescale_fwd(n, qs[:1], qs[1:], 2, z(2, 2, n), z(2, 1, n), "mxu",
                                              (z(1, 1, n), z(1, 1, n))),
         "garner_pack": lambda: mr.garner_pack(n, ((qs[0],), (qs[1],)), x),
     }

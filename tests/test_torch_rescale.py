@@ -116,6 +116,68 @@ def test_rescale_joint_matches_jnp_mxu(k_drop):
         assert torch.equal(out, tfast.rescale(tp, to_torch(ct, "cpu"), 1))
 
 
+#: (log2 n, keep limbs, dropped limbs) of the plain flow's tests against the
+#: JAX package: the rings of the tests above at K = 1–4, and 2^16 with a
+#: short chain
+PLAIN_FLOW_CASES = [(log_n, L, k) for log_n, L in ((10, 3), (11, 2)) for k in (1, 2, 3, 4)] + [
+    (16, 2, 2)]
+
+
+@pytest.mark.parametrize("order", ["mxu", "pallas", "vpu"])
+@pytest.mark.parametrize("log_n,L,k_drop", PLAIN_FLOW_CASES)
+def test_rescale_joint_plain_flow_matches_jnp_in_every_order(log_n, L, k_drop, order):
+    """The joint rescale as the plain versions compute it (only the dropped
+    rows inverted; the correction transformed alone and the kept rows scaled
+    by P⁻¹ in the NTT domain) against the JAX package's inverse/forward round
+    trip, `_rescale_joint_jnp` and (off 2^16, where its Pallas kernels would
+    need a TPU) `rescale_joint`, exactly, in every slot order."""
+    jp = jfast.FastParams.make(log_n, L + k_drop, zp=2, impl=order)
+    tp = tfast.FastParams(n=jp.n, qs=jp.qs, zp=2, impl=order)
+    ct = _rows(jp, 2, seed=log_n + k_drop)
+    out = thyb._rescale_joint_plain(tp, to_torch(ct, "cpu"), k_drop)
+    assert out.shape == (2, L, jp.n)
+    assert _eq(jhyb._rescale_joint_jnp(jp, jnp.asarray(ct), k_drop), out)
+    if log_n < 14:
+        assert _eq(jhyb.rescale_joint(jp, jnp.asarray(ct), k_drop), out)
+    assert torch.equal(thyb.rescale_joint(tp, to_torch(ct, "cpu"), k_drop), out)
+
+
+@pytest.mark.parametrize("order", ["mxu", "pallas", "vpu"])
+def test_rescale_inverts_only_the_dropped_rows(monkeypatch, order):
+    """Inside `_rescale_joint` the plain inverse transform receives the
+    dropped rows alone, [G, K, n], never [G, T, n], and the plain forward
+    transform the correction of the kept rows, [G, L, n]: in
+    `rescale_joint`, its plain version, the hybrid product's add-back and
+    `fast.rescale` (one dropped row a limb)."""
+    fwd, inv, bcast = launch.plain_transforms(order)
+    seen = {"fwd": [], "inv": []}
+
+    def recorded(name, f):
+        def call(x, n, qs):
+            seen[name].append(tuple(x.shape))
+            return f(x, n, qs)
+        return call
+
+    def shapes(*calls):
+        seen.update(fwd=[], inv=[])
+        for call in calls:
+            call()
+        return seen
+
+    monkeypatch.setitem(launch.ORDERS, order,
+                        (recorded("fwd", fwd), recorded("inv", inv), bcast))
+    p = tfast.FastParams.make(10, 6, impl=order)
+    n, ct = p.n, to_torch(_rows(p, 4, seed=6), "cpu")
+    for k_drop in (1, 3):
+        c = to_torch(_rows(tfast.FastParams(n=n, qs=p.qs[:-k_drop]), 2, seed=k_drop), "cpu")
+        assert shapes(lambda: thyb._rescale_joint_plain(p, ct, k_drop),
+                      lambda: thyb.rescale_joint(p, ct, k_drop),
+                      lambda: tfast._rescale_joint(p, ct, k_drop, True, (c, c))) == {
+            "inv": [(4, k_drop, n)] * 3, "fwd": [(4, 6 - k_drop, n)] * 3}
+    assert shapes(lambda: tfast.rescale(p, ct[:2], 3)) == {
+        "inv": [(2, 1, n)] * 3, "fwd": [(2, 5, n), (2, 4, n), (2, 3, n)]}
+
+
 def test_kernel7_constants_match_pallas(interpret):
     p = jfast.FastParams.make(10, 6)
     keep, drop = p.qs[:4], p.qs[4:]
@@ -167,9 +229,12 @@ def test_rescale_wrappers_stay_off_the_card_and_check_inputs(monkeypatch):
     n, qs = p.n, p.qs
     x = torch.zeros((2, 4, n), dtype=torch.int32)
     assert NTT3_GRID(n, qs, x).shape == INTT3_GRID(n, qs, x).shape == x.shape
+    # the inverse of the last rows of each group alone, as rescale_joint takes them
+    assert INTT3_GRID(n, qs[3:], x).shape == NTT3_GRID(n, qs[1:], x).shape[:1] + (1, n)
     c = torch.zeros((1, 3, n), dtype=torch.int32)
-    assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x).shape == (2, 3, n)
-    assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, "pallas", (c, c)).shape == (1, 2, 3, n)
+    d = torch.zeros((2, 1, n), dtype=torch.int32)
+    assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, d).shape == (2, 3, n)
+    assert rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, d, "pallas", (c, c)).shape == (1, 2, 3, n)
     s = tfast.keygen(p, np.random.default_rng(0), device="cpu")
     ct = tfast.encrypt(p, s, np.zeros(n, dtype=np.int64), np.random.default_rng(1))
     down = tfast.FastParams(n=n, qs=qs[:-1], zp=2)
@@ -180,12 +245,16 @@ def test_rescale_wrappers_stay_off_the_card_and_check_inputs(monkeypatch):
         INTT3_GRID(n, qs, x[:, :3])                             # not contiguous, wrong T
     with pytest.raises(ValueError):
         INTT3_GRID(n, qs, x[0])
+    with pytest.raises(ValueError):                             # fewer rows than limbs
+        INTT3_GRID(n, qs, x[:, :3].contiguous())
     with pytest.raises(ValueError):
-        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x[:, :3].contiguous())
+        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x[:, :3].contiguous(), d)
+    with pytest.raises(ValueError):                             # every row of a group
+        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, x)
     with pytest.raises(ValueError):                             # c1 of the wrong shape
-        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, "pallas", (c, c[:, :2].contiguous()))
+        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x, d, "pallas", (c, c[:, :2].contiguous()))
     with pytest.raises(ValueError):                             # an odd number of rows
-        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x[:1], "pallas", (c[:0], c[:0]))
+        rk.rescale_fwd(n, qs[:3], qs[3:], 2, x[:1], d[:1], "pallas", (c[:0], c[:0]))
     # what only the card path refuses: zp, and more dropped limbs than zq.cuh kMaxDigits
     with pytest.raises(ValueError, match="power-of-two zp"):
         rk.drop_consts(qs[3:], 6)
@@ -213,31 +282,42 @@ def test_kernels_5_6_7_match_plain_on_the_card(log_n, L, G, order):
     rescale.cu launch_grid: a limb over four blocks ([1, 5, n], [3, 5, n] and
     [1, 20, n]; the inverse on [1, 20, n] where the card runs 20 clusters of
     four at once), over two in GridOne ([2, 20, n]) and GridTwo ([4, 20, n]:
-    160 blocks); and kernel 7."""
+    160 blocks); both on the window of the last K = 1 and 4 rows of each
+    group, read in place; and the joint rescale (the inverse on its dropped
+    rows alone, then kernel 7)."""
     _need_card()
     p = tfast.FastParams.make(log_n, L, impl=order)
     x = to_torch(_rows(p, G, seed=log_n, hi=1 << 32), "cuda")
     (fwd, inv), (fwd_plain, inv_plain) = rk.grid_transforms(order), rk.grid_transforms(order, True)
     inv_name, fwd_name = _grid_names(order)
-    before = dict(launch.LAUNCHES)
+    before, shapes = dict(launch.LAUNCHES), dict(launch.LAUNCHES_BY_SHAPE)
     assert torch.equal(fwd(p.n, p.qs, x), fwd_plain(p.n, p.qs, x))
     assert torch.equal(inv(p.n, p.qs, x), inv_plain(p.n, p.qs, x))
+    for k in (1, 4):
+        window = inv(p.n, p.qs[-k:], x)
+        assert window.shape == (G, k, p.n)
+        assert torch.equal(window, inv_plain(p.n, p.qs[-k:], x[:, -k:].contiguous()))
+        assert torch.equal(fwd(p.n, p.qs[-k:], x), fwd_plain(p.n, p.qs[-k:], x))
     ct = to_torch(_rows(p, G, seed=1), "cuda")
     for k_drop in (1, 4):
         assert torch.equal(thyb.rescale_joint(p, ct, k_drop),
                            thyb._rescale_joint_plain(p, ct, k_drop))
-    assert launch.LAUNCHES == {**before, inv_name: before[inv_name] + 3,
-                               fwd_name: before[fwd_name] + 1,
+    assert launch.LAUNCHES == {**before, inv_name: before[inv_name] + 5,
+                               fwd_name: before[fwd_name] + 3,
                                "rescale_fwd": before["rescale_fwd"] + 2}
+    for k in (1, 4):
+        key = (inv_name, G, k, p.n)
+        assert launch.LAUNCHES_BY_SHAPE[key] == shapes.get(key, 0) + 2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
 @pytest.mark.parametrize("G", [1, 8, 12])
 def test_kernels_5_6_match_plain_on_the_card_at_2e16(G, order):
-    """n = 2^16 (one 1024-thread block an SM) in both slot orders: a limb
+    """n = 2^16 (one 1024-thread block an SM) in every slot order: a limb
     over four blocks ([1, 3, n]; [8, 3, n], the inverse where the card runs
-    24 clusters of four at once) and over two ([12, 3, n])."""
+    24 clusters of four at once) and over two ([12, 3, n]); the inverse
+    also on the last two rows of each group."""
     _need_card()
     p = tfast.FastParams.make(16, 3, impl=order)
     x = to_torch(_rows(p, G, seed=16, hi=1 << 32), "cuda")
@@ -246,9 +326,11 @@ def test_kernels_5_6_match_plain_on_the_card_at_2e16(G, order):
     before = dict(launch.LAUNCHES)
     assert torch.equal(fwd(p.n, p.qs, x), fwd_plain(p.n, p.qs, x))
     assert torch.equal(inv(p.n, p.qs, x), inv_plain(p.n, p.qs, x))
-    assert launch.LAUNCHES == {**before, inv_name: before[inv_name] + 1,
+    assert torch.equal(inv(p.n, p.qs[1:], x), inv_plain(p.n, p.qs[1:], x))
+    assert launch.LAUNCHES == {**before, inv_name: before[inv_name] + 2,
                                fwd_name: before[fwd_name] + 1}
     assert launch.LAUNCHES_BY_SHAPE[inv_name, G, 3, p.n] >= 1
+    assert launch.LAUNCHES_BY_SHAPE[inv_name, G, 2, p.n] >= 1
 
 
 @pytest.mark.cuda
@@ -259,7 +341,8 @@ def test_fast_rescale_kernel_path_matches_the_loop_on_the_card(L, k_drop, order)
     L), one ciphertext [2, L, 2^15]: the kernel path equals `fast.rescale`
     on CPU copies (the plain versions, which the CPU tests hold against the
     JAX package), residue for residue, and launches one inverse transform
-    and one kernel 7 at K = 1 a dropped limb. A zp above kernel 7's
+    of the dropped row alone, [2, 1, n], and one kernel 7 at K = 1 a dropped
+    limb. A zp above kernel 7's
     `ZP_MAX` raises on the card."""
     from dataclasses import replace
 
@@ -275,28 +358,47 @@ def test_fast_rescale_kernel_path_matches_the_loop_on_the_card(L, k_drop, order)
     for i in range(k_drop):
         key = ("rescale_fwd", 2, L - 1 - i, 1, p.n)
         assert launch.LAUNCHES_BY_SHAPE[key] == shapes.get(key, 0) + 1
+    key = (inv_name, 2, 1, p.n)                     # the dropped row alone, each limb
+    assert launch.LAUNCHES_BY_SHAPE[key] == shapes.get(key, 0) + k_drop
     assert got.is_cuda and got.shape == (2, L - k_drop, p.n)
     assert torch.equal(got.cpu(), tfast.rescale(p, ct.cpu(), k_drop))
     with pytest.raises(ValueError, match="power-of-two zp"):
         tfast.rescale(replace(p, zp=2 * rk.ZP_MAX), ct, k_drop)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["mxu", "pallas", "vpu"])
+def test_fast_rescale_on_the_card_matches_jax(order):
+    """`fast.rescale` on the card (each limb: the inverse transform of the
+    dropped row alone, then kernel 7 on the kept rows in the NTT domain)
+    against the JAX package's limb-by-limb `fast.rescale`, two limbs off a
+    ciphertext [2, 6, 2^14]."""
+    _need_card()
+    jp = jfast.FastParams.make(14, 6, zp=2, impl=order)
+    ct = _rows(jp, 2, seed=14)
+    out = tfast.rescale(tfast.FastParams(n=jp.n, qs=jp.qs, zp=2, impl=order),
+                        to_torch(ct, "cuda"), 2)
+    assert out.is_cuda and _eq(jfast.rescale(jp, jnp.asarray(ct), 2), out)
+
+
 def _kernel_7_inputs(log_n: int, L: int, K: int, G: int, device: str):
-    """(keep, drop, coeff, (c0, c1)) as rescale_joint and the hybrid product
-    hand them to kernel 7: canonical coefficients [G, L + K, n] whose first
-    coefficients put the dropped part V at P//2, P//2 + 1, 0 and P − 1, and
-    canonical c0, c1 [G/2, L, n]."""
+    """(keep, drop, ntt, dropped, (c0, c1)) as rescale_joint and the hybrid
+    product hand them to kernel 7: rows ntt [G, L + K, n] of any uint32 (the
+    kept rows as kernel 4 may leave them: not reduced), canonical
+    coefficients dropped [G, K, n] whose first coefficients put the dropped
+    part V at P//2, P//2 + 1, 0 and P − 1, and canonical c0, c1 [G/2, L, n]."""
     import math
 
     chain = tfast.FastParams.make(log_n, L + K).qs
     keep, drop = chain[:L], chain[L:]
-    rows = _rows(tfast.FastParams(n=1 << log_n, qs=chain), G, seed=log_n + L).astype(np.int64)
+    ntt = _rows(tfast.FastParams(n=1 << log_n, qs=chain), G, seed=log_n + L, hi=1 << 32)
+    dropped = _rows(tfast.FastParams(n=1 << log_n, qs=drop), G, seed=log_n + K).astype(np.int64)
     P = math.prod(drop)
     for i, v in enumerate((P // 2, P // 2 + 1, 0, P - 1)):
-        rows[:, L:, i] = [v % g for g in drop]
+        dropped[:, :, i] = [v % g for g in drop]
     c = _rows(tfast.FastParams(n=1 << log_n, qs=keep), 2 * (G // 2), seed=K)
     c01 = tuple(to_torch(h, device) for h in (c[:G // 2], c[G // 2:]))
-    return keep, drop, to_torch(rows, device), c01
+    return keep, drop, to_torch(ntt, device), to_torch(dropped, device), c01
 
 
 #: (log2 n, L, K, G) of kernel 7's card tests
@@ -310,29 +412,35 @@ KERNEL_7_SHAPES = [(8, 3, 2, 2), (14, 5, 3, 2), (15, 3, 3, 2), (15, 9, 3, 2), (1
                          [(*shape, add) for shape in KERNEL_7_SHAPES for add in (False, True)
                           if not (add and shape[3] % 2)])
 def test_kernel_7_matches_plain_on_the_card(log_n, L, K, G, order, add_back):
-    """Kernel 7, its prologue (the dropped rows' Garner digits and sign
-    terms) split over a cluster pair, in both launch shapes (512 threads at
+    """Kernel 7, its prologue (the dropped rows' Garner digits, sign terms
+    and correction) split over a cluster pair, the kept rows read in the NTT
+    domain as any uint32 in its store, in both launch shapes (512 threads at
     n ≤ 2^15, 1024 at 2^16; [2, 3–18, n] with K = 3–4 the deep chain's
     levels, [2, 16, n] a single hybrid product's, [32, 16, n] the batch's),
     alone and adding (c0, c1) as it stores; at 2^8 the 2-factor order's rows
     are 2 words, and the slot-order store takes word accesses."""
     _need_card()
-    keep, drop, coeff, c01 = _kernel_7_inputs(log_n, L, K, G, "cuda")
-    args = (1 << log_n, keep, drop, 2, coeff, order, c01 if add_back else None)
+    keep, drop, ntt, dropped, c01 = _kernel_7_inputs(log_n, L, K, G, "cuda")
+    args = (1 << log_n, keep, drop, 2, ntt, dropped, order, c01 if add_back else None)
     before = launch.LAUNCHES_BY_SHAPE.get(("rescale_fwd", G, L, K, 1 << log_n), 0)
     out = rk.rescale_fwd(*args)
     assert out.shape == ((G // 2, 2, L, 1 << log_n) if add_back else (G, L, 1 << log_n))
     assert torch.equal(out, rk.rescale_fwd_plain(*args))
     assert launch.LAUNCHES_BY_SHAPE[("rescale_fwd", G, L, K, 1 << log_n)] == before + 1
+    # the kept rows not reduced give what their residues give
+    q = torch.tensor(keep + drop, dtype=torch.int64, device="cuda")[:, None]
+    reduced = (ntt.long() & 0xFFFFFFFF) % q
+    assert not torch.equal(reduced.int(), ntt)
+    assert torch.equal(out, rk.rescale_fwd(1 << log_n, keep, drop, 2, reduced.int(), *args[5:]))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("zp", [4, 1 << 16])
 def test_kernel_7_takes_any_power_of_two_zp_on_the_card(zp):
     _need_card()
-    keep, drop, coeff, c01 = _kernel_7_inputs(15, 16, 4, 2, "cuda")
+    keep, drop, ntt, dropped, c01 = _kernel_7_inputs(15, 16, 4, 2, "cuda")
     for add in (None, c01):
-        args = (1 << 15, keep, drop, zp, coeff, "mxu", add)
+        args = (1 << 15, keep, drop, zp, ntt, dropped, "mxu", add)
         assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
 
 
@@ -343,10 +451,10 @@ def test_kernel_7_time_at_the_hybrid_shape_on_the_card():
     launches (CUDA events), printed beside the card; checked against the
     plain version."""
     _need_card()
-    keep, drop, coeff, c01 = _kernel_7_inputs(15, 16, 4, 32, "cuda")
+    keep, drop, ntt, dropped, c01 = _kernel_7_inputs(15, 16, 4, 32, "cuda")
     times = {}
     for name, add in (("alone", None), ("add_back", c01)):
-        args = (1 << 15, keep, drop, 2, coeff, "mxu", add)
+        args = (1 << 15, keep, drop, 2, ntt, dropped, "mxu", add)
         assert torch.equal(rk.rescale_fwd(*args), rk.rescale_fwd_plain(*args))
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()

@@ -205,7 +205,7 @@ def test_every_wrapper_opens_a_launch_span_its_counter_names():
         for order in launch.ORDERS:
             for transform in rk.grid_transforms(order):
                 transform(n, qs, z(1, 3, n))
-        rk.rescale_fwd(n, qs[:2], qs[2:], 2, z(2, 3, n))
+        rk.rescale_fwd(n, qs[:2], qs[2:], 2, z(2, 3, n), z(2, 1, n))
     names = [s.name.removeprefix("launch.") for s in profiling.spans()]
     assert sorted(names) == sorted(launch.LAUNCHES)
     assert [s.attrs for s in profiling.spans()] == [{"entry": launch.ENTRIES[k]} for k in names]
@@ -288,6 +288,7 @@ def test_launch_spans_equal_the_launch_counters_on_the_card(card, name):
     else:
         assert launch.LAUNCHES_BY_SHAPE[("hybrid_digit_relin", 1, 16, 20, 4, 1 << 15)] == 1
         assert launch.LAUNCHES_BY_SHAPE[("garner_pack", 1, 16, 4, 1 << 15)] == 1
+        assert launch.LAUNCHES_BY_SHAPE[("intt2_grid", 2, 4, 1 << 15)] == 1
 
 
 #: how far the profiler's device timestamps may stray from the host's
