@@ -7,7 +7,13 @@ table of Eval.hs:120-160.
 
 A copy of `alchemy_tpu/interp/eval.py`, except the ERW probe: on a torch
 backend it runs on the device (she/noise_probe.py), any other backend takes
-the host probe `bgv.error_rate`.
+the host probe `bgv.error_rate`, and the spans: each evaluation of a prim
+(the last application of a curried one, when all its arguments are in)
+runs inside a span `ir.<prim name>` (`utils/profiling.py`) with the limbs
+`L` and ring index `m` of its (first) argument where that is a ciphertext
+(its components' ring m′) or a ring element. The object language's monad
+prims, which only build values, open none. When nothing records spans,
+each costs `span`'s one flag check.
 """
 
 from __future__ import annotations
@@ -17,6 +23,10 @@ from alchemy_tpu_torch.lang.ir import App, Lam, Node, Prim, Var
 from alchemy_tpu_torch.she import bgv
 from alchemy_tpu_torch.she.ct import CT
 from alchemy_tpu_torch.she.tunnel import tunnel as tunnel_apply
+from alchemy_tpu_torch.utils.profiling import span
+
+#: prims that take two arguments, one application at a time
+_BINARY = {"add_", "mul_", "cons_", "pair_"}
 
 
 def pt_div2(c: Cyc) -> Cyc:
@@ -188,6 +198,34 @@ _MONAD_PRIMS = {
 }
 
 
+def _shape(v) -> dict:
+    """The span attributes of a prim's argument: limbs and ring index."""
+    if isinstance(v, CT):
+        return {"L": len(v.qs), "m": v.m_prime}
+    if isinstance(v, Cyc):
+        return {"L": v.nlimb, "m": v.m}
+    return {}
+
+
+def _in_span(label: str, f, first):
+    """f, each call inside a span `label` whose attributes are those of
+    `first` (None: of the call's own argument)."""
+    def call(a):
+        with span(label) as sp:
+            if sp is not None:
+                sp.attrs.update(_shape(a if first is None else first))
+            return f(a)
+    return call
+
+
+def _traced(name: str, value):
+    """A prim's value, its evaluation inside an `ir.<name>` span."""
+    label = f"ir.{name}"
+    if name in _BINARY:
+        return lambda a: _in_span(label, value(a), a)
+    return _in_span(label, value, None)
+
+
 def _eval(node: Node, env: tuple):
     if isinstance(node, Var):
         return env[node.idx]
@@ -196,7 +234,10 @@ def _eval(node: Node, env: tuple):
     if isinstance(node, App):
         return _eval(node.f, env)(_eval(node.a, env))
     if isinstance(node, Prim):
-        return _prim_value(node.name, node.payload)
+        value = _prim_value(node.name, node.payload)
+        if not callable(value) or node.name in _MONAD_PRIMS:
+            return value
+        return _traced(node.name, value)
     raise TypeError(f"eval: unexpected node {node!r}")
 
 

@@ -49,6 +49,16 @@ each call. It is never a reaction to a failure. `collectives` counts one
 call's collectives by (op, mesh axis); `arg_bytes` gives the bytes of
 arguments and hints a rank holds.
 
+Spans (`utils/profiling.py`): each call is one root span `jit_call`
+(attributes `prims`, the prims of the prepared program; `m`, the ring index
+m′ of the output's components; `L`, the first argument's limbs; `graph`)
+with one child, `jit.replay` around the graph's replay or `jit.eager`
+around the eager run, inside which the evaluator opens an `ir.<prim>` span
+a prim (`interp/eval.py`); a replay runs no Python, so it has no `ir.*`
+span. The argument checks, the copies into the graph's inputs and the
+output clones are the root's own time. `prims` counts the prepared
+program's prims by name, fixed at build.
+
 Not carried over: the JAX version's AOT artifact cache (a CUDA graph cannot
 be written to disk; the build is one eager run and one capture) and its
 `.lowered`/`.executable` attributes (no XLA lowering; the collective counts
@@ -78,6 +88,7 @@ from alchemy_tpu_torch.parallel.spmd import (
 from alchemy_tpu_torch.she.bgv import PublicPT
 from alchemy_tpu_torch.she.ct import CT
 from alchemy_tpu_torch.she.noise_probe import DeferredRate
+from alchemy_tpu_torch.utils.profiling import span
 
 #: prims whose payloads hold the program's large device data (jit_exec.py:80)
 _HOISTED = {"keySwitchQuad_", "tunnel_"}
@@ -169,6 +180,8 @@ class JitCompiled:
         self.ir = self._prepare(compiled.ir)
         self.program = (self.ir if noise_probe is None
                         else write_error_rates(self.ir, noise_probe, strict=False))
+        #: the prepared program's prims by name: what one call evaluates
+        self.prims: Counter = _prim_counts(self.program)
         flat = self._flat(example_cts)
         self._arg_bytes = sum(_nbytes(t) for t in flat)
         #: one call's collectives by (op, mesh axis) (a graph's: its capture's)
@@ -302,25 +315,31 @@ class JitCompiled:
                                      f"the program on {self.device}")
 
     def __call__(self, *cts: CT):
-        self._check_args(cts)
-        if self.graph is None:
-            out, log = self._run(self._flat(cts))
-        else:
-            for buf, t in zip(self._inputs, self._flat(cts)):
-                _local(buf).copy_(_local(t))
-            self.graph.replay()
-            m, zp, scale, comps_meta = self.out_meta
-            bk = self.bk if self.mesh is None else self.sbk
-            # fresh tensors: the next replay overwrites the graph's own outputs
-            out = CT(m=m, zp=zp, scale=scale, comps=tuple(
-                Cyc(get_ring(cm), qs, basis, _clone(t), bk)
-                for (cm, qs, basis), t in zip(comps_meta, self._outputs)))
-            log = [(label, DeferredRate(d, qs))
-                   for (label, qs), d in zip(self.log_meta, self._digits)]
-        if self.probe_ctx is None:
-            return out
-        # strict: an overflow raises here, before the ciphertext is returned
-        return out, resolve_log(log, strict=self.probe_strict)
+        with span("jit_call") as root:
+            self._check_args(cts)
+            if self.graph is None:
+                with span("jit.eager"):
+                    out, log = self._run(self._flat(cts))
+            else:
+                for buf, t in zip(self._inputs, self._flat(cts)):
+                    _local(buf).copy_(_local(t))
+                with span("jit.replay"):
+                    self.graph.replay()
+                m, zp, scale, comps_meta = self.out_meta
+                bk = self.bk if self.mesh is None else self.sbk
+                # fresh tensors: the next replay overwrites the graph's own outputs
+                out = CT(m=m, zp=zp, scale=scale, comps=tuple(
+                    Cyc(get_ring(cm), qs, basis, _clone(t), bk)
+                    for (cm, qs, basis), t in zip(comps_meta, self._outputs)))
+                log = [(label, DeferredRate(d, qs))
+                       for (label, qs), d in zip(self.log_meta, self._digits)]
+            if root is not None:
+                root.attrs.update(prims=sum(self.prims.values()), m=out.m_prime,
+                                  L=len(cts[0].qs), graph=self.graph is not None)
+            if self.probe_ctx is None:
+                return out
+            # strict: an overflow raises here, before the ciphertext is returned
+            return out, resolve_log(log, strict=self.probe_strict)
 
     # -- the mesh's results -------------------------------------------------
 
@@ -340,6 +359,15 @@ class JitCompiled:
         `argument_size_in_bytes`)."""
         return {"args": self._arg_bytes,
                 "hints": sum(_nbytes(t) for t in self._hints.values())}
+
+
+def _prim_counts(node: Node) -> Counter:
+    """The prims of a program by name."""
+    if isinstance(node, Lam):
+        return _prim_counts(node.body)
+    if isinstance(node, App):
+        return _prim_counts(node.f) + _prim_counts(node.a)
+    return Counter([node.name]) if isinstance(node, Prim) else Counter()
 
 
 def _local(t):

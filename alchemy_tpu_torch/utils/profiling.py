@@ -11,9 +11,12 @@ and the program's spans.
 - `span`, `tracing`, `spans`, `reset`: spans at the layer boundaries of the
   entry ops (`she.fast.mul_relin`, `she.hybrid.mul_relin_hybrid`,
   `she.hybrid.rescale_joint`, `she.fast.rescale`), the squaring chain
-  (`examples.deep_circuit.square_chain` and its levels) and the kernel
+  (`examples.deep_circuit.square_chain` and its levels), the kernel
   wrappers (`launch.<kernel>`, which `backend/cuda/launch.py` opens and
-  counts), kept in memory.
+  counts), and the general path: a compiled program's call
+  (`interp.jit_exec.JitCompiled`: the root `jit_call` over `jit.replay` or
+  `jit.eager`) and each prim the eager evaluator evaluates (`ir.<prim>`,
+  `interp/eval.py`), kept in memory.
 
 A span records its name, its start and end (`time.time_ns()`, Unix-epoch
 ns: the clock in which `torch.profiler` reports host and device events, so

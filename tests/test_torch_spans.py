@@ -1,4 +1,6 @@
-"""Spans of the port's multiply-relinearize entries (`utils.profiling`):
+"""Spans of the port's multiply-relinearize entries and of its compiled
+programs (`jit_call` › `jit.eager` › `ir.<prim>`, `JitCompiled.prims`)
+(`utils.profiling`):
 off by default; under `tracing()` and under a `torch.profiler` session one
 root a call over the tree of layer spans, children nested in their parents,
 entry self time + glue + launches equal to the root; outputs unchanged by
@@ -236,6 +238,70 @@ def test_exported_trace_holds_the_spans_as_ranges_on_the_profilers_clock(tmp_pat
                     and s.start_ns <= interval(e)[0] <= s.end_ns]
             assert aten, s.name
             assert all(r0 <= a0 and a1 <= r1 for a0, a1 in aten), s.name
+
+
+def _compiled_arithmetic():
+    """(program, its arguments, the ciphertext prims' spans' names in order)
+    of Arithmetic's addMul compiled and prepared with `jit_compile` on
+    `TorchBackend("cpu")`, where a call runs the prepared program eagerly."""
+    from alchemy_tpu_torch.backend.torch_backend import TorchBackend
+    from alchemy_tpu_torch.core.cyc import Cyc
+    from alchemy_tpu_torch.examples import arithmetic as a
+    from alchemy_tpu_torch.interp.jit_exec import jit_compile
+    from alchemy_tpu_torch.interp.keys_hints import KeysHints
+    from alchemy_tpu_torch.interp.pt2ct import pt2ct
+    from alchemy_tpu_torch.she.gadget import TrivGad
+
+    bk, rng = TorchBackend("cpu"), np.random.default_rng(8)
+    ctx = KeysHints(3.0, seed=8, bk=bk)
+    compiled = pt2ct(a.addMul, res_ty=a.PT, m_map=a.M_MAP, zqs=a.ZQS, gad=TrivGad(), ctx=ctx)
+    cts = [compiled.encrypt_arg(Cyc.from_coeffs(a.M, (a.ZP,), rng.integers(0, a.ZP, 2), bk), i)
+           for i in range(2)]
+    prims = ["ir.add_", "ir.mul_", "ir.modSwitch_", "ir.keySwitchQuad_", "ir.modSwitch_"]
+    return jit_compile(compiled, cts), cts, prims
+
+
+@pytest.mark.parametrize("mode", ["tracing", "profiler"])
+def test_a_compiled_programs_call_records_its_root_and_one_span_a_prim(mode):
+    """`JitCompiled.__call__` opens `jit_call` (prims, output ring, the
+    first argument's limbs, graph) over `jit.eager` on the CPU, inside which
+    the evaluator opens one `ir.<prim>` span a prim evaluated (limbs and
+    ring of its argument): as many of each as `JitCompiled.prims` counts.
+    Nothing is recorded by default; the output is the same either way."""
+    program, cts, names = _compiled_arithmetic()
+    off = program(*cts)
+    assert profiling.spans() == []
+    on = profiling.tracing() if mode == "tracing" else profile(activities=[ProfilerActivity.CPU])
+    with on:
+        out = program(*cts)
+    assert all(torch.equal(x.data, y.data) for x, y in zip(off.comps, out.comps))
+    root, eager, *prims = profiling.spans()
+    assert (root.name, root.parent) == ("jit_call", None)
+    assert root.attrs == {"prims": 5, "m": out.m_prime, "L": len(cts[0].qs), "graph": False}
+    assert (eager.name, eager.parent, eager.call) == ("jit.eager", root.index, root.index)
+    assert [s.name for s in prims] == names
+    assert all(s.parent == eager.index and s.call == root.index for s in prims)
+    assert all(s.attrs == {"L": 2, "m": 512} for s in prims[:4])
+    assert program.prims == {"add_": 1, "mul_": 1, "modSwitch_": 2, "keySwitchQuad_": 1}
+    assert sum(program.prims.values()) == len(prims)
+    assert root.start_ns <= eager.start_ns and eager.end_ns <= root.end_ns
+
+
+def test_the_plaintext_evaluator_opens_a_span_a_ring_operation():
+    """The eager evaluator on plaintexts: one `ir.*` span a prim with the
+    ring element's limbs and ring index; a monad prim opens none."""
+    from alchemy_tpu_torch.backend import golden_backend
+    from alchemy_tpu_torch.core.cyc import Cyc
+    from alchemy_tpu_torch.examples import arithmetic as a
+    from alchemy_tpu_torch.interp.eval import eval_ir
+    from alchemy_tpu_torch.lang import dsl
+
+    x, y = (Cyc.from_coeffs(a.M, (a.ZP,), [i, 2], golden_backend()) for i in (1, 3))
+    with profiling.tracing():
+        eval_ir(a.addMul, x, y)
+        assert eval_ir(dsl.pure_("writer"), x) == (x, [])
+    assert [(s.name, s.attrs) for s in profiling.spans()] == [
+        ("ir.add_", {"L": 1, "m": 4}), ("ir.mul_", {"L": 1, "m": 4})]
 
 
 # ---------------------------------------------------------------------------
