@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("mul_relin.cu", "rescale.cu")
+SOURCES = ("mul_relin.cu", "rescale.cu", "modq.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,7 +67,7 @@ def library_path() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, with every entry point's signature set."""
     lib = ctypes.CDLL(str(library_path()))
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.tensor_intt.argtypes = [P] * 8 + [I] * 3 + [P]
     lib.tensor_intt.restype = I
     lib.digit_relin.argtypes = [P] * 11 + [I] * 4 + [P]
@@ -81,6 +81,14 @@ def library() -> ctypes.CDLL:
     lib.garner_pack.restype = I
     lib.rescale_fwd.argtypes = [P] * 10 + [I] * 4 + [P]
     lib.rescale_fwd.restype = I
+    modq = {"gp_split16": [P] * 2 + [I] * 4 + [LL] * 4,
+            "gp_recombine": [P] * 3 + [I] * 4 + [LL] * 4,
+            "gp_binop": [P] * 4 + [I] * 3 + [LL] * 4,
+            "gp_scale_pad": [P] * 3 + [I] * 3 + [LL] * 2,
+            "gp_rescale_step": [P] * 3 + [I] * 2 + [LL] * 5}
+    for name, args in modq.items():
+        getattr(lib, name).argtypes = args + [P]
+        getattr(lib, name).restype = I
     lib.zq_error_string.argtypes = [I]
     lib.zq_error_string.restype = ctypes.c_char_p
     return lib

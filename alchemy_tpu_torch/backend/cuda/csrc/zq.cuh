@@ -16,8 +16,10 @@
 
 namespace zq {
 
-// Per-limb constants, packed by the host as 8 uint32 words:
-// q, n^-1 mod q, its Shoup companion, floor(2^32/q), floor(2^64/q) (lo, hi).
+// Per-limb constants, packed by the host as 8 uint32 words (launch.limb_words):
+// q, n^-1 mod q, its Shoup companion, floor(2^32/q), floor(2^64/q) (lo, hi),
+// and two words the NTT kernels leave 0. The mod-q kernels of modq.cu take
+// the same rows with their own constants in n^-1's pair and in words 6, 7.
 struct Limb {
   uint32_t q, n_inv, n_inv_s, one_s;
   uint64_t barrett;
@@ -59,12 +61,16 @@ __device__ __forceinline__ uint32_t reduce(uint32_t x, const Limb& k) {
   return mulmod_shoup(x, 1u, k.one_s, k.q);
 }
 
-// a*b mod q for variable a, b < 2^32 (Barrett on the 64-bit product with
-// m = floor(2^64/q): the quotient estimate is off by at most one).
+// x mod q for any uint64 x: Barrett with m = floor(2^64/q) (Limb.barrett),
+// whose quotient estimate is off by at most one.
+__device__ __forceinline__ uint32_t reduce64(uint64_t x, uint32_t q, uint64_t m) {
+  const uint64_t r = x - __umul64hi(x, m) * q;
+  return static_cast<uint32_t>(r >= q ? r - q : r);
+}
+
+// a*b mod q for variable a, b < 2^32: reduce64 of the 64-bit product.
 __device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b, const Limb& k) {
-  const uint64_t x = static_cast<uint64_t>(a) * b;
-  const uint64_t r = x - __umul64hi(x, k.barrett) * k.q;
-  return static_cast<uint32_t>(r >= k.q ? r - k.q : r);
+  return reduce64(static_cast<uint64_t>(a) * b, k.q, k.barrett);
 }
 
 // Mixed-radix (Garner) digits over a chain of count <= kMaxDigits moduli g_k

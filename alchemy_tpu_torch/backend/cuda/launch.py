@@ -1,7 +1,7 @@
 """The host side that every CUDA kernel wrapper of the port shares
-(`mul_relin.py`: A, B, 4 and `garner_pack`; `rescale.py`: 5–9): the slot
-orders and their tables, and the launch protocol with its one set of
-counters.
+(`mul_relin.py`: A, B, 4 and `garner_pack`; `rescale.py`: 5–9; `modq.py`:
+the general path's mod-q kernels): the slot orders and their tables, and the
+launch protocol with its one set of counters.
 
 The kernels work in the bit-reversed order of a radix-2 NTT; `kernel_tables`
 maps it to the slot order at their boundaries, the `order` argument of every
@@ -39,10 +39,13 @@ ORDERS = {"pallas": (ntt3, intt3, ntt3_bcast), "mxu": (ntt2, intt2, ntt2_bcast),
 #: table: kernels 6 and 5, 8 and 9, 6 and 5 with the radix-2 table
 GRID_NAMES = {"pallas": ("ntt_grid", "intt_grid"), "mxu": ("ntt2_grid", "intt2_grid"),
               "vpu": ("ntt_vpu_grid", "intt_vpu_grid")}
+#: the general path's mod-q kernels (`modq.py`), whose C entry points and
+#: CUDA functions share their names
+MODQ_NAMES = ("gp_split16", "gp_recombine", "gp_binop", "gp_scale_pad", "gp_rescale_step")
 #: the C entry point of each kernel: A, B, 4 and `garner_pack` (`mul_relin.py`),
-#: 7 and the standalone transforms (`rescale.py`)
+#: 7 and the standalone transforms (`rescale.py`), the mod-q kernels
 ENTRIES = {**{k: k for k in ("tensor_intt", "digit_relin", "hybrid_digit_relin",
-                             "garner_pack", "rescale_fwd")},
+                             "garner_pack", "rescale_fwd", *MODQ_NAMES)},
            **{name: entry for names in GRID_NAMES.values()
               for name, entry in zip(names, ("ntt_grid", "intt_grid"))}}
 #: launches of each kernel since the last `reset_launches()`
@@ -51,7 +54,8 @@ LAUNCHES = dict.fromkeys(ENTRIES, 0)
 #: (name, *key, n) with the key each wrapper gives `run`:
 #: ("tensor_intt", Bt, L, n), ("digit_relin", Bt, L, n),
 #: ("hybrid_digit_relin", Bt, L, T, dnum, n), ("garner_pack", Bt, L, alpha, n),
-#: (name, G, T, n) for the standalone transforms and ("rescale_fwd", G, L, K, n)
+#: (name, G, T, n) for the standalone transforms and ("rescale_fwd", G, L, K, n);
+#: the mod-q kernels, which take no ring size, (name, *key) (`modq.py`)
 LAUNCHES_BY_SHAPE: dict[tuple, int] = {}
 _SPANS = {name: f"launch.{name}" for name in ENTRIES}
 
@@ -119,6 +123,16 @@ def slot_tables(n: int, order: str) -> tuple[np.ndarray, np.ndarray]:
     return slot_ct, slot_inv
 
 
+def limb_words(q: int, w: int = 0, w2: int = 0) -> tuple[int, ...]:
+    """The 8 uint32 words of zq.cuh `Limb` for q: q, w and its Shoup
+    companion (n⁻¹ mod q for the NTT kernels, a mod-q kernel's own constant
+    in `modq.py`), ⌊2^32/q⌋, the two words of ⌊2^64/q⌋, a second constant w2
+    and its companion (0 and 0 where unused)."""
+    barrett = (1 << 64) // q
+    return (q, w, shoup_const(w, q), (1 << 32) // q, barrett & 0xFFFFFFFF, barrett >> 32,
+            w2, shoup_const(w2, q))
+
+
 @lru_cache(maxsize=None)
 def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
     """Host tables of the kernels (numpy):
@@ -131,8 +145,7 @@ def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
     - `slot_own4` [n] int32, kernels A, 5, 6, 8, 9 with a limb over four
       blocks: the same for each quarter;
     - `fwd`, `inv` [L, 2, n] uint32: ψ^{±bitrev(k)} and Shoup companions;
-    - `limbs` [L, 8] uint32: q, n⁻¹, its companion, ⌊2^32/q⌋ and the two
-      words of ⌊2^64/q⌋ (zq.cuh `Limb`).
+    - `limbs` [L, 8] uint32: `limb_words(q, n⁻¹ mod q)` (zq.cuh `Limb`).
     """
     slot_ct, slot_inv = slot_tables(n, order)
 
@@ -149,10 +162,7 @@ def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
         p = psi_powers(n, q)
         fwd[li] = with_shoup(p[br], q)
         inv[li] = with_shoup(p[(2 * n - br) % (2 * n)], q)
-        n_inv = pow(n, -1, q)
-        barrett = (1 << 64) // q
-        limbs[li, :6] = (q, n_inv, shoup_const(n_inv, q), (1 << 32) // q,
-                         barrett & 0xFFFFFFFF, barrett >> 32)
+        limbs[li] = limb_words(q, pow(n, -1, q))
     return {"slot_ct": slot_ct, "slot_inv": slot_inv, "slot_own": owned(2),
             "slot_own4": owned(4), "fwd": fwd, "inv": inv, "limbs": limbs}
 
@@ -193,15 +203,16 @@ def check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> Non
             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def on_card(n: int, device: torch.device) -> bool:
+def on_card(n: int | None, device: torch.device) -> bool:
     """False for CPU tensors, whose wrapper runs its plain version; True
-    where the kernels run at ring size n on `device`. Raises otherwise: each
-    block keeps half a limb in shared memory (2n bytes: n ≤ 2^16)."""
+    where the kernels run at ring size n on `device` (n None: the mod-q
+    kernels, which take rows of any length). Raises otherwise: each block of
+    an NTT kernel keeps half a limb in shared memory (2n bytes: n ≤ 2^16)."""
     if device.type == "cpu":
         return False
     if device.type != "cuda":
         raise ValueError(f"tensors on {device}: want cpu or cuda")
-    if 2 * n > MAX_SHARED_BYTES:
+    if n is not None and 2 * n > MAX_SHARED_BYTES:
         raise NotImplementedError(
             f"n={n}: half a limb ({2 * n} bytes) does not fit a block's shared "
             "memory; the kernels take n ≤ 2^16")
@@ -221,12 +232,16 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def run(name: str, n: int, device: torch.device, key: tuple, *args) -> None:
-    """Call kernel `name`'s C entry point with args, log2 n and the current
-    stream of `device`; raise on the CUDA error it returns, and count one
-    launch keyed (name, *key, n)."""
+def run(name: str, n: int | None, device: torch.device, key: tuple, *args) -> None:
+    """Call kernel `name`'s C entry point with args, log2 n (none where n is
+    None: the mod-q kernels) and the current stream of `device`; raise on the
+    CUDA error it returns, and count one launch keyed (name, *key, n), or
+    (name, *key)."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    build.check(getattr(build.library(), ENTRIES[name])(*args, n.bit_length() - 1, stream), name)
+    if n is not None:
+        args = (*args, n.bit_length() - 1)
+        key = (*key, n)
+    build.check(getattr(build.library(), ENTRIES[name])(*args, stream), name)
     LAUNCHES[name] += 1
-    key = (name, *key, n)
+    key = (name, *key)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1

@@ -3,9 +3,15 @@ tensors, on the card by default (port of `alchemy_tpu/backend/xla.py:216
 XlaBackend`, the same 18-method protocol as `backend/golden.py`).
 
 Residues are stored as int64 tensors holding canonical values in [0, q),
-as the golden backend stores them. Every q is below 2^31, so a product of
-two residues is below 2^62 and each elementwise op is exact with `%` (the
-uint32 lane tricks of the JAX backend are not needed).
+as the golden backend stores them, and every method takes and returns
+canonical residues (the mod-q kernels rely on it and do not check it: a
+residue outside [0, q) gives a wrong result on the card). Every q is below
+2^31, so a product of two residues is below 2^62 and each elementwise op is
+exact (the uint32 lane tricks of the JAX backend are not needed). On the
+card each mod-q chain is one launch of a kernel of `cuda/modq.py` (`add`,
+`sub`, `neg`, `mul`, `mul_const`, `rescale_step`, `modswitch_up`; and
+`sum_terms`, which no path calls, one launch a term); on the CPU their plain
+versions, the same torch ops as before, run.
 
 `axis_matmul` applies per-axis transform matrices (CRT, iCRT, embeddings,
 twaces, decoding-basis changes) along the tensor axes of R_m. Adjacent axes
@@ -16,8 +22,12 @@ exactly in float64 on `torch.matmul`: the matrix and the operand are split
 into 16-bit halves, and one matmul of [W_lo; W_hi] against [x_lo | x_hi]
 gives the four partial products. Each partial sum is below
 K·(2^16 − 1)^2 < 2^53 for a contraction length K ≤ 2^21, so it is exact in
-any order of summation; each is reduced mod q in int64 before the halves
-are recombined with 2^16 and 2^32 mod q. The CPU runs the same route.
+any order of summation; each is reduced mod q before the halves are
+recombined with 2^16 and 2^32 mod q. On the card the split is one launch
+(`modq.split16`, reading the operand's axes through their strides) and the
+reduction and recombination another (`modq.recombine`, writing the result
+with the contracted axis in place, so nothing is copied between
+contractions). The CPU runs the same route with torch ops.
 
 `lift_centered`, `reduce_signed`, `broadcast_row` and `to_numpy` go through
 host numpy, as in the JAX backend. `counts` records the calls of
@@ -33,6 +43,7 @@ from math import prod
 import numpy as np
 import torch
 
+from alchemy_tpu_torch.backend.cuda import modq
 from alchemy_tpu_torch.backend.modarith import extend_digits, garner_digits, qcol
 
 #: largest contraction length whose float64 partial sums stay exact:
@@ -41,21 +52,14 @@ _MAX_K = 1 << 21
 
 
 def _matmul_mod(W: torch.Tensor, x: torch.Tensor, qs: tuple[int, ...]) -> torch.Tensor:
-    """W·x mod q per limb, exact: W [L, 2·d_out, K] float64 holding the
-    16-bit halves [W_lo; W_hi] of a canonical matrix, x [L, K, R] int64
-    canonical residues → [L, d_out, R] int64 in [0, q)."""
-    L, K, R = x.shape
+    """W·x mod q per limb along x's axis K, exact: W [L, 2·d_out, K] float64
+    holding the 16-bit halves [W_lo; W_hi] of a canonical matrix, x
+    [L, A, K, B] int64 canonical residues, any strides → [L, A, d_out, B]
+    int64 in [0, q)."""
+    L, A, K, B = x.shape
     if K > _MAX_K:
         raise ValueError(f"axis_matmul: contraction length {K} > {_MAX_K} is not exact in float64")
-    d_out = W.shape[1] // 2
-    xs = torch.cat((x & 0xFFFF, x >> 16), dim=2).to(torch.float64)   # [L, K, 2R]
-    q = qcol(qs, x.device)[:, :, None]                                # [L, 1, 1]
-    p = torch.matmul(W, xs).to(torch.int64) % q                       # [L, 2 d_out, 2R]
-    lo, lh = p[:, :d_out, :R], p[:, :d_out, R:]
-    hl, hh = p[:, d_out:, :R], p[:, d_out:, R:]
-    r16 = qcol(tuple((1 << 16) % v for v in qs), x.device)[:, :, None]
-    r32 = qcol(tuple((1 << 32) % v for v in qs), x.device)[:, :, None]
-    return (lo + (lh + hl) % q * r16 % q + hh * r32 % q) % q
+    return modq.recombine(torch.matmul(W, modq.split16(x)), qs, A, B)
 
 
 class TorchBackend:
@@ -78,9 +82,6 @@ class TorchBackend:
         #: (the exact-MAC ledger of scripts/profile_examples.py, xla.py:27)
         self.mac_log: list | None = None
 
-    def _q(self, qs) -> torch.Tensor:
-        return qcol(tuple(qs), self.device)
-
     # -- construction -------------------------------------------------------
 
     def asarray(self, arr, qs: tuple[int, ...]) -> torch.Tensor:
@@ -101,27 +102,23 @@ class TorchBackend:
     # -- elementwise mod-q --------------------------------------------------
 
     def add(self, a, b, qs):
-        return (a + b) % self._q(qs)
+        return modq.binop("add", a, b, qs)
 
     def sub(self, a, b, qs):
-        return (a - b) % self._q(qs)
+        return modq.binop("sub", a, b, qs)
 
     def neg(self, a, qs):
-        return (-a) % self._q(qs)
+        return modq.binop("neg", a, None, qs)
 
     def mul(self, a, b, qs):
-        return a * b % self._q(qs)
+        return modq.binop("mul", a, b, qs)
 
     def mul_const(self, a, consts, qs):
         """Multiply limb l by scalar consts[l] mod qs[l]."""
-        c = qcol(tuple(int(c) % q for c, q in zip(consts, qs)), self.device)
-        return a * c % self._q(qs)
+        return modq.scale_pad(a, consts, qs, len(qs))
 
     def sum_terms(self, terms, qs):
-        acc = terms[0]
-        for t in terms[1:]:
-            acc = acc + t
-        return acc % self._q(qs)
+        return modq.sum_terms(terms, qs)
 
     # -- per-axis transforms ------------------------------------------------
 
@@ -215,16 +212,14 @@ class TorchBackend:
         for span, _mat, _d_in, _d_out in groups:
             dims.append(prod(shape[pos:pos + span]))
             pos += span
-        x = a.reshape(L, *dims)
+        x = a
         for gi, (_span, mat, d_in, d_out) in enumerate(groups):
             if mat is None:
                 continue
-            xm = x.movedim(1 + gi, 1)                 # [L, d_in, *rest]
-            rest_shape = xm.shape[2:]
+            A, B = prod(dims[:gi]), prod(dims[gi + 1:])
             if self.mac_log is not None:
-                self.mac_log.append((L, d_in, d_out, prod(rest_shape)))
-            res = _matmul_mod(self._mat_halves(mat, qs), xm.reshape(L, d_in, -1), qs)
-            x = res.reshape(L, d_out, *rest_shape).movedim(1, 1 + gi)
+                self.mac_log.append((L, d_in, d_out, A * B))
+            x = _matmul_mod(self._mat_halves(mat, qs), x.reshape(L, A, d_in, B), qs)
             dims[gi] = d_out
         return x.reshape(L, -1)
 
@@ -252,27 +247,14 @@ class TorchBackend:
     def rescale_step(self, data, qs, zp):
         """Drop the last limb q_k: (data − δ)/q_k with δ ≡ data (mod q_k),
         δ ≡ 0 (mod zp), δ small (golden.py `rescale_step`)."""
-        qs = tuple(qs)
-        qk = qs[-1]
-        new_qs = qs[:-1]
-        r = data[-1]
-        r = torch.where(r > qk // 2, r - qk, r)
-        t = (-r) * pow(qk, -1, zp) % zp
-        t = torch.where(t > zp // 2, t - zp, t)
-        delta = r + qk * t
-        q = self._q(new_qs)
-        inv_qk = qcol(tuple(pow(qk, -1, v) for v in new_qs), self.device)
-        return (data[:-1] - delta) % q * inv_qk % q
+        return modq.rescale_step(data, qs, zp)
 
     def modswitch_up(self, data, old_qs, new_qs):
         """Exact scaling to a longer prefix: old limbs ×(∏ new extra limbs),
         new limbs ≡ 0."""
         old_qs, new_qs = tuple(old_qs), tuple(new_qs)
         d = prod(new_qs[len(old_qs):])
-        factor = qcol(tuple(d % q for q in old_qs), self.device)
-        scaled = data[:len(old_qs)] * factor % self._q(old_qs)
-        zero = data.new_zeros((len(new_qs) - len(old_qs), data.shape[1]))
-        return torch.cat((scaled, zero))
+        return modq.scale_pad(data, (d,) * len(old_qs), old_qs, len(new_qs))
 
     def hybrid_digit_rows(self, data, qs, groups, ext_qs):
         """[dnum, T, n] hybrid digit rows: for each limb group, the exact
@@ -293,7 +275,7 @@ class TorchBackend:
         """[D, L, n] digit rows of POW-basis residues. base=None → CRT/Triv
         digits (row i = limb-i residues reduced into every limb); base=b →
         per-limb base-b digits, limb-major."""
-        q = self._q(qs)[None]                        # [1, L, 1]
+        q = qcol(tuple(qs), self.device)[None]       # [1, L, 1]
         if base is None:
             return data[:, None, :] % q
         out = []

@@ -13,9 +13,14 @@ result as `native_kernel_checks`. On the CPU (`device="cpu"`) every wrapper
 runs its plain version, so the checks hold the plain versions against
 themselves.
 
+`modq_checks(device)` holds the general path's mod-q kernels
+(`backend/cuda/modq.py`) against their plain forms at HomomRLWR's shapes
+(MODQ_MATMULS, MODQ_ROWS) and, on the card, times both in a CUDA graph
+beside each kernel's bound: the bytes it must move over the H100's 3.35 TB/s.
+
     python -m alchemy_tpu_torch.scripts.verify_device [--device cpu]
 
-prints the dict and exits 1 on any failure.
+prints the dict, then one `{"modq": [...]}` line, and exits 1 on any failure.
 """
 
 from __future__ import annotations
@@ -31,6 +36,13 @@ SHAPES = {"mul_relin": (14, 4), "hybrid": (14, 8), "headline": (15, 8, 16)}
 #: the headline check's key, named after SHAPES["headline"] (a CPU rehearsal
 #: at smaller `shapes` keeps it)
 HEADLINE_KEY = "headline_n2e15_L8_Bt16_shoup_bitident"
+#: HomomRLWR's most frequent contractions, (L, d_out, K, A, B): W [L, 2·d_out, K]
+#: against x [L, A, K, B], whose R = A·B columns a call splits both ways
+MODQ_MATMULS = ((3, 120, 120, 1, 72), (3, 72, 72, 120, 1), (4, 120, 120, 6, 12),
+                (6, 128, 128, 1, 72), (6, 12, 12, 1920, 12))
+#: the [L, n] rows HomomRLWR's elementwise methods take most
+MODQ_ROWS = ((6, 11520), (4, 8640), (3, 8640))
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 
 
 def _mul_relin_plain(p, ct_a, ct_b, hint_b, hint_a):
@@ -135,12 +147,91 @@ def run_checks(device: str = "cuda", shapes: dict = SHAPES) -> dict:
     return results
 
 
+def modq_cases(rng, device: str) -> list[tuple]:
+    """(kernel, shape key as `launch.LAUNCHES_BY_SHAPE` has it, the kernel's
+    call, its plain form's call, bytes it must move: each input read once,
+    each output written once) of every mod-q kernel at HomomRLWR's shapes."""
+    from alchemy_tpu_torch.backend.cuda import modq
+    from alchemy_tpu_torch.backend.torch_backend import TorchBackend
+    from alchemy_tpu_torch.examples import homomrlwr
+
+    tb, zqs = TorchBackend(device), tuple(homomrlwr.ZQS.qs)
+
+    def rows(qs, *shape):
+        return torch.from_numpy(np.stack([rng.integers(0, q, shape) for q in qs])).to(device)
+
+    cases = []
+    for L, D, K, A, B in MODQ_MATMULS:
+        qs, R = zqs[:L], A * B
+        x = rows(qs, A, K, B)
+        p = torch.matmul(tb._mat_halves([rng.integers(0, q, (D, K)) for q in qs], qs),
+                         modq.split16(x))
+        cases += [("gp_split16", (L, K, R), lambda x=x: modq.split16(x),
+                   lambda x=x: modq.split16_plain(x), 24 * L * K * R),
+                  ("gp_recombine", (L, D, R), lambda p=p, qs=qs, A=A, B=B: modq.recombine(
+                      p, qs, A, B), lambda p=p, qs=qs, A=A, B=B: modq.recombine_plain(
+                      p, qs, A, B), 40 * L * D * R)]
+    for L, n in MODQ_ROWS:
+        qs = zqs[:L]
+        a, b = (rows(qs, n) for _ in range(2))
+        consts, w = tuple(range(3, 3 + L)), 8 * L * n
+        cases += [
+            ("gp_binop", ("add", L, n), lambda a=a, b=b, qs=qs: modq.binop("add", a, b, qs),
+             lambda a=a, b=b, qs=qs: modq.binop_plain("add", a, b, qs), 3 * w),
+            ("gp_binop", ("mul", L, n), lambda a=a, b=b, qs=qs: modq.binop("mul", a, b, qs),
+             lambda a=a, b=b, qs=qs: modq.binop_plain("mul", a, b, qs), 3 * w),
+            ("gp_scale_pad", (L - 1, L, n),
+             lambda a=a, qs=qs, c=consts: modq.scale_pad(a, c[:-1], qs[:-1], len(qs)),
+             lambda a=a, qs=qs, c=consts: modq.scale_pad_plain(a, c[:-1], qs[:-1], len(qs)),
+             w * (2 * L - 1) // L),
+            ("gp_rescale_step", (L - 1, n), lambda a=a, qs=qs: modq.rescale_step(a, qs, 16),
+             lambda a=a, qs=qs: modq.rescale_step_plain(a, qs, 16), w * (2 * L - 1) // L)]
+    return cases
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of fn() in ms over reps launches captured in one
+    CUDA graph and replayed (after one warm-up call and one replay): the
+    kernels back to back, without the host's time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / reps
+
+
+def modq_checks(device: str = "cuda", reps: int = 50) -> list[dict]:
+    """Each case of `modq_cases`: the kernel bit-identical to its plain
+    form; on the card the device ms of both in a CUDA graph (`graph_ms`,
+    `plain_ms`) and the bound (`bound_ms`, bytes at 3.35 TB/s)."""
+    out = []
+    for kernel, key, fn, plain, nbytes in modq_cases(np.random.default_rng(1), device):
+        r = {"kernel": kernel, "shape": list(key), "bitident": bool(torch.equal(fn(), plain())),
+             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        if device != "cpu":
+            r["graph_ms"], r["plain_ms"] = graph_ms(fn, reps), graph_ms(plain, reps)
+        out.append(r)
+    return out
+
+
 def main(device: str | None = None, argv=None) -> int:
     from alchemy_tpu_torch.bench import run_args
 
-    res = run_checks(run_args("alchemy_tpu_torch.scripts.verify_device", device, argv).device)
+    device = run_args("alchemy_tpu_torch.scripts.verify_device", device, argv).device
+    res = run_checks(device)
     print(json.dumps(res, indent=1))
-    return 0 if res["pass"] else 1
+    modq = modq_checks(device)
+    print(json.dumps({"modq": modq}))
+    return 0 if res["pass"] and all(r["bitident"] for r in modq) else 1
 
 
 if __name__ == "__main__":

@@ -146,6 +146,13 @@ count `launches` is (the one that launched the shape most).
 
     python3 chip_smoke.py        # from the root of a checkout, one GPU
 
+After [checkpoint], [modq] holds the general path's mod-q kernels
+(`csrc/modq.cu`: split, recombine, binop, scale_pad, rescale_step)
+against their plain forms at HomomRLWR's shapes, times both in a CUDA graph
+beside each kernel's bound by bytes, and counts each kernel's launches in one
+eager HomomRLWR evaluation: one `[modq]` line and one `kernels` entry a case
+(`python3 chip_smoke.py --modq` runs the build and this phase alone).
+
 On a host with four cards, `python3 chip_smoke.py --cards 4` runs only the
 mesh checks across them, on four NCCL ranks, one a card: [dist4] ([dist]'s
 checks on the mesh (1, 2, 2)), [pipeline4] (the chain with S = 4),
@@ -162,6 +169,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+from alchemy_tpu_torch.scripts.verify_device import HBM_BYTES_PER_S, graph_ms
 
 SEED = 0
 HEADLINE = (15, 8, 16)            # log2 n, limbs, ciphertexts per batch
@@ -201,7 +210,7 @@ NTT_TPU = "alchemy_tpu/backend/pallas/ntt_pallas.py"
 VPU_NTT = "alchemy_tpu/backend/ntt.py"       # ntt_negacyclic :149, intt_negacyclic :173 (jnp)
 MUL_RELIN_CU = "alchemy_tpu_torch/backend/cuda/csrc/mul_relin.cu"
 RESCALE_CU = "alchemy_tpu_torch/backend/cuda/csrc/rescale.cu"
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
+MODQ_CU = "alchemy_tpu_torch/backend/cuda/csrc/modq.cu"
 SMS, IMUL_PER_SM_CLOCK = 132, 64  # 32-bit integer multiplies per SM and clock, cc 9.0
 # The fewest 32-bit multiplies each modular operation needs, whatever the
 # kernels' own instructions: a product of two variable residues (the low and
@@ -274,28 +283,6 @@ def device_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Mean device time of fn() in ms over reps launches captured in one
-    CUDA graph and replayed (after one warm-up call and one replay): the
-    kernels back to back, without the host's time between launches."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    g.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del g
     return start.elapsed_time(end) / reps
 
 
@@ -1333,6 +1320,44 @@ def jit_phase(steps: dict, tb, card: str, device: str = "cuda") -> dict:
               f"{r['event_ms']:.3f} ms, {r['launches']:.0f} launches, busy {r['busy_us']:.1f} µs "
               f"of {r['span_us']:.1f}; eager warm host {r['eager_ms']:.3f} ms", flush=True)
     return res
+
+
+def modq_phase(evaluate, card: str, device: str = "cuda") -> list[dict]:
+    """[modq]: the general path's mod-q kernels (`csrc/modq.cu`) at
+    HomomRLWR's shapes, each bit-identical to its plain form and both timed
+    in a CUDA graph beside the kernel's bound by bytes
+    (`scripts/verify_device.modq_checks`), with the launches of one eager
+    HomomRLWR evaluation (`evaluate`) by kernel and by shape: one `[modq]`
+    line and one `kernels` entry a case."""
+    import torch
+
+    from alchemy_tpu_torch.scripts.verify_device import modq_checks
+
+    reset_launches()
+    evaluate()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    per_call, by_shape = launches(), shape_launches()
+    print(f"[modq] one eager HomomRLWR evaluation ({card}): "
+          + ", ".join(f"{k} {v}" for k, v in per_call.items() if v), flush=True)
+    entries = []
+    for r in modq_checks(device):
+        name, key = r["kernel"], (r["kernel"], *r["shape"])
+        check(r["bitident"], f"[modq] {name} {r['shape']} != its plain form")
+        ms, plain = r.get("graph_ms"), r.get("plain_ms")
+        if ms is not None:
+            print(f"[modq] {name} {r['shape']}: graph {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms (bytes, {100 * r['bound_ms'] / ms:.1f}%); "
+                  f"{by_shape.get(key, 0)} launches of the shape, {per_call[name]} of the kernel "
+                  f"in a HomomRLWR call", flush=True)
+        entries.append({"name": name, "n": None, "order": None, "shape": r["shape"],
+                        "route": "cuda", "source": MODQ_CU,
+                        "replaces": "none (XLA's fused elementwise ops, alchemy_tpu/backend/xla.py)",
+                        "path": "HomomRLWR", "launches": by_shape.get(key, 0),
+                        "launches_per_call": per_call[name], "max_abs_err": 0, "ms": ms,
+                        "graph_ms": ms, "plain_ms": plain, "bound_ms": r["bound_ms"],
+                        "bound_by": "bytes", "library_ms": None})
+    return entries
 
 
 CHECKPOINT_CHILD = """
@@ -2413,6 +2438,7 @@ def main() -> int:
     ex = examples_phase(get_backend("checked"), she_bk, card)
     jit = jit_phase(ex["steps"], she_bk, card)
     checkpoint_phase(ex["steps"]["HomomRLWR"], she_bk)
+    modq_entries = modq_phase(ex["steps"]["HomomRLWR"]["evaluate"], card)
     dist = dist_phase(rng, card)
     from alchemy_tpu_torch.parallel import bench_scaling
     from alchemy_tpu_torch.parallel.multihost import LocalWorld
@@ -2521,6 +2547,7 @@ def main() -> int:
               ("pallas", {"pipeline": pl["S1 pallas"]["launches"]["digit_relin"]}),
               ("mxu", {"pipeline": pl["S1 mxu"]["launches"]["digit_relin"],
                        "pipeline S=2": pl["S2 mxu"]["launches"]["digit_relin"]}))],
+        *modq_entries,
     ]
     # the C++ oracle's check of A, B, 5 and 6 in the vpu order ([native])
     oracle = {"tensor_intt": nat["mul_relin"], "digit_relin": nat["mul_relin"],
@@ -2560,5 +2587,30 @@ def main() -> int:
     return 0
 
 
+def modq_only() -> int:
+    """`--modq`: the build and [modq] alone (HomomRLWR's keys, hints and
+    argument made first, as [examples] makes them)."""
+    import torch
+
+    from alchemy_tpu_torch.backend.cuda import build
+    from alchemy_tpu_torch.backend.torch_backend import TorchBackend
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    build.library()
+    card = torch.cuda.get_device_name(0)
+    st = example_steps("HomomRLWR", TorchBackend("cuda"))
+    check(st["ok"], "[modq] HomomRLWR does not decrypt to the plaintext")
+    print(json.dumps({"kernels": modq_phase(st["evaluate"], card)}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(cards4() if sys.argv[1:] == ["--cards", "4"] else main())
+    sys.exit(cards4() if sys.argv[1:] == ["--cards", "4"]
+             else modq_only() if sys.argv[1:] == ["--modq"] else main())

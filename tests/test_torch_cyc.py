@@ -108,7 +108,7 @@ def test_axis_matmul_refuses_an_inexact_contraction():
 
     W = torch.zeros((1, 2, _MAX_K + 1), dtype=torch.float64)
     with pytest.raises(ValueError, match="not exact"):
-        _matmul_mod(W, torch.zeros((1, _MAX_K + 1, 1), dtype=torch.int64), (17,))
+        _matmul_mod(W, torch.zeros((1, 1, _MAX_K + 1, 1), dtype=torch.int64), (17,))
 
 
 def _pair(m, qs, coeffs, basis="POW"):

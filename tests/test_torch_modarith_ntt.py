@@ -151,6 +151,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import alchemy_tpu_torch.she.fast, alchemy_tpu_torch.she.hybrid\n"
         "import alchemy_tpu_torch.convert, alchemy_tpu_torch.examples.deep_circuit\n"
         "import alchemy_tpu_torch.backend.cuda.build, alchemy_tpu_torch.backend.cuda.rescale\n"
+        "import alchemy_tpu_torch.backend.cuda.modq\n"
         "import alchemy_tpu_torch.nt.factor, alchemy_tpu_torch.nt.crtset\n"
         "import alchemy_tpu_torch.core.params, alchemy_tpu_torch.core.ring, alchemy_tpu_torch.core.cyc\n"
         "import alchemy_tpu_torch.backend.golden, alchemy_tpu_torch.backend.torch_backend\n"

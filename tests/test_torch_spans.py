@@ -25,7 +25,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from alchemy_tpu_torch.backend.cuda import launch
+from alchemy_tpu_torch.backend.cuda import launch, modq
 from alchemy_tpu_torch.backend.cuda import mul_relin as mr
 from alchemy_tpu_torch.backend.cuda import rescale as rk
 from alchemy_tpu_torch.she import fast, hybrid
@@ -193,7 +193,7 @@ def test_a_block_that_raises_is_flagged():
 def test_every_wrapper_opens_a_launch_span_its_counter_names():
     """Each kernel wrapper, run once on tiny CPU tensors (its plain
     version), opens one span `launch.<name>`: its names are the keys of the
-    one `launch.LAUNCHES`, all 11 of them, and each span's `entry` is the C
+    one `launch.LAUNCHES`, all 16 of them, and each span's `entry` is the C
     entry point its kernel's counter names. The CPU counts no launch."""
     chain = fast.FastParams.make(6, 4).qs
     n, qs, groups = 1 << 6, chain[:3], ((chain[0], chain[1]), (chain[2],))
@@ -208,6 +208,11 @@ def test_every_wrapper_opens_a_launch_span_its_counter_names():
             for transform in rk.grid_transforms(order):
                 transform(n, qs, z(1, 3, n))
         rk.rescale_fwd(n, qs[:2], qs[2:], 2, z(2, 3, n), z(2, 1, n))
+        rows = torch.zeros((3, n), dtype=torch.int64)
+        modq.recombine(modq.split16(rows.reshape(3, 1, 8, n // 8)).repeat(1, 2, 1), qs, 1, n // 8)
+        modq.binop("add", rows, rows, qs)
+        modq.scale_pad(rows, (1, 2, 3), qs, 3)
+        modq.rescale_step(rows, qs, 2)
     names = [s.name.removeprefix("launch.") for s in profiling.spans()]
     assert sorted(names) == sorted(launch.LAUNCHES)
     assert [s.attrs for s in profiling.spans()] == [{"entry": launch.ENTRIES[k]} for k in names]
@@ -266,8 +271,9 @@ def test_a_compiled_programs_call_records_its_root_and_one_span_a_prim(mode):
     """`JitCompiled.__call__` opens `jit_call` (prims, output ring, the
     first argument's limbs, graph) over `jit.eager` on the CPU, inside which
     the evaluator opens one `ir.<prim>` span a prim evaluated (limbs and
-    ring of its argument): as many of each as `JitCompiled.prims` counts.
-    Nothing is recorded by default; the output is the same either way."""
+    ring of its argument): as many of each as `JitCompiled.prims` counts;
+    the backend's mod-q wrappers open their `launch.gp_*` spans inside
+    them. Nothing is recorded by default; the output is the same either way."""
     program, cts, names = _compiled_arithmetic()
     off = program(*cts)
     assert profiling.spans() == []
@@ -275,7 +281,11 @@ def test_a_compiled_programs_call_records_its_root_and_one_span_a_prim(mode):
     with on:
         out = program(*cts)
     assert all(torch.equal(x.data, y.data) for x, y in zip(off.comps, out.comps))
-    root, eager, *prims = profiling.spans()
+    root, eager, *inner = profiling.spans()
+    prims = [s for s in inner if not s.name.startswith("launch.")]
+    launches = [s for s in inner if s.name.startswith("launch.")]
+    assert launches and {s.name for s in launches} <= {f"launch.{k}" for k in launch.MODQ_NAMES}
+    assert {s.parent for s in launches} <= {s.index for s in prims}
     assert (root.name, root.parent) == ("jit_call", None)
     assert root.attrs == {"prims": 5, "m": out.m_prime, "L": len(cts[0].qs), "graph": False}
     assert (eager.name, eager.parent, eager.call) == ("jit.eager", root.index, root.index)
