@@ -72,6 +72,8 @@ def library() -> ctypes.CDLL:
     lib.tensor_intt.restype = I
     lib.digit_relin.argtypes = [P] * 11 + [I] * 4 + [P]
     lib.digit_relin.restype = I
+    lib.digit_relin_tenants.argtypes = [P] * 12 + [I] * 4 + [P]
+    lib.digit_relin_tenants.restype = I
     lib.hybrid_digit_relin.argtypes = [P] * 10 + [I] * 7 + [P]
     lib.hybrid_digit_relin.restype = I
     for name in ("intt_grid", "ntt_grid"):

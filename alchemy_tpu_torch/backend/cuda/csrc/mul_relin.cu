@@ -20,6 +20,8 @@
 //   hints (B)   [L, L, n]       hint_b and hint_a, indexed [digit i, limb l];
 //                               raw values or (values, companions) pairs
 //   out (B)     [Bt, 2, L, n]   NTT domain
+//   hints (B over tenants) [T, L, L, n] Shoup values and companions of T
+//               tenants' hints; tenant [Bt] int32, each row's tenant
 //   x (4)       [Bt, L, n]      Garner digits of c2c per limb group,
 //                               group-major (natural order): garner_pack's
 //                               output
@@ -305,21 +307,20 @@ __device__ __forceinline__ void accumulate(const uint32_t* buf, const uint32_t* 
   }
 }
 
-// Kernel B. Two blocks per (output limb l, ciphertext b); the gadget digits
-// i loop inside: digit i = c2c[b, i] (a residue mod q_i) is reduced mod q_l,
-// transformed (block `part` runs the register-blocked passes of its half,
-// the cross-half stage fused into the load), and its products with hint
-// row (i, l) are added to the sums, which start from c0/c1 at digit 0. The
-// sums live in the output buffer, or with kSums in shared memory behind the
-// half until the last digit.
+// Kernel B's block. Two blocks per (output limb l, ciphertext b); the
+// gadget digits i loop inside: digit i = c2c[b, i] (a residue mod q_i) is
+// reduced mod q_l, transformed (block `part` runs the register-blocked
+// passes of its half, the cross-half stage fused into the load), and its
+// products with hint row (i, l) are added to the sums, which start from
+// c0/c1 at digit 0. The sums live in the output buffer, or with kSums in
+// shared memory behind the half until the last digit.
 template <bool kShoup, class S>
-__global__ void __launch_bounds__(S::kThreads, S::kBlocks)
-digit_relin_kernel(const uint32_t* __restrict__ c2c, const uint32_t* c0,
-                   const uint32_t* c1, const uint32_t* __restrict__ hb,
-                   const uint32_t* __restrict__ hbs, const uint32_t* __restrict__ ha,
-                   const uint32_t* __restrict__ has, uint32_t* out,
-                   const uint32_t* __restrict__ limbs, const uint32_t* __restrict__ fwd_tw,
-                   const uint32_t* __restrict__ slot_own, int L, int log_n) {
+__device__ __forceinline__ void digit_relin_block(
+    const uint32_t* __restrict__ c2c, const uint32_t* c0, const uint32_t* c1,
+    const uint32_t* __restrict__ hb, const uint32_t* __restrict__ hbs,
+    const uint32_t* __restrict__ ha, const uint32_t* __restrict__ has, uint32_t* out,
+    const uint32_t* __restrict__ limbs, const uint32_t* __restrict__ fwd_tw,
+    const uint32_t* __restrict__ slot_own, int L, int log_n) {
   extern __shared__ uint32_t buf[];
   const int n = 1 << log_n, half = n >> 1;
   const int l = blockIdx.x >> 1, part = blockIdx.x & 1;
@@ -354,6 +355,42 @@ digit_relin_kernel(const uint32_t* __restrict__ c2c, const uint32_t* c0,
     }
     __syncthreads();  // buf is rewritten by the next digit
   }
+}
+
+// Kernel B: one key's hints [L, L, n] for every ciphertext.
+template <bool kShoup, class S>
+__global__ void __launch_bounds__(S::kThreads, S::kBlocks)
+digit_relin_kernel(const uint32_t* __restrict__ c2c, const uint32_t* c0,
+                   const uint32_t* c1, const uint32_t* __restrict__ hb,
+                   const uint32_t* __restrict__ hbs, const uint32_t* __restrict__ ha,
+                   const uint32_t* __restrict__ has, uint32_t* out,
+                   const uint32_t* __restrict__ limbs, const uint32_t* __restrict__ fwd_tw,
+                   const uint32_t* __restrict__ slot_own, int L, int log_n) {
+  digit_relin_block<kShoup, S>(c2c, c0, c1, hb, hbs, ha, has, out, limbs, fwd_tw, slot_own, L,
+                               log_n);
+}
+
+// Kernel B over many keys: the Shoup hint tables [T, L, L, n] of T tenants,
+// and ciphertext b relinearized under tenant[b]'s hints; a tenant outside
+// [0, T) traps, which the host sees as a CUDA error at its next synchronize.
+// The rows of one tenant read the same hint rows, shared through L2 as in
+// digit_relin_kernel; each further tenant of a launch adds its L x L hint
+// rows to the bytes read.
+template <class S>
+__global__ void __launch_bounds__(S::kThreads, S::kBlocks)
+digit_relin_tenants_kernel(const uint32_t* __restrict__ c2c, const uint32_t* c0,
+                           const uint32_t* c1, const uint32_t* __restrict__ hb,
+                           const uint32_t* __restrict__ hbs, const uint32_t* __restrict__ ha,
+                           const uint32_t* __restrict__ has, uint32_t* out,
+                           const uint32_t* __restrict__ limbs,
+                           const uint32_t* __restrict__ fwd_tw,
+                           const uint32_t* __restrict__ slot_own,
+                           const int32_t* __restrict__ tenant, int T, int L, int log_n) {
+  const int32_t t = __ldg(tenant + blockIdx.y);
+  if (static_cast<uint32_t>(t) >= static_cast<uint32_t>(T)) __trap();
+  const size_t at = static_cast<size_t>(t) * L * L << log_n;
+  digit_relin_block<true, S>(c2c, c0, c1, hb + at, hbs + at, ha + at, has + at, out, limbs,
+                             fwd_tw, slot_own, L, log_n);
 }
 
 // Kernel 4. Two blocks per (extended limb t, ciphertext b); the dnum digit
@@ -494,6 +531,27 @@ int digit_relin(const void* c2c, const void* c0, const void* c1, const void* hb,
       static_cast<const uint32_t*>(has), static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(fwd_tw),
       static_cast<const uint32_t*>(slot_own), L, log_n);
+}
+
+// Kernel B over T tenants' Shoup hint tables [T, L, L, n], ciphertext b
+// under tenant[b]'s ([bt] int32, each in [0, T): the kernel traps on any
+// other). Returns a cudaError_t.
+int digit_relin_tenants(const void* c2c, const void* c0, const void* c1, const void* hb,
+                        const void* hbs, const void* ha, const void* has, void* out,
+                        const void* limbs, const void* fwd_tw, const void* slot_own,
+                        const void* tenant, int T, int bt, int L, int log_n, void* stream) {
+  const bool small = log_n <= 15;
+  return zq::launch_blocks(
+      small ? digit_relin_tenants_kernel<BSmall> : digit_relin_tenants_kernel<BLarge>,
+      dim3(2 * L, bt), small ? BSmall::kThreads : BLarge::kThreads,
+      small ? shared_words<BSmall>(log_n) : shared_words<BLarge>(log_n), 0, stream,
+      static_cast<const uint32_t*>(c2c), static_cast<const uint32_t*>(c0),
+      static_cast<const uint32_t*>(c1), static_cast<const uint32_t*>(hb),
+      static_cast<const uint32_t*>(hbs), static_cast<const uint32_t*>(ha),
+      static_cast<const uint32_t*>(has), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(fwd_tw),
+      static_cast<const uint32_t*>(slot_own), static_cast<const int32_t*>(tenant), T, L,
+      log_n);
 }
 
 // Kernel 4; hbs and has are ignored unless shoup != 0. Returns a cudaError_t.

@@ -42,10 +42,11 @@ GRID_NAMES = {"pallas": ("ntt_grid", "intt_grid"), "mxu": ("ntt2_grid", "intt2_g
 #: the general path's mod-q kernels (`modq.py`), whose C entry points and
 #: CUDA functions share their names
 MODQ_NAMES = ("gp_split16", "gp_recombine", "gp_binop", "gp_scale_pad", "gp_rescale_step")
-#: the C entry point of each kernel: A, B, 4 and `garner_pack` (`mul_relin.py`),
-#: 7 and the standalone transforms (`rescale.py`), the mod-q kernels
-ENTRIES = {**{k: k for k in ("tensor_intt", "digit_relin", "hybrid_digit_relin",
-                             "garner_pack", "rescale_fwd", *MODQ_NAMES)},
+#: the C entry point of each kernel: A, B (one key, or many tenants' keys), 4
+#: and `garner_pack` (`mul_relin.py`), 7 and the standalone transforms
+#: (`rescale.py`), the mod-q kernels
+ENTRIES = {**{k: k for k in ("tensor_intt", "digit_relin", "digit_relin_tenants",
+                             "hybrid_digit_relin", "garner_pack", "rescale_fwd", *MODQ_NAMES)},
            **{name: entry for names in GRID_NAMES.values()
               for name, entry in zip(names, ("ntt_grid", "intt_grid"))}}
 #: launches of each kernel since the last `reset_launches()`
@@ -53,6 +54,7 @@ LAUNCHES = dict.fromkeys(ENTRIES, 0)
 #: launches of each kernel by shape since the last `reset_launches()`, keyed
 #: (name, *key, n) with the key each wrapper gives `run`:
 #: ("tensor_intt", Bt, L, n), ("digit_relin", Bt, L, n),
+#: ("digit_relin_tenants", Bt, L, T, n),
 #: ("hybrid_digit_relin", Bt, L, T, dnum, n), ("garner_pack", Bt, L, alpha, n),
 #: (name, G, T, n) for the standalone transforms and ("rescale_fwd", G, L, K, n);
 #: the mod-q kernels, which take no ring size, (name, *key) (`modq.py`)

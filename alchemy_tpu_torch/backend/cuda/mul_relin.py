@@ -12,6 +12,10 @@ limb-major variant the TPU runs at 2^16 and for raw hints): for every
 output limb l, the forward NTT of every gadget digit i (the residue c2c[i]
 mod q_i, reduced mod q_l) and out0 = c0 + Σ_i d_i·hb[i, l],
 out1 = c1 + Σ_i d_i·ha[i, l], with raw hints or Shoup hint pairs.
+`digit_relin(..., tenant=)` runs kernel B over many tenants' keys
+(`digit_relin_tenants`): Shoup hint tables [T, L, L, n] and a tenant index a
+ciphertext, each ciphertext relinearized under its own tenant's hints
+(`she/tenants.py`).
 
 Kernel 4, `hybrid_digit_stage` (replaces `mul_relin_pallas.py:807
 _hybrid_digit_relin_kernel`, wrapper `hybrid_digit_stage_pallas` :932): for
@@ -85,21 +89,27 @@ def tensor_intt_plain(n: int, qs: tuple[int, ...], ct_a: torch.Tensor,
 
 
 def digit_relin_plain(n: int, qs: tuple[int, ...], c0, c1, c2c, hint_b, hint_a,
-                      order: str = "pallas"):
+                      order: str = "pallas", tenant=None):
     """Plain kernel B: → [Bt, 2, L, n] int32. Hints are raw [L, L, n] or
-    (values, companions) Shoup pairs."""
+    (values, companions) Shoup pairs; [Bt, L, L, n] gives each ciphertext
+    hints of its own, and with `tenant` ([Bt] int32) they are tables
+    [T, L, L, n] from which each ciphertext takes its tenant's."""
+    if tenant is not None:
+        rows = tenant.long()
+        hint_b, hint_a = (tuple(h[rows] for h in pair) for pair in (hint_b, hint_a))
     q = qcol(qs, c2c.device)
     dig = launch.plain_transforms(order)[2](widen(c2c), n, qs)          # [Bt, digit, limb, n]
     out0, out1 = widen(c0), widen(c1)
     shoup = isinstance(hint_b, (tuple, list))
     for i in range(len(qs)):
         d = dig[:, i]
+        row = lambda h: widen(h[..., i, :, :])     # noqa: E731  (digit i's hint rows)
         if shoup:
-            pb = mulmod_shoup(d, widen(hint_b[0][i]), widen(hint_b[1][i]), q)
-            pa = mulmod_shoup(d, widen(hint_a[0][i]), widen(hint_a[1][i]), q)
+            pb = mulmod_shoup(d, row(hint_b[0]), row(hint_b[1]), q)
+            pa = mulmod_shoup(d, row(hint_a[0]), row(hint_a[1]), q)
         else:
-            pb = mulmod(d, widen(hint_b[i]), qs)
-            pa = mulmod(d, widen(hint_a[i]), qs)
+            pb = mulmod(d, row(hint_b), qs)
+            pa = mulmod(d, row(hint_a), qs)
         out0 = _add_mod(out0, pb, q)
         out1 = _add_mod(out1, pa, q)
     return narrow(torch.stack([out0, out1], dim=1))
@@ -201,23 +211,37 @@ def _hint_list(hint_b, hint_a, shape: tuple, device: torch.device) -> tuple[bool
 
 
 def digit_relin(n: int, qs: tuple[int, ...], c0: torch.Tensor, c1: torch.Tensor,
-                c2c: torch.Tensor, hint_b, hint_a, order: str = "pallas") -> torch.Tensor:
+                c2c: torch.Tensor, hint_b, hint_a, order: str = "pallas",
+                tenant: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel B: kernel A's (c0, c1, c2c) and the relinearization hints
-    (raw [L, L, n] or Shoup pairs) → [Bt, 2, L, n], slot `order`."""
-    with launch.span("digit_relin"):
+    (raw [L, L, n] or Shoup pairs) → [Bt, 2, L, n], slot `order`. With
+    `tenant` ([Bt] int32 on the device), kernel B's tenant-indexed form
+    `digit_relin_tenants`: the hints are T tenants' Shoup tables, each
+    [T, L, L, n], and ciphertext b is relinearized under tenant[b]'s. The
+    card reads no index back: one outside [0, T) stops the kernel with a
+    CUDA error (`she.tenants.TenantKeys.batch` refuses it on the host)."""
+    name = "digit_relin" if tenant is None else "digit_relin_tenants"
+    with launch.span(name):
         qs = tuple(qs)
         Bt, L, dev = c2c.shape[0], len(qs), c2c.device
-        for name, t in (("c0", c0), ("c1", c1), ("c2c", c2c)):
-            launch.check(name, t, (Bt, L, n), dev)
-        shoup, hints = _hint_list(hint_b, hint_a, (L, L, n), dev)
+        for arg, t in (("c0", c0), ("c1", c1), ("c2c", c2c)):
+            launch.check(arg, t, (Bt, L, n), dev)
+        if tenant is not None and not isinstance(hint_b, (tuple, list)):
+            raise ValueError("digit_relin: a tenant index wants Shoup hint tables "
+                             "(values, companions)")
+        lead = () if tenant is None else (hint_b[0].shape[0],)       # (T,)
+        shoup, hints = _hint_list(hint_b, hint_a, (*lead, L, L, n), dev)
+        if tenant is not None:
+            launch.check("tenant", tenant, (Bt,), dev)
         if not launch.on_card(n, dev):
-            return digit_relin_plain(n, qs, c0, c1, c2c, hint_b, hint_a, order)
+            return digit_relin_plain(n, qs, c0, c1, c2c, hint_b, hint_a, order, tenant)
         launch.aligned(c0, c1, *hints)
         t = launch.device_tables(n, qs, order, str(dev))
         out = torch.empty((Bt, 2, L, n), dtype=torch.int32, device=dev)
-        launch.run("digit_relin", n, dev, (Bt, L), c2c.data_ptr(), c0.data_ptr(), c1.data_ptr(),
+        which = (int(shoup),) if tenant is None else (tenant.data_ptr(), *lead)
+        launch.run(name, n, dev, (Bt, L, *lead), c2c.data_ptr(), c0.data_ptr(), c1.data_ptr(),
                    *map(launch.ptr, hints), out.data_ptr(), t["limbs"].data_ptr(),
-                   t["fwd"].data_ptr(), t["slot_own"].data_ptr(), int(shoup), Bt, L)
+                   t["fwd"].data_ptr(), t["slot_own"].data_ptr(), *which, Bt, L)
         return out
 
 

@@ -46,6 +46,7 @@ from alchemy_tpu_torch.backend.modarith import (
 )
 from alchemy_tpu_torch.nt.primes import find_ntt_prime
 from alchemy_tpu_torch.she.keys import gaussian_coeffs, uniform_residues
+from alchemy_tpu_torch.she.tenants import TenantBatch
 from alchemy_tpu_torch.utils.profiling import span
 
 #: the NTT slot order of `FastParams`, as in the JAX package (fast.py:35)
@@ -244,23 +245,37 @@ def kernel_hint(h, shape: tuple):
 
 
 def mul_relin(p: FastParams, ct_a: torch.Tensor, ct_b: torch.Tensor,
-              hint_b, hint_a) -> torch.Tensor:
+              hint_b, hint_a=None) -> torch.Tensor:
     """BGV multiply + relinearize, [..., 2, L, n] × [..., 2, L, n] →
     [..., 2, L, n] (fast.py:310): kernel A then kernel B, in the slot order
     of p.impl. Hints are raw [L, L, n] or Shoup pairs from
-    relin_hint(shoup=True), in any layout (`kernel_hint`). Traced as the
-    root span `mul_relin` (attributes batch, L, n) over kernel A's and B's
-    launch spans (`utils.profiling`)."""
+    relin_hint(shoup=True), in any layout (`kernel_hint`); or, with hint_a
+    None, hint_b is a `she.tenants.TenantBatch` and each row (of the rows
+    the leading dims flatten to) is relinearized under its own tenant's
+    hints (kernel B's tenant-indexed form). Traced as the root span
+    `mul_relin` (attributes batch, L, n, and with a tenant batch `tenants`,
+    its distinct tenants) over kernel A's and B's launch spans
+    (`utils.profiling`)."""
     with span("mul_relin") as root:
+        tenants = hint_a is None
+        if tenants and (not isinstance(hint_b, TenantBatch)
+                        or (hint_b.keys.n, hint_b.keys.qs) != (p.n, tuple(p.qs))):
+            raise ValueError("mul_relin: want hint_b and hint_a, or a TenantBatch of keys "
+                             f"for n={p.n} and qs={p.qs}")
         lead = ct_a.shape[:-3]
         L = len(p.qs)
         shape = (-1, 2, L, p.n)
         a, b = ct_a.reshape(shape).contiguous(), ct_b.reshape(shape).contiguous()
         if root is not None:
             root.attrs.update(batch=a.shape[0], L=L, n=p.n)
+            if tenants:
+                root.attrs["tenants"] = hint_b.tenants
         c0, c1, c2c = tensor_intt(p.n, p.qs, a, b, p.order)
-        hint_b, hint_a = (kernel_hint(h, (L, L, p.n)) for h in (hint_b, hint_a))
-        out = digit_relin(p.n, p.qs, c0, c1, c2c, hint_b, hint_a, p.order)
+        if tenants:
+            hints, index = hint_b.keys.hints, hint_b.index
+        else:
+            hints, index = [kernel_hint(h, (L, L, p.n)) for h in (hint_b, hint_a)], None
+        out = digit_relin(p.n, p.qs, c0, c1, c2c, *hints, p.order, index)
         return out.reshape(*lead, *out.shape[1:])
 
 

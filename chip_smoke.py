@@ -3,7 +3,8 @@
 
 Builds the CUDA kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card: A (tensor_intt) and B
-(digit_relin, Shoup and raw hints) at n = 2^15 in both slot orders, 4
+(digit_relin, Shoup and raw hints) at n = 2^15 in both slot orders, B's
+tenant form (digit_relin_tenants, over TENANTS tenants' hints) at n = 2^15, 4
 (hybrid_digit_relin, raw and Shoup), 5 (intt_grid), 6 (ntt_grid) and 7
 (rescale_fwd) at n = 2^15; 8 (ntt2_grid)
 and 9 (intt2_grid), the standalone transforms of the 2-factor slot order
@@ -176,6 +177,8 @@ SEED = 0
 HEADLINE = (15, 8, 16)            # log2 n, limbs, ciphertexts per batch
 SMALL = (14, 4, 4)
 N2E16 = (16, 8, 16)               # bench.py's ring sweep at n = 2^16
+# kernel B's tenant form at HEADLINE: tenants whose hints the key store holds
+TENANTS = 12
 SMALL_N2E16 = (16, 3, 2)
 DEEP = (15, 16, 16)               # hybrid: dnum = 4, K = 4, T = 20
 SMALL_HYBRID = (14, 5, 2)         # uneven digit groups (3, 2), K = 3
@@ -407,6 +410,62 @@ def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool, order: str = "pa
                                       plain_ms=device_ms(lambda: mr.digit_relin_plain(*r_args), 3))
     print(f"[kernels] n=2^{log_n} L={L} Bt={Bt} order={order}: A and B (Shoup and raw hints) "
           "bit-identical to plain " + fmt(res), flush=True)
+    return res
+
+
+def tenant_kernel_phase(rng) -> dict:
+    """Kernel B's tenant form (`digit_relin(..., tenant=)`, the launch
+    `digit_relin_tenants`) at HEADLINE over TENANTS tenants' random Shoup
+    hints in a `she.tenants.TenantKeys`, each row's tenant drawn with
+    repeats: the kernel against its plain form, exact; then the path
+    (`fast.mul_relin` with the batch), its launches counted from 0, equal to
+    A then the kernel. Times the kernel, its plain form, and the kernel with
+    every row under the first row's tenant (one tenant's hint bytes, as
+    kernel B reads them); the bytes and multiplies of its bound are
+    `benchmark/roofline_tenants.py`'s at the batch's distinct tenants."""
+    import torch
+
+    from alchemy_tpu_torch.backend.cuda import mul_relin as mr
+    from alchemy_tpu_torch.she import fast, tenants
+    from benchmark.roofline_tenants import digit_relin_tenants_cost
+
+    log_n, L, Bt = HEADLINE
+    p = fast.FastParams.make(log_n, L)
+    n, qs, order = p.n, p.qs, p.order
+    keys = tenants.TenantKeys(p, TENANTS)
+    for t in range(TENANTS):
+        keys.add(t, tuple(fast.shoup_precompute(random_residues(rng, qs, (L, L, n)).cuda(), qs)
+                          for _ in range(2)))
+    ids = [int(t) for t in rng.integers(0, TENANTS, Bt)]
+    batch, one = keys.batch(ids), keys.batch([ids[0]] * Bt)
+    ct_a = random_residues(rng, qs, (Bt, 2, L, n)).cuda()
+    ct_b = random_residues(rng, qs, (Bt, 2, L, n)).cuda()
+    ka = mr.tensor_intt(n, qs, ct_a, ct_b, order)
+    args = (n, qs, *ka, *keys.hints, order, batch.index)
+    kb = mr.digit_relin(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(kb, mr.digit_relin_plain(*args))
+    check(err == 0, f"kernel B's tenant form != plain at n=2^{log_n} L={L} Bt={Bt} over "
+                    f"{batch.tenants} tenants (max abs err {err})")
+    reset_launches()
+    out = fast.mul_relin(p, ct_a, ct_b, batch)
+    torch.cuda.synchronize()
+    by_shape = shape_launches()
+    launched = by_shape.get(("digit_relin_tenants", Bt, L, TENANTS, n), 0)
+    check(launched == 1 and sum(by_shape.values()) == 2 and torch.equal(out, kb),
+          f"[kernels] fast.mul_relin over tenants: launches {by_shape}, or its rows differ "
+          "from A then B's tenant form")
+    nbytes, muls = digit_relin_tenants_cost(Bt, L, n, True, batch.tenants)
+    one_args = (*args[:-1], one.index)
+    timed = {"ms": device_ms(lambda: mr.digit_relin(*args), 20),
+             "plain_ms": device_ms(lambda: mr.digit_relin_plain(*args), 3),
+             "one_tenant_ms": device_ms(lambda: mr.digit_relin(*one_args), 20)}
+    res = {"digit_relin_tenants": {"err": err, "bytes": nbytes, "muls": muls, **timed},
+           "launches": launched, "tenants": batch.tenants, "order": order}
+    print(f"[kernels] n=2^{log_n} L={L} Bt={Bt} order={order}: B's tenant form over "
+          f"{TENANTS} tenants' hints ({keys.nbytes} B), rows of {batch.tenants} tenants "
+          f"{ids}, bit-identical to plain; fast.mul_relin launched it {launched} time(s) "
+          + fmt({k: res[k] for k in ("digit_relin_tenants",)}), flush=True)
     return res
 
 
@@ -2408,6 +2467,7 @@ def main() -> int:
     deep_k = hybrid_kernel_phase(*DEEP, rng, timed=True)
     small_k = hybrid_kernel_phase(*SMALL_HYBRID, rng, timed=False)
     big = kernel_phase(*N2E16, rng, timed=True)
+    ten = tenant_kernel_phase(rng)
     # 5/6/8/9 at the paths' shapes: checked and timed by grid_report
     big_small = {**kernel_phase(*SMALL_N2E16, rng, timed=False),
                  **grid_kernel_phase(*SMALL_N2E16, rng)}
@@ -2519,6 +2579,10 @@ def main() -> int:
               head["digit_relin"], head, small),
         entry("digit_relin", n15, mr_tpu + "439", MUL_RELIN_CU, mx["launches"]["digit_relin"],
               head_mxu["digit_relin"], head_mxu, order="mxu"),
+        {**entry("digit_relin_tenants", n15, mr_tpu + "439", MUL_RELIN_CU, ten["launches"],
+                 ten["digit_relin_tenants"], ten, order=ten["order"]),
+         "shape": [HEADLINE[2], HEADLINE[1], TENANTS, n15], "tenants": ten["tenants"],
+         "one_tenant_ms": ten["digit_relin_tenants"]["one_tenant_ms"]},
         entry("hybrid_digit_relin", n15, mr_tpu + "807", MUL_RELIN_CU,
               hy["launches"]["hybrid_digit_relin"], deep_k["hybrid_digit_relin"], deep_k, small_k,
               mxu_small),

@@ -661,6 +661,8 @@ def test_wrapper_gates_by_ring_size(monkeypatch, log_n):
         "A_mxu": lambda: mr.tensor_intt(n, qs, z(1, 2, 2, n), z(1, 2, 2, n), order="mxu"),
         "B": lambda: mr.digit_relin(n, qs, c, c, c, h, h),
         "B_shoup": lambda: mr.digit_relin(n, qs, c, c, c, (h, h), (h, h)),
+        "B_tenants": lambda: mr.digit_relin(n, qs, c, c, c, (z(3, 2, 2, n),) * 2,
+                                            (z(3, 2, 2, n),) * 2, tenant=z(1)),
         "5": lambda: rk.grid_transforms("pallas")[1](n, qs, x),
         "6": lambda: rk.grid_transforms("pallas")[0](n, qs, x),
         "8": lambda: rk.grid_transforms("mxu")[0](n, qs, x),

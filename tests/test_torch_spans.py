@@ -193,7 +193,7 @@ def test_a_block_that_raises_is_flagged():
 def test_every_wrapper_opens_a_launch_span_its_counter_names():
     """Each kernel wrapper, run once on tiny CPU tensors (its plain
     version), opens one span `launch.<name>`: its names are the keys of the
-    one `launch.LAUNCHES`, all 16 of them, and each span's `entry` is the C
+    one `launch.LAUNCHES`, all 17 of them, and each span's `entry` is the C
     entry point its kernel's counter names. The CPU counts no launch."""
     chain = fast.FastParams.make(6, 4).qs
     n, qs, groups = 1 << 6, chain[:3], ((chain[0], chain[1]), (chain[2],))
@@ -202,6 +202,8 @@ def test_every_wrapper_opens_a_launch_span_its_counter_names():
     with profiling.tracing():
         c0, c1, c2c = mr.tensor_intt(n, qs, z(1, 2, 3, n), z(1, 2, 3, n))
         mr.digit_relin(n, qs, c0, c1, c2c, z(3, 3, n), z(3, 3, n))
+        mr.digit_relin(n, qs, c0, c1, c2c, (z(2, 3, 3, n),) * 2, (z(2, 3, 3, n),) * 2,
+                       tenant=z(1))
         x = mr.garner_pack(n, groups, c2c)
         mr.hybrid_digit_stage(n, chain, groups, x, (z(2, 4, n),) * 2, (z(2, 4, n),) * 2)
         for order in launch.ORDERS:
