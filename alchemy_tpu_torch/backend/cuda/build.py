@@ -74,6 +74,8 @@ def library() -> ctypes.CDLL:
     lib.digit_relin.restype = I
     lib.digit_relin_tenants.argtypes = [P] * 12 + [I] * 4 + [P]
     lib.digit_relin_tenants.restype = I
+    lib.digit_relin_form.argtypes = [I] * 4 + [P, P]
+    lib.digit_relin_form.restype = I
     lib.hybrid_digit_relin.argtypes = [P] * 10 + [I] * 7 + [P]
     lib.hybrid_digit_relin.restype = I
     for name in ("intt_grid", "ntt_grid"):

@@ -36,8 +36,8 @@
 // order; host tables map each radix-2 index to its slot (any permutation:
 // the kernels are the same for both slot orders). Every kernel splits each
 // limb over two blocks (a limb of 2^16 words, 256 KB, exceeds the 227 KB of
-// shared memory a block can have), kernel A on small grids over four; block
-// `part` holds its part and owns the slots whose radix-2 index lies there.
+// shared memory a block can have), kernel A on small grids over four and B
+// in its quarter form (with_b_shape); block `part` holds its part and owns the slots whose radix-2 index lies there.
 // Only the first stage of a forward NTT (the first two for quarters) crosses
 // the parts, and the last of an inverse one: A finishes its inverse NTT with
 // it across a thread block cluster (distributed shared memory); B and 4
@@ -51,25 +51,37 @@
 // stage, a limb over four blocks where the grid fits one wave of the card
 // (zq::launch_grid).
 //
-// Kernels B and 4, per (limb, ciphertext) pair of blocks, run a serial loop
-// of digit forward NTTs, each followed by two hint products added into
-// running sums. What bounds them on the H100, and what their design does:
+// Kernels B and 4, per (limb, ciphertext), run a loop of digit forward NTTs,
+// each followed by two hint products added into running sums. What bounds
+// them on the H100, and what their design does:
 // - The NTT chain. As a radix-2 chain of log2(n) barrier-separated stages
 //   in shared memory it holds B to 5-9% of its multiply bound, so they run
 //   the register-blocked passes of zq::ntt_forward_passes: each thread
 //   holds 8 or 16 words in registers and runs 3 or 4 stages on them between
 //   barriers, reading each stage's twiddles 16 bytes at a time, so a digit
 //   takes 4-5 barriers, not 14-15. The blocks are built for 56 or 64
-//   registers a thread (Shape), not 32.
+//   registers a thread (Shape), not 32. B's transforms, still 74% of it at
+//   n = 2^15 and waiting on latency more than on issue, run lazy
+//   butterflies for limbs below 2^30 (zq::pass_stage: words in [0, 4q),
+//   fewer reductions; 0.375 -> 0.340 ms at [16, 8, 2^15]).
 // - The hint loop. It reads each hint row once per ciphertext, and the
 //   running sums at every digit; walked by radix-2 index, a warp's accesses
 //   would touch 16-32 sectors. Each block walks its own slots in slot order
-//   instead (kernel_tables' slot_own): a thread takes four consecutive
-//   slots, 16 bytes of every row at a time, and the values come from the
-//   shared half by a gather. The slot table is read one step ahead, since
-//   the loop waits on memory latency more than on bytes. B keeps its sums in
-//   shared memory until the last digit at n <= 2^15 (one block an SM,
-//   194 KB of shared memory).
+//   instead (kernel_tables' slot_own, slot_own4): a thread takes four
+//   consecutive slots, 16 bytes of every row at a time, and the values come
+//   from the shared part by a gather. B keeps its sums in shared memory
+//   until the last digit at n <= 2^15. With one key's hints warm in L2 the
+//   loop takes 28% of B, with the tenant form's cold hint rows 39%.
+// - Overlapping the two. A block of B that transforms, then multiplies,
+//   leaves its SM to one of them at a time. B's quarter form runs a limb
+//   over four blocks of 512 threads, two an SM, so that one block's hint
+//   loop waits while the other transforms. Its first pass reads the digit
+//   row four times and computes five products a word, and the two blocks
+//   mostly run in step, so with one key's hints warm in L2 it loses to the
+//   halves on a full card. It wins for the tenant form's cold hint rows,
+//   and where a limb's four blocks fit one wave, which a single product's
+//   halves would leave mostly idle. B takes its form by its grid
+//   (with_b_shape); PERF.md has the times.
 // - Kernel 4's base extension (alpha Shoup products a coefficient and group)
 //   is the load of its first pass. At n <= 2^15 the two blocks of a limb are
 //   a cluster and each extends only its own half (zq::ntt_forward_pair); at
@@ -80,6 +92,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "zq.cuh"
 
@@ -168,41 +181,60 @@ tensor_intt_kernel(const uint32_t* __restrict__ ct_a, const uint32_t* __restrict
 }
 
 // Launch shape of kernels B and 4: threads a block and the blocks an SM it
-// is built for (shared memory allowing: n/2 + n/64 words a block, 66 KB at
-// n = 2^15 and 132 KB at 2^16, and n more words with kSums), so registers
-// a thread; kMaxRL, the stages of a pass (R = 2^kMaxRL words a thread).
-// kSums: the running sums stay in shared memory behind the half until the
-// last digit. kPair (kernel 4): the two blocks of a limb are a cluster and
-// each computes the base extension of its own half only
-// (zq::ntt_forward_pair).
-template <int kThreads_, int kBlocks_, int kMaxRL_, bool kSums_ = false, bool kPair_ = false>
+// is built for (shared memory allowing: a part of n/2^kSplit words padded,
+// 66 KB for a half at n = 2^15, 132 KB at 2^16, 33 KB for a quarter at
+// 2^15, and two parts' words more with kSums), so registers a thread;
+// kMaxRL, the stages of a pass (R = 2^kMaxRL words a thread). kSums: the
+// running sums stay in shared memory behind the part until the last digit.
+// kPair (kernel 4): the two blocks of a limb are a cluster and each computes
+// the base extension of its own half only (zq::ntt_forward_pair). kSplit: a
+// limb over 2^kSplit blocks, halves (1) or quarters (2, kernel B), whose
+// first pass fuses the stages that cross the parts into its load.
+// kLazy (kernel B): the transforms' lazy butterflies (zq::pass_stage) for
+// limbs below 2^30.
+template <int kThreads_, int kBlocks_, int kMaxRL_, bool kSums_ = false, bool kPair_ = false,
+          int kSplit_ = 1, bool kLazy_ = false>
 struct Shape {
   static constexpr int kThreads = kThreads_, kBlocks = kBlocks_, kMaxRL = kMaxRL_;
-  static constexpr bool kSums = kSums_, kPair = kPair_;
+  static constexpr bool kSums = kSums_, kPair = kPair_, kLazy = kLazy_;
+  static constexpr int kSplit = kSplit_;
+  static_assert(!kPair || kSplit == 1, "the pair form splits a limb in two");
   // stages of kernel 4's first pass, whose load is the base extension: 2 in
   // the pair form (its values wait for a cluster barrier), else 3
   static constexpr int kExtFirstRL = kPair ? 2 : 3;
 };
 
 // Each the fastest without spills of the shapes measured on the H100
-// (PERF.md): B 1024 x 1 (64 registers; passes of 4 stages spilled there);
-// 4 384 x 3 (56 registers), whose 640 blocks at n = 2^15, L = 16 fill 396
-// slots in 1.6 waves, and 1024 x 1 at 2^16.
-using BSmall = Shape<1024, 1, 3, true>;           // B, n <= 2^15
-using BLarge = Shape<1024, 1, 3>;                 // B, n = 2^16
-using ExtSmall = Shape<384, 3, 3, false, true>;   // 4, n <= 2^15
-using ExtLarge = Shape<1024, 1, 4>;               // 4, n = 2^16
+// (PERF.md; B at n <= 2^15 by CUDA events at [16, 8, 2^15] and
+// [1, 8, 2^15]). B at n <= 2^15, chosen by with_b_shape: halves, 1024 x 1,
+// for one key's grids of more than a wave of quarters (0.340 ms at
+// [16, 8]; quarters 0.362 there: their load reads the digit row four times
+// and takes five products a word); quarters 512 x 2 for one key's smaller
+// grids (0.122 against 0.160 ms at [1, 8]) and for the tenant form, whose
+// hint rows come cold from device memory when a launch gathers several
+// tenants, and one block's waits overlap the other's transforms (0.392
+// against 0.411 ms in halves at [16, 8] over 64 tenants; with one tenant a
+// launch, as for one key, the halves would win). 64 registers each;
+// passes of 4 stages spilled. Kernel 4: 384 x 3 (56 registers), whose 640
+// blocks at n = 2^15, L = 16 fill 396 slots in 1.6 waves, and 1024 x 1 at
+// 2^16.
+using BSmall = Shape<1024, 1, 3, true, false, 1, true>;    // B, halves, n <= 2^15
+using BQuarter = Shape<512, 2, 3, true, false, 2, true>;   // B, quarters, 2^10 <= n <= 2^15
+using BLarge = Shape<1024, 1, 3>;                          // B, n = 2^16
+using ExtSmall = Shape<384, 3, 3, false, true>;            // 4, n <= 2^15
+using ExtLarge = Shape<1024, 1, 4>;                        // 4, n = 2^16
 
-// Word offset of the sums in shared memory (after the padded half, on a
-// 16-byte boundary), and the words of shared memory a block asks for.
-__host__ __device__ constexpr int sums_offset(int half) {
-  return (zq::padded_words(half) + 3) & ~3;
+// Word offset of the sums in shared memory (after the padded part of
+// `words`, on a 16-byte boundary), and the words of shared memory a block
+// asks for.
+__host__ __device__ constexpr int sums_offset(int words) {
+  return (zq::padded_words(words) + 3) & ~3;
 }
 
 template <class S>
 int shared_words(int log_n) {
-  const int half = 1 << (log_n - 1);
-  return S::kSums ? sums_offset(half) + 2 * half : zq::padded_words(half);
+  const int words = 1 << (log_n - S::kSplit);
+  return S::kSums ? sums_offset(words) + 2 * words : zq::padded_words(words);
 }
 
 // p += c[0..4) mod q.
@@ -231,31 +263,32 @@ __device__ __forceinline__ void products4(uint32_t (&p)[4], const uint32_t (&v)[
 
 // The hint products of one digit (B) or digit group (4) and their running
 // sums, for the slots the calling thread owns. Block `part`'s slots, in
-// slot order, are own[e] = s | x << 16 (e < n/2; x = slot_ct[s] - part*n/2,
-// the radix-2 index in its half: kernel_tables' slot_own). Thread t takes
-// the four elements e = 4*(t + c*blockDim.x) + 0..3, the same at every
-// digit, so the sums read back only what the thread wrote. Each half owns
-// every other row of the slot order (rows of n2 or B*r words: 128 or more
-// from n = 2^14), so with kVec four elements are four consecutive slots on
-// a 16-byte boundary, and a warp reads hints and writes sums 512 bytes at a
-// time; rows of fewer than 4 words (below n = 2^9 in the 2-factor order)
-// take word accesses (vector_quads). The NTT's values come from the padded
-// shared half (a gather: zq::pad keeps it free of bank conflicts). The sums
-// so far come from src0/src1 (device memory; null: none) or, with
-// from_sums, from sums (shared memory, [2][n/2] by element e); they go to
-// out0/out1, or to sums when out0 is null. kShoup: hints are (values,
-// companions) pairs, multiplied with mulmod_shoup; otherwise raw values
+// slot order, are own[e] = s | x << 16 (e < words, the n/2 of a half or
+// n/4 of a quarter; x = slot_ct[s] - part*words, the radix-2 index in its
+// part: kernel_tables' slot_own, slot_own4). Thread t takes the four
+// elements e = 4*(t + c*blockDim.x) + 0..3, the same at every digit, so
+// the sums read back only what the thread wrote.
+// Each part owns whole rows of the slot order (rows of n2 or B*r words: 128
+// or more from n = 2^14), so with kVec four elements are four consecutive
+// slots on a 16-byte boundary, and a warp reads hints and writes sums 512
+// bytes at a time; rows of fewer than 4 words (below n = 2^9 in the
+// 2-factor order) take word accesses (vector_quads). The NTT's values come
+// from the padded shared part (a gather: zq::pad keeps it free of bank
+// conflicts). The sums so far come from src0/src1 (device memory; null:
+// none) or, with from_sums, from sums (shared memory, [2][words] by element
+// e); they go to out0/out1, or to sums when out0 is null. kShoup: hints are
+// (values, companions) pairs, multiplied with mulmod_shoup; otherwise raw values
 // (hbs, has unused), multiplied with the Barrett mulmod. Device rows start
 // on 16-byte boundaries (the wrappers check it).
 template <bool kShoup, bool kVec>
 __device__ __forceinline__ void accumulate(const uint32_t* buf, const uint32_t* __restrict__ own,
-                                           int half, size_t h, const uint32_t* __restrict__ hb,
+                                           int words, size_t h, const uint32_t* __restrict__ hb,
                                            const uint32_t* __restrict__ hbs,
                                            const uint32_t* __restrict__ ha,
                                            const uint32_t* __restrict__ has, const uint32_t* src0,
                                            const uint32_t* src1, uint32_t* sums, bool from_sums,
                                            uint32_t* out0, uint32_t* out1, const zq::Limb& k) {
-  for (int e = 4 * threadIdx.x; e < half; e += 4 * blockDim.x) {
+  for (int e = 4 * threadIdx.x; e < words; e += 4 * blockDim.x) {
     if constexpr (kVec) {
       const uint4 o = __ldg(reinterpret_cast<const uint4*>(own + e));
       const uint32_t oo[4] = {o.x, o.y, o.z, o.w};
@@ -268,7 +301,7 @@ __device__ __forceinline__ void accumulate(const uint32_t* buf, const uint32_t* 
       // shared and device memory on separate paths: no generic accesses
       if (from_sums) {
         add4(p0, sums + e, k.q);
-        add4(p1, sums + half + e, k.q);
+        add4(p1, sums + words + e, k.q);
       } else if (src0 != nullptr) {
         add4(p0, src0 + s, k.q);
         add4(p1, src1 + s, k.q);
@@ -278,7 +311,7 @@ __device__ __forceinline__ void accumulate(const uint32_t* buf, const uint32_t* 
         store4(out1 + s, p1);
       } else {
         store4(sums + e, p0);
-        store4(sums + half + e, p1);
+        store4(sums + words + e, p1);
       }
     } else {
       for (int u = 0; u < 4; ++u) {
@@ -290,7 +323,7 @@ __device__ __forceinline__ void accumulate(const uint32_t* buf, const uint32_t* 
         uint32_t p1 = kShoup ? zq::mulmod_shoup(v, ha[at], has[at], k.q) : zq::mulmod(v, ha[at], k);
         if (from_sums) {
           p0 = zq::add_mod(sums[e + u], p0, k.q);
-          p1 = zq::add_mod(sums[half + e + u], p1, k.q);
+          p1 = zq::add_mod(sums[words + e + u], p1, k.q);
         } else if (src0 != nullptr) {
           p0 = zq::add_mod(src0[s], p0, k.q);
           p1 = zq::add_mod(src1[s], p1, k.q);
@@ -300,20 +333,23 @@ __device__ __forceinline__ void accumulate(const uint32_t* buf, const uint32_t* 
           out1[s] = p1;
         } else {
           sums[e + u] = p0;
-          sums[half + e + u] = p1;
+          sums[words + e + u] = p1;
         }
       }
     }
   }
 }
 
-// Kernel B's block. Two blocks per (output limb l, ciphertext b); the
-// gadget digits i loop inside: digit i = c2c[b, i] (a residue mod q_i) is
-// reduced mod q_l, transformed (block `part` runs the register-blocked
-// passes of its half, the cross-half stage fused into the load), and its
-// products with hint row (i, l) are added to the sums, which start from
-// c0/c1 at digit 0. The sums live in the output buffer, or with kSums in
-// shared memory behind the half until the last digit.
+// Kernel B's block. 2^kSplit blocks per (output limb l, ciphertext b), block
+// `part` with a half or a quarter of the limb; the gadget digits i loop
+// inside: digit i = c2c[b, i] (a residue mod q_i) is reduced mod q_l,
+// transformed (the register-blocked passes of the part, the stages that
+// cross the parts fused into the first pass's load; lazily, words in
+// [0, 4q_l), with S::kLazy and q_l < 2^30), and its products with hint row
+// (i, l) at the part's slots are added to the sums, which start from c0/c1
+// at digit 0. The sums live in the output buffer, or with kSums in shared
+// memory behind the part until the last digit. slot_own is the [2n] table
+// of launch_grid's kernels (slot_own, then slot_own4).
 template <bool kShoup, class S>
 __device__ __forceinline__ void digit_relin_block(
     const uint32_t* __restrict__ c2c, const uint32_t* c0, const uint32_t* c1,
@@ -322,8 +358,8 @@ __device__ __forceinline__ void digit_relin_block(
     const uint32_t* __restrict__ limbs, const uint32_t* __restrict__ fwd_tw,
     const uint32_t* __restrict__ slot_own, int L, int log_n) {
   extern __shared__ uint32_t buf[];
-  const int n = 1 << log_n, half = n >> 1;
-  const int l = blockIdx.x >> 1, part = blockIdx.x & 1;
+  const int n = 1 << log_n, words = n >> S::kSplit;
+  const int l = blockIdx.x >> S::kSplit, part = blockIdx.x & ((1 << S::kSplit) - 1);
   const size_t b = blockIdx.y;
   const zq::Limb k = zq::load_limb(limbs + kLimbWords * l);
   const size_t limb_off = static_cast<size_t>(l) * n;
@@ -333,27 +369,34 @@ __device__ __forceinline__ void digit_relin_block(
   uint32_t* out0 = out + b * 2 * L * n + limb_off;
   uint32_t* out1 = out0 + static_cast<size_t>(L) * n;
   const uint32_t* tw = fwd_tw + 2 * limb_off;
-  const uint32_t* own = slot_own + part * half;
-  uint32_t* sums = S::kSums ? buf + sums_offset(half) : nullptr;
+  const uint32_t* own = own_of<S::kSplit>(slot_own, part, n);
+  uint32_t* sums = S::kSums ? buf + sums_offset(words) : nullptr;
   const bool vec = vector_quads(own);
-
-  for (int i = 0; i < L; ++i) {
-    zq::ntt_forward_passes<S::kMaxRL, S::kMaxRL>(buf, digits + static_cast<size_t>(i) * n,
-                                                 log_n, part, tw, tw + n, k);
-    const bool last = !S::kSums || i == L - 1;
-    const size_t h = (static_cast<size_t>(i) * L + l) * n;
-    const uint32_t* src0 = i == 0 ? in0 : out0;
-    const uint32_t* src1 = i == 0 ? in1 : out1;
-    uint32_t* dst0 = last ? out0 : nullptr;
-    uint32_t* dst1 = last ? out1 : nullptr;
-    if (vec) {
-      accumulate<kShoup, true>(buf, own, half, h, hb, hbs, ha, has, src0, src1, sums,
-                               S::kSums && i > 0, dst0, dst1, k);
-    } else {
-      accumulate<kShoup, false>(buf, own, half, h, hb, hbs, ha, has, src0, src1, sums,
-                                S::kSums && i > 0, dst0, dst1, k);
+  auto digits_loop = [&](auto lazy) {
+    for (int i = 0; i < L; ++i) {
+      zq::ntt_forward_passes<S::kMaxRL, S::kMaxRL, zq::kFromLoad, S::kSplit,
+                             decltype(lazy)::value>(buf, digits + static_cast<size_t>(i) * n,
+                                                    log_n, part, tw, tw + n, k);
+      const bool last = !S::kSums || i == L - 1;
+      const size_t h = (static_cast<size_t>(i) * L + l) * n;
+      const uint32_t* src0 = i == 0 ? in0 : out0;
+      const uint32_t* src1 = i == 0 ? in1 : out1;
+      uint32_t* dst0 = last ? out0 : nullptr;
+      uint32_t* dst1 = last ? out1 : nullptr;
+      if (vec) {
+        accumulate<kShoup, true>(buf, own, words, h, hb, hbs, ha, has, src0, src1, sums,
+                                 S::kSums && i > 0, dst0, dst1, k);
+      } else {
+        accumulate<kShoup, false>(buf, own, words, h, hb, hbs, ha, has, src0, src1, sums,
+                                  S::kSums && i > 0, dst0, dst1, k);
+      }
+      __syncthreads();  // buf is rewritten by the next digit
     }
-    __syncthreads();  // buf is rewritten by the next digit
+  };
+  if (S::kLazy && k.q < (1u << 30)) {
+    digits_loop(std::integral_constant<bool, S::kLazy>());
+  } else {
+    digits_loop(std::false_type());
   }
 }
 
@@ -391,6 +434,33 @@ digit_relin_tenants_kernel(const uint32_t* __restrict__ c2c, const uint32_t* c0,
   const size_t at = static_cast<size_t>(t) * L * L << log_n;
   digit_relin_block<true, S>(c2c, c0, c1, hb + at, hbs + at, ha + at, has + at, out, limbs,
                              fwd_tw, slot_own, L, log_n);
+}
+
+// Kernel B's launch shape for bt ciphertexts of L limbs at n = 2^log_n, of
+// its tenant form with tenants: f(S()) for S = BLarge at 2^16; BSmall below
+// 2^10, where zq::launch_grid does not split a limb in quarters either;
+// BQuarter for the tenant form, taken to gather several tenants' hint rows
+// a launch, and for one key where a limb over four blocks fits one wave of
+// the card (4*L*bt <= SMs: a single product's 2L halves would leave most
+// SMs idle); else BSmall.
+template <typename F>
+int with_b_shape(bool tenants, int bt, int L, int log_n, F f) {
+  if (log_n > 15) return f(BLarge());
+  if (log_n >= 10 && (tenants || 4 * L * bt <= zq::sm_count())) return f(BQuarter());
+  return f(BSmall());
+}
+
+// digit_relin_form of one of kernel B's instantiations, launched in shape S.
+template <class S, typename Kernel>
+int b_form(Kernel kernel, int log_n, int* parts, int* blocks) {
+  *parts = 1 << S::kSplit;
+  const size_t smem = static_cast<size_t>(shared_words<S>(log_n)) * sizeof(uint32_t);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, S::kThreads, smem);
+  }
+  return static_cast<int>(e);
 }
 
 // Kernel 4. Two blocks per (extended limb t, ciphertext b); the dnum digit
@@ -512,46 +582,62 @@ int tensor_intt(const void* ct_a, const void* ct_b, void* c0, void* c1, void* c2
                          static_cast<const uint32_t*>(slot_own), L, log_n);
 }
 
-// Kernel B; hbs and has are ignored unless shoup != 0. Returns a cudaError_t.
+// Kernel B; hbs and has are ignored unless shoup != 0; slot_own is the [2n]
+// table of launch_grid's kernels. Returns a cudaError_t.
 int digit_relin(const void* c2c, const void* c0, const void* c1, const void* hb,
                 const void* hbs, const void* ha, const void* has, void* out,
                 const void* limbs, const void* fwd_tw, const void* slot_own, int shoup, int bt,
                 int L, int log_n, void* stream) {
-  const bool small = log_n <= 15;
-  const auto kernel = small ? (shoup ? digit_relin_kernel<true, BSmall>
-                                     : digit_relin_kernel<false, BSmall>)
-                            : (shoup ? digit_relin_kernel<true, BLarge>
-                                     : digit_relin_kernel<false, BLarge>);
-  return zq::launch_blocks(
-      kernel, dim3(2 * L, bt), small ? BSmall::kThreads : BLarge::kThreads,
-      small ? shared_words<BSmall>(log_n) : shared_words<BLarge>(log_n), 0, stream,
-      static_cast<const uint32_t*>(c2c), static_cast<const uint32_t*>(c0),
-      static_cast<const uint32_t*>(c1), static_cast<const uint32_t*>(hb),
-      static_cast<const uint32_t*>(hbs), static_cast<const uint32_t*>(ha),
-      static_cast<const uint32_t*>(has), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(fwd_tw),
-      static_cast<const uint32_t*>(slot_own), L, log_n);
+  return with_b_shape(false, bt, L, log_n, [&](auto s) {
+    using S = decltype(s);
+    return zq::launch_blocks(
+        shoup ? digit_relin_kernel<true, S> : digit_relin_kernel<false, S>,
+        dim3(L << S::kSplit, bt), S::kThreads, shared_words<S>(log_n), 0, stream,
+        static_cast<const uint32_t*>(c2c), static_cast<const uint32_t*>(c0),
+        static_cast<const uint32_t*>(c1), static_cast<const uint32_t*>(hb),
+        static_cast<const uint32_t*>(hbs), static_cast<const uint32_t*>(ha),
+        static_cast<const uint32_t*>(has), static_cast<uint32_t*>(out),
+        static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(fwd_tw),
+        static_cast<const uint32_t*>(slot_own), L, log_n);
+  });
 }
 
 // Kernel B over T tenants' Shoup hint tables [T, L, L, n], ciphertext b
 // under tenant[b]'s ([bt] int32, each in [0, T): the kernel traps on any
-// other). Returns a cudaError_t.
+// other); slot_own as for digit_relin. Returns a cudaError_t.
 int digit_relin_tenants(const void* c2c, const void* c0, const void* c1, const void* hb,
                         const void* hbs, const void* ha, const void* has, void* out,
                         const void* limbs, const void* fwd_tw, const void* slot_own,
                         const void* tenant, int T, int bt, int L, int log_n, void* stream) {
-  const bool small = log_n <= 15;
-  return zq::launch_blocks(
-      small ? digit_relin_tenants_kernel<BSmall> : digit_relin_tenants_kernel<BLarge>,
-      dim3(2 * L, bt), small ? BSmall::kThreads : BLarge::kThreads,
-      small ? shared_words<BSmall>(log_n) : shared_words<BLarge>(log_n), 0, stream,
-      static_cast<const uint32_t*>(c2c), static_cast<const uint32_t*>(c0),
-      static_cast<const uint32_t*>(c1), static_cast<const uint32_t*>(hb),
-      static_cast<const uint32_t*>(hbs), static_cast<const uint32_t*>(ha),
-      static_cast<const uint32_t*>(has), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(limbs), static_cast<const uint32_t*>(fwd_tw),
-      static_cast<const uint32_t*>(slot_own), static_cast<const int32_t*>(tenant), T, L,
-      log_n);
+  return with_b_shape(true, bt, L, log_n, [&](auto s) {
+    using S = decltype(s);
+    return zq::launch_blocks(
+        digit_relin_tenants_kernel<S>, dim3(L << S::kSplit, bt), S::kThreads,
+        shared_words<S>(log_n), 0, stream, static_cast<const uint32_t*>(c2c),
+        static_cast<const uint32_t*>(c0), static_cast<const uint32_t*>(c1),
+        static_cast<const uint32_t*>(hb), static_cast<const uint32_t*>(hbs),
+        static_cast<const uint32_t*>(ha), static_cast<const uint32_t*>(has),
+        static_cast<uint32_t*>(out), static_cast<const uint32_t*>(limbs),
+        static_cast<const uint32_t*>(fwd_tw), static_cast<const uint32_t*>(slot_own),
+        static_cast<const int32_t*>(tenant), T, L, log_n);
+  });
+}
+
+// The form kernel B takes for bt ciphertexts of L limbs at n = 2^log_n (the
+// tenant-indexed kernel with tenants != 0, else the Shoup one): the blocks
+// it splits a limb over (*parts) and the blocks of it an SM holds at once
+// (*blocks). Returns a cudaError_t.
+int digit_relin_form(int log_n, int tenants, int bt, int L, int* parts, int* blocks) {
+  if (tenants) {
+    return with_b_shape(true, bt, L, log_n, [&](auto s) {
+      using S = decltype(s);
+      return b_form<S>(digit_relin_tenants_kernel<S>, log_n, parts, blocks);
+    });
+  }
+  return with_b_shape(false, bt, L, log_n, [&](auto s) {
+    using S = decltype(s);
+    return b_form<S>(digit_relin_kernel<true, S>, log_n, parts, blocks);
+  });
 }
 
 // Kernel 4; hbs and has are ignored unless shoup != 0. Returns a cudaError_t.

@@ -175,7 +175,14 @@ __device__ __forceinline__ void load_words(uint32_t (&d)[kCount], const uint32_t
 // the stage's 2^u (value, companion) pairs are two aligned runs of the
 // tables, read 4 pairs at a time. kSplit = 2 (a limb over four blocks, part
 // < 4 a quarter): m + part*m/4 + (hi << u).
-template <int RL, int U, int kSplit = 1>
+//
+// kLazy (kernel B's transforms, q < 2^30): Harvey's butterfly, words kept in
+// [0, 4q) and reduced only as far as that needs: x -= 2q where x >= 2q,
+// y*w by the Shoup quotient without its last correction ([0, 2q)), then x + y
+// and x - y + 2q: two conditional corrections fewer a butterfly. The
+// transform's words are then right mod q but not canonical, which B's hint
+// products (mulmod_shoup, mulmod: exact for any uint32) take as they are.
+template <int RL, int U, int kSplit = 1, bool kLazy = false>
 __device__ __forceinline__ void pass_stage(uint32_t (&v)[1 << RL], int log_n, int part, int lo_b,
                                            int hi, const uint32_t* __restrict__ tw,
                                            const uint32_t* __restrict__ tws, uint32_t q) {
@@ -192,24 +199,32 @@ __device__ __forceinline__ void pass_stage(uint32_t (&v)[1 << RL], int log_n, in
 #pragma unroll
       for (int c = 0; c < t; ++c) {
         const int r = 2 * t * (c0 + blk) + c;
-        const uint32_t a = v[r];
-        const uint32_t b = mulmod_shoup(v[r + t], w[blk], ws[blk], q);
-        v[r] = add_mod(a, b, q);
-        v[r + t] = sub_mod(a, b, q);
+        if constexpr (kLazy) {
+          const uint32_t q2 = 2 * q;
+          const uint32_t a = v[r] >= q2 ? v[r] - q2 : v[r];
+          const uint32_t b = v[r + t] * w[blk] - __umulhi(v[r + t], ws[blk]) * q;
+          v[r] = a + b;
+          v[r + t] = a - b + q2;
+        } else {
+          const uint32_t a = v[r];
+          const uint32_t b = mulmod_shoup(v[r + t], w[blk], ws[blk], q);
+          v[r] = add_mod(a, b, q);
+          v[r + t] = sub_mod(a, b, q);
+        }
       }
     }
   }
 }
 
-template <int RL, int kSplit = 1>
+template <int RL, int kSplit = 1, bool kLazy = false>
 __device__ __forceinline__ void pass_butterflies(uint32_t (&v)[1 << RL], int log_n, int part,
                                                  int lo_b, int hi,
                                                  const uint32_t* __restrict__ tw,
                                                  const uint32_t* __restrict__ tws, uint32_t q) {
-  pass_stage<RL, 0, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
-  if constexpr (RL > 1) pass_stage<RL, 1, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
-  if constexpr (RL > 2) pass_stage<RL, 2, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
-  if constexpr (RL > 3) pass_stage<RL, 3, kSplit>(v, log_n, part, lo_b, hi, tw, tws, q);
+  pass_stage<RL, 0, kSplit, kLazy>(v, log_n, part, lo_b, hi, tw, tws, q);
+  if constexpr (RL > 1) pass_stage<RL, 1, kSplit, kLazy>(v, log_n, part, lo_b, hi, tw, tws, q);
+  if constexpr (RL > 2) pass_stage<RL, 2, kSplit, kLazy>(v, log_n, part, lo_b, hi, tw, tws, q);
+  if constexpr (RL > 3) pass_stage<RL, 3, kSplit, kLazy>(v, log_n, part, lo_b, hi, tw, tws, q);
   static_assert(RL <= 4, "passes of up to 4 stages");
 }
 
@@ -265,8 +280,9 @@ __device__ __forceinline__ uint32_t quarter_load(Load load, int j, int quarter, 
 // cluster read both halves, so every thread runs the same number of groups
 // and the stores wait for a cluster barrier after the reads. kSplit = 2: the
 // limb is split over four blocks and a holds quarter part (kFromLoad fuses
-// the two cross-quarter stages into the load, quarter_load).
-template <int RL, int kFrom, int kSplit = 1, typename Load>
+// the two cross-quarter stages into the load, quarter_load). kLazy:
+// pass_stage's lazy butterflies (words in [0, 4q)).
+template <int RL, int kFrom, int kSplit = 1, bool kLazy = false, typename Load>
 __device__ __forceinline__ void forward_pass(uint32_t* a, Load load, int log_n, int part, int lo_b,
                                              const uint32_t* __restrict__ tw,
                                              const uint32_t* __restrict__ tws, const Limb& k) {
@@ -310,7 +326,7 @@ __device__ __forceinline__ void forward_pass(uint32_t* a, Load load, int log_n, 
       }
     }
     if constexpr (kFrom == kFromPair) cluster_arrive();  // done reading the partner's half
-    if (active) pass_butterflies<RL, kSplit>(v, log_n, part, lo_b, hi, tw, tws, k.q);
+    if (active) pass_butterflies<RL, kSplit, kLazy>(v, log_n, part, lo_b, hi, tw, tws, k.q);
     if constexpr (kFrom == kFromPair) cluster_wait();    // the partner is done reading ours
     if (active) {
 #pragma unroll
@@ -319,19 +335,19 @@ __device__ __forceinline__ void forward_pass(uint32_t* a, Load load, int log_n, 
   }
 }
 
-// forward_pass<rl, kFrom, kSplit> for a runtime rl in [1, RL].
-template <int RL, int kFrom, int kSplit = 1, typename Load>
+// forward_pass<rl, kFrom, kSplit, kLazy> for a runtime rl in [1, RL].
+template <int RL, int kFrom, int kSplit = 1, bool kLazy = false, typename Load>
 __device__ __forceinline__ void forward_pass_of(int rl, uint32_t* a, Load load, int log_n,
                                                 int part, int lo_b,
                                                 const uint32_t* __restrict__ tw,
                                                 const uint32_t* __restrict__ tws, const Limb& k) {
   if constexpr (RL > 1) {
     if (rl < RL) {
-      forward_pass_of<RL - 1, kFrom, kSplit>(rl, a, load, log_n, part, lo_b, tw, tws, k);
+      forward_pass_of<RL - 1, kFrom, kSplit, kLazy>(rl, a, load, log_n, part, lo_b, tw, tws, k);
       return;
     }
   }
-  forward_pass<RL, kFrom, kSplit>(a, load, log_n, part, lo_b, tw, tws, k);
+  forward_pass<RL, kFrom, kSplit, kLazy>(a, load, log_n, part, lo_b, tw, tws, k);
 }
 
 // The forward NTT of half `part` of a split limb, register-blocked: a first
@@ -342,19 +358,24 @@ __device__ __forceinline__ void forward_pass_of(int rl, uint32_t* a, Load load, 
 // thread calls it, and it returns synchronised. The caller synchronises
 // before it if a is still being read. kSplit = 2: quarter part of a limb
 // split over four blocks (n >= 8), the two cross-quarter stages in the load.
-template <int kMaxRL, int kFirstRL, int kFrom = kFromLoad, int kSplit = 1, typename Load>
+// kLazy (q < 2^30): the lazy butterflies of pass_stage, which leave the
+// words in [0, 4q).
+template <int kMaxRL, int kFirstRL, int kFrom = kFromLoad, int kSplit = 1, bool kLazy = false,
+          typename Load>
 __device__ __forceinline__ void ntt_forward_passes(uint32_t* a, Load load, int log_n, int part,
                                                    const uint32_t* __restrict__ tw,
                                                    const uint32_t* __restrict__ tws,
                                                    const Limb& k) {
   const int log_h = log_n - kSplit;
   int lo_b = log_h > kFirstRL ? log_h - kFirstRL : 0;
-  forward_pass_of<kFirstRL, kFrom, kSplit>(log_h - lo_b, a, load, log_n, part, lo_b, tw, tws, k);
+  forward_pass_of<kFirstRL, kFrom, kSplit, kLazy>(log_h - lo_b, a, load, log_n, part, lo_b, tw,
+                                                  tws, k);
   __syncthreads();
   while (lo_b > 0) {
     const int rl = lo_b > kMaxRL ? kMaxRL : lo_b;
     lo_b -= rl;
-    forward_pass_of<kMaxRL, kFromShared, kSplit>(rl, a, load, log_n, part, lo_b, tw, tws, k);
+    forward_pass_of<kMaxRL, kFromShared, kSplit, kLazy>(rl, a, load, log_n, part, lo_b, tw, tws,
+                                                        k);
     __syncthreads();
   }
 }

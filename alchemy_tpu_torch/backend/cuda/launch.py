@@ -144,7 +144,7 @@ def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
       owns (those of slot_inv[h·n/2 : (h+1)·n/2]) in slot order, each
       packed with its radix-2 index in the half:
       s | (slot_ct[s] − h·n/2) << 16 (n ≤ 2^16);
-    - `slot_own4` [n] int32, kernels A, 5, 6, 8, 9 with a limb over four
+    - `slot_own4` [n] int32, kernels A, B, 5, 6, 8, 9 with a limb over four
       blocks: the same for each quarter;
     - `fwd`, `inv` [L, 2, n] uint32: ψ^{±bitrev(k)} and Shoup companions;
     - `limbs` [L, 8] uint32: `limb_words(q, n⁻¹ mod q)` (zq.cuh `Limb`).
@@ -173,7 +173,7 @@ def kernel_tables(n: int, qs: tuple[int, ...], order: str = "pallas") -> dict:
 def device_tables(n: int, qs: tuple[int, ...], order: str, device: str) -> dict:
     """The tables the kernels read on `device`: `limbs`, `fwd`, `inv`,
     `slot_own`, and `grid_own` [2n] (slot_own, then slot_own4) for the
-    kernels that may split a limb over four blocks (A, 5, 6, 8, 9)."""
+    kernels that may split a limb over four blocks (A, B, 5, 6, 8, 9)."""
     t = kernel_tables(n, qs, order)
     host = {k: t[k] for k in ("limbs", "fwd", "inv", "slot_own")}
     host["grid_own"] = np.concatenate([t["slot_own"], t["slot_own4"]])

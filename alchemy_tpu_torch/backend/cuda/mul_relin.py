@@ -34,8 +34,10 @@ at n = 2^15, 128 KB at 2^16, where a whole limb of 256 KB exceeds the
 227 KB a block can have); they take n ≤ 2^16. Every kernel runs the
 register-blocked NTT passes of `csrc/zq.cuh` and reads or writes each
 block's slots in slot order through `slot_own`; A (like 5 and 9) spreads a
-limb over four blocks on grids that fit one wave of the card. See
-`csrc/mul_relin.cu` for what bounds them.
+limb over four blocks on grids that fit one wave of the card, and so does B
+at 2^10 ≤ n ≤ 2^15, two blocks an SM, and its tenant form on every grid
+there: `digit_relin_form`. See `csrc/mul_relin.cu` for what
+bounds them.
 
 Every wrapper takes a slot `order` and follows the launch protocol of
 `launch.py`. The plain versions compute in exact int64 and are the
@@ -44,10 +46,13 @@ reference the kernels are held against.
 
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
+
 import numpy as np
 import torch
 
-from alchemy_tpu_torch.backend.cuda import launch
+from alchemy_tpu_torch.backend.cuda import build, launch
 from alchemy_tpu_torch.backend.modarith import (
     _add_mod,
     _garner_tables,
@@ -221,7 +226,7 @@ def digit_relin(n: int, qs: tuple[int, ...], c0: torch.Tensor, c1: torch.Tensor,
     card reads no index back: one outside [0, T) stops the kernel with a
     CUDA error (`she.tenants.TenantKeys.batch` refuses it on the host)."""
     name = "digit_relin" if tenant is None else "digit_relin_tenants"
-    with launch.span(name):
+    with launch.span(name) as sp:
         qs = tuple(qs)
         Bt, L, dev = c2c.shape[0], len(qs), c2c.device
         for arg, t in (("c0", c0), ("c1", c1), ("c2c", c2c)):
@@ -236,13 +241,32 @@ def digit_relin(n: int, qs: tuple[int, ...], c0: torch.Tensor, c1: torch.Tensor,
         if not launch.on_card(n, dev):
             return digit_relin_plain(n, qs, c0, c1, c2c, hint_b, hint_a, order, tenant)
         launch.aligned(c0, c1, *hints)
+        if sp is not None:
+            sp.attrs["parts"] = digit_relin_form(n, L, Bt, tenant is not None)[0]
         t = launch.device_tables(n, qs, order, str(dev))
         out = torch.empty((Bt, 2, L, n), dtype=torch.int32, device=dev)
         which = (int(shoup),) if tenant is None else (tenant.data_ptr(), *lead)
         launch.run(name, n, dev, (Bt, L, *lead), c2c.data_ptr(), c0.data_ptr(), c1.data_ptr(),
                    *map(launch.ptr, hints), out.data_ptr(), t["limbs"].data_ptr(),
-                   t["fwd"].data_ptr(), t["slot_own"].data_ptr(), *which, Bt, L)
+                   t["fwd"].data_ptr(), t["grid_own"].data_ptr(), *which, Bt, L)
         return out
+
+
+@lru_cache(maxsize=None)
+def digit_relin_form(n: int, L: int, Bt: int, tenants: bool = False) -> tuple[int, int]:
+    """(parts, blocks an SM) of kernel B on the card for Bt ciphertexts of L
+    limbs at ring size n, or of its tenant-indexed form, as the library
+    reports them: the blocks a limb is split over and the blocks of it an
+    SM holds at once. At 2^10 ≤ n ≤ 2^15 quarters (4, two blocks an SM)
+    for the tenant form, and for one key where 4·L·Bt blocks fit one wave
+    of the card, else halves (2, one block an SM); halves below 2^10 and at
+    2^16. The launch span of each card launch of B carries the parts
+    (`parts`)."""
+    parts, blocks = ctypes.c_int(), ctypes.c_int()
+    build.check(build.library().digit_relin_form(n.bit_length() - 1, int(tenants), Bt, L,
+                                                 ctypes.byref(parts), ctypes.byref(blocks)),
+                "digit_relin_form")
+    return parts.value, blocks.value
 
 
 def _group_width(groups, ext_qs: tuple[int, ...]) -> int:

@@ -4,12 +4,14 @@
 Builds the CUDA kernels from the sources in the checkout and holds each
 against its plain PyTorch version on the card: A (tensor_intt) and B
 (digit_relin, Shoup and raw hints) at n = 2^15 in both slot orders, B's
-tenant form (digit_relin_tenants, over TENANTS tenants' hints) at n = 2^15, 4
+tenant form (digit_relin_tenants, over TENANTS tenants' hints) at n = 2^15,
+both at 16 ciphertexts and at one (SINGLE, where B splits a limb over four
+blocks: after [pipeline]), 4
 (hybrid_digit_relin, raw and Shoup), 5 (intt_grid), 6 (ntt_grid) and 7
 (rescale_fwd) at n = 2^15; 8 (ntt2_grid)
 and 9 (intt2_grid), the standalone transforms of the 2-factor slot order
 (impl="mxu"), at n = 2^15 and 2^16, with 4 and 7 in that order; A, B, 4, 5,
-6 and 7 again at n = 2^16. Every kernel splits a limb over two blocks. Then
+6 and 7 again at n = 2^16. Then
 it drives six paths through them, each with the launch counters set to 0
 just before it:
 
@@ -177,7 +179,8 @@ SEED = 0
 HEADLINE = (15, 8, 16)            # log2 n, limbs, ciphertexts per batch
 SMALL = (14, 4, 4)
 N2E16 = (16, 8, 16)               # bench.py's ring sweep at n = 2^16
-# kernel B's tenant form at HEADLINE: tenants whose hints the key store holds
+SINGLE = (15, 8, 1)               # one product: B's quarters on 32 blocks
+# kernel B's tenant form at HEADLINE and SINGLE: tenants whose hints the key store holds
 TENANTS = 12
 SMALL_N2E16 = (16, 3, 2)
 DEEP = (15, 16, 16)               # hybrid: dnum = 4, K = 4, T = 20
@@ -389,10 +392,12 @@ def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool, order: str = "pa
     check(err_b == 0, f"kernel B != plain at n=2^{log_n} L={L} Bt={Bt} (max abs err {err_b})")
     tables = 4 * (2 * L * n + n)              # twiddles and companions, slot map
     a_bytes, a_muls = tensor_cost(Bt, L, n)
+    # B's form: the blocks of a limb, and the blocks of it an SM holds at once
+    parts, blocks = mr.digit_relin_form(n, L, Bt)
     res = {
         "tensor_intt": {"err": err_a, "bytes": a_bytes, "muls": a_muls},
-        "digit_relin": {"err": err_b},
-        "digit_relin_raw": {"err": err_b},
+        "digit_relin": {"err": err_b, "parts": parts, "blocks_per_sm": blocks},
+        "digit_relin_raw": {"err": err_b, "parts": parts, "blocks_per_sm": blocks},
     }
     # per (ciphertext, limb, digit): the digit's reduction, its NTT, two hint products
     for name, hint_words, hint_mul in (("digit_relin", 4, MUL_CONST),
@@ -413,9 +418,10 @@ def kernel_phase(log_n: int, L: int, Bt: int, rng, timed: bool, order: str = "pa
     return res
 
 
-def tenant_kernel_phase(rng) -> dict:
+def tenant_kernel_phase(rng, Bt: int = HEADLINE[2]) -> dict:
     """Kernel B's tenant form (`digit_relin(..., tenant=)`, the launch
-    `digit_relin_tenants`) at HEADLINE over TENANTS tenants' random Shoup
+    `digit_relin_tenants`) at HEADLINE's ring and limbs and Bt rows over
+    TENANTS tenants' random Shoup
     hints in a `she.tenants.TenantKeys`, each row's tenant drawn with
     repeats: the kernel against its plain form, exact; then the path
     (`fast.mul_relin` with the batch), its launches counted from 0, equal to
@@ -429,7 +435,7 @@ def tenant_kernel_phase(rng) -> dict:
     from alchemy_tpu_torch.she import fast, tenants
     from benchmark.roofline_tenants import digit_relin_tenants_cost
 
-    log_n, L, Bt = HEADLINE
+    log_n, L = HEADLINE[:2]
     p = fast.FastParams.make(log_n, L)
     n, qs, order = p.n, p.qs, p.order
     keys = tenants.TenantKeys(p, TENANTS)
@@ -456,11 +462,13 @@ def tenant_kernel_phase(rng) -> dict:
           f"[kernels] fast.mul_relin over tenants: launches {by_shape}, or its rows differ "
           "from A then B's tenant form")
     nbytes, muls = digit_relin_tenants_cost(Bt, L, n, True, batch.tenants)
+    parts, blocks = mr.digit_relin_form(n, L, Bt, True)
     one_args = (*args[:-1], one.index)
     timed = {"ms": device_ms(lambda: mr.digit_relin(*args), 20),
              "plain_ms": device_ms(lambda: mr.digit_relin_plain(*args), 3),
              "one_tenant_ms": device_ms(lambda: mr.digit_relin(*one_args), 20)}
-    res = {"digit_relin_tenants": {"err": err, "bytes": nbytes, "muls": muls, **timed},
+    res = {"digit_relin_tenants": {"err": err, "bytes": nbytes, "muls": muls, "parts": parts,
+                                   "blocks_per_sm": blocks, **timed},
            "launches": launched, "tenants": batch.tenants, "order": order}
     print(f"[kernels] n=2^{log_n} L={L} Bt={Bt} order={order}: B's tenant form over "
           f"{TENANTS} tenants' hints ({keys.nbytes} B), rows of {batch.tenants} tenants "
@@ -2522,6 +2530,10 @@ def main() -> int:
     # kernels A and B at the pipeline's shape [mb, L0, n] in both orders
     pipe_k = {order: kernel_phase(PIPE[0], PIPE[1], PIPE[4], rng, timed=True, order=order)
               for order in ("pallas", "mxu")}
+    # B and its tenant form at one product, where both take quarters
+    single = {order: kernel_phase(*SINGLE, rng, timed=True, order=order)
+              for order in ("pallas", "mxu")}
+    ten1 = tenant_kernel_phase(rng, SINGLE[2])
     # the harness in child processes: free this process's cached blocks first
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2538,14 +2550,15 @@ def main() -> int:
 
     def entry(name, n, replaces, source, launched, timed, *checked, order="pallas"):
         """One kernel's line at one slot order: times and bound from the
-        timed phase's dict, the largest error over every phase that checked
-        it."""
+        timed phase's dict (and B's form, parts and blocks an SM), the
+        largest error over every phase that checked it."""
         ms_bound, by = bound(timed["bytes"], timed["muls"], clock_hz)
         errs = [r[k]["err"] for r in checked for k in r if k.startswith(name)]
         return {"name": name, "n": n, "order": order, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launched, "max_abs_err": max(errs),
                 "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": ms_bound,
-                "bound_by": by, "library_ms": None}
+                "bound_by": by, "library_ms": None,
+                **{k: timed[k] for k in ("parts", "blocks_per_sm") if k in timed}}
 
     n15, n16 = 1 << HEADLINE[0], 1 << N2E16[0]
     mr_tpu, rs_tpu, ntt_tpu = MUL_RELIN_TPU + ":", RESCALE_TPU + ":", NTT_TPU + ":"
@@ -2579,10 +2592,16 @@ def main() -> int:
               head["digit_relin"], head, small),
         entry("digit_relin", n15, mr_tpu + "439", MUL_RELIN_CU, mx["launches"]["digit_relin"],
               head_mxu["digit_relin"], head_mxu, order="mxu"),
-        {**entry("digit_relin_tenants", n15, mr_tpu + "439", MUL_RELIN_CU, ten["launches"],
-                 ten["digit_relin_tenants"], ten, order=ten["order"]),
-         "shape": [HEADLINE[2], HEADLINE[1], TENANTS, n15], "tenants": ten["tenants"],
-         "one_tenant_ms": ten["digit_relin_tenants"]["one_tenant_ms"]},
+        *[{**entry("digit_relin_tenants", n15, mr_tpu + "439", MUL_RELIN_CU, t["launches"],
+                   t["digit_relin_tenants"], t, order=t["order"]),
+           "shape": [Bt, HEADLINE[1], TENANTS, n15], "tenants": t["tenants"],
+           "one_tenant_ms": t["digit_relin_tenants"]["one_tenant_ms"]}
+          for Bt, t in ((HEADLINE[2], ten), (SINGLE[2], ten1))],
+        # B at one product: timed and checked by its own phase; no path of
+        # this script launches it at this shape
+        *[{**entry("digit_relin", n15, mr_tpu + "439", MUL_RELIN_CU, None,
+                   single[order]["digit_relin"], single[order], order=order),
+           "shape": [SINGLE[2], SINGLE[1], n15]} for order in ("pallas", "mxu")],
         entry("hybrid_digit_relin", n15, mr_tpu + "807", MUL_RELIN_CU,
               hy["launches"]["hybrid_digit_relin"], deep_k["hybrid_digit_relin"], deep_k, small_k,
               mxu_small),

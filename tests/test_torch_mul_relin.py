@@ -19,6 +19,7 @@ from alchemy_tpu_torch.backend.ntt3 import _split3, intt3, ntt3
 from alchemy_tpu_torch.convert import to_numpy, to_torch
 from alchemy_tpu_torch.she import fast as tfast
 from alchemy_tpu_torch.she import hybrid as thyb
+from alchemy_tpu_torch.utils import profiling
 
 
 def _jax_state(log_n, L, Bt, shoup, seed):
@@ -205,10 +206,14 @@ def test_split_schedule_matches_ntt3(log_n):
 
 
 #: launch shapes of kernels B and 4 (mul_relin.cu Shape, BSmall ... ExtLarge):
-#: (threads a block, stages a pass at most, stages of the first pass, whether
-#: the first pass reads the two halves of a cluster)
-RB_SHAPES = {"B": (1024, 3, 3, False), "4 n<=2^15": (384, 3, 2, True),
-             "4 n=2^16": (1024, 4, 3, False)}
+#: (threads a block, stages a pass at most, stages of the first pass,
+#: whether the first pass reads the two halves of a cluster, log2 of the
+#: blocks of a limb, lazy butterflies); "B" is BLarge (halves, n = 2^16),
+#: "B lazy" BSmall (halves, n <= 2^15), "B quarters" BQuarter (quarters,
+#: 2^10 <= n <= 2^15)
+RB_SHAPES = {"B": (1024, 3, 3, False, 1, False), "B lazy": (1024, 3, 3, False, 1, True),
+             "B quarters": (512, 3, 3, False, 2, True),
+             "4 n<=2^15": (384, 3, 2, True, 1, False), "4 n=2^16": (1024, 4, 3, False, 1, False)}
 
 
 def _pad(j):
@@ -216,10 +221,13 @@ def _pad(j):
     return j + (j >> 5)
 
 
-def _rb_butterflies(v, log_n, part, lo_b, hi, tw, q, split=1):
+def _rb_butterflies(v, log_n, part, lo_b, hi, tw, q, split=1, tws=None):
     """zq.cuh pass_butterflies on v [R, groups], a group a column (hi its
     high index bits): stage u pairs r with r + R/2^(u+1) under twiddle
-    m + part·m/2^split + (hi << u) + (r >> (RL − u))."""
+    m + part·m/2^split + (hi << u) + (r >> (RL − u)). With the twiddles'
+    Shoup companions tws, the lazy butterflies (kLazy) in uint32 arithmetic:
+    words in [0, 4q), x − 2q where x ≥ 2q, y·w by the Shoup quotient
+    without its last correction, x + y and x − y + 2q."""
     RL = len(v).bit_length() - 1
     for u in range(RL):
         m = 1 << (log_n - lo_b - RL + u)
@@ -229,12 +237,21 @@ def _rb_butterflies(v, log_n, part, lo_b, hi, tw, q, split=1):
             w = tw[w0 + blk]
             for c in range(t):
                 r = 2 * t * blk + c
-                a, b = v[r], v[r + t] * w % q
-                v[r], v[r + t] = (a + b) % q, (a - b) % q
+                if tws is None:
+                    a, b = v[r], v[r + t] * w % q
+                    v[r], v[r + t] = (a + b) % q, (a - b) % q
+                    continue
+                a = np.where(v[r] >= 2 * q, v[r] - 2 * q, v[r])
+                y = v[r + t].astype(np.uint64)
+                quot = (y * tws[w0 + blk].astype(np.uint64)) >> np.uint64(32)
+                b = ((y * np.uint64(w) - quot * np.uint64(q)) & np.uint64(_M32)).astype(np.int64)
+                assert (b < 2 * q).all()
+                v[r], v[r + t] = a + b, a - b + 2 * q
+                assert (v[r] < 4 * q).all() and (v[r + t] > 0).all() and (v[r + t] < 4 * q).all()
     return v
 
 
-def _rb_forward(x, tw, q, part, max_rl, first_rl, pair, split=1):
+def _rb_forward(x, tw, q, part, max_rl, first_rl, pair, split=1, tws=None):
     """zq.cuh ntt_forward_passes (or ntt_forward_pair) of half `part` of row
     x (any uint32) in numpy → the padded shared half. The first pass takes
     words j and j + n/2 of each group from x (pair: from the two blocks'
@@ -243,7 +260,8 @@ def _rb_forward(x, tw, q, part, max_rl, first_rl, pair, split=1):
     The groups of every pass cover the half once, group g on thread
     g mod blockDim. split = 2: quarter `part` of the row, the first pass
     taking words j + c·n/4 (c < 4) and running the two cross-quarter stages
-    on them (zq.cuh quarter_load)."""
+    on them (zq.cuh quarter_load). tws: the lazy butterflies of
+    _rb_butterflies, the half's words in [0, 4q)."""
     half = len(x) >> split
     log_n, log_h = len(x).bit_length() - 1, half.bit_length() - 1
     smem = np.full(_pad(half - 1) + 1, -1, dtype=np.int64)
@@ -272,7 +290,7 @@ def _rb_forward(x, tw, q, part, max_rl, first_rl, pair, split=1):
             v = (u - v) % q if part else (u + v) % q
         else:
             v = smem[_pad(j)]
-        smem[_pad(j)] = _rb_butterflies(v, log_n, part, lo_b, hi, tw, q, split)
+        smem[_pad(j)] = _rb_butterflies(v, log_n, part, lo_b, hi, tw, q, split, tws)
         first = False
     return smem
 
@@ -282,27 +300,29 @@ def _rb_forward(x, tw, q, part, max_rl, first_rl, pair, split=1):
 @pytest.mark.parametrize("log_n", [10, 11, 12, 16])
 def test_register_blocked_schedule_matches_plain_ntt(log_n, order, shape):
     """The schedule of kernels B and 4 at each launch shape (register-blocked
-    passes, the cross-half stage in the first pass's load or across the
-    cluster, the hint loop's slot-order gather through `slot_own`) against
-    ntt3 ("pallas") and ntt2 ("mxu") exactly, at 2^16 and at small sizes.
-    (and ntt_vpu, "vpu"). Every slot has one owner thread, the same at every
-    digit; a thread's four
-    elements are four consecutive slots from a multiple of 4, and the 128
-    elements of a warp consecutive slots (from n = 2^14 on; runs of a row of
-    the slot order below)."""
-    threads, max_rl, first_rl, pair = RB_SHAPES[shape]
+    passes, the stages that cross the parts in the first pass's load or
+    across the cluster, the hint loop's slot-order gather through `slot_own`,
+    or `slot_own4` for B's quarters) against ntt3 ("pallas"), ntt2 ("mxu")
+    and ntt_vpu ("vpu") exactly, at 2^16 and at small sizes. Every slot has
+    one owner thread, the same at every digit; a thread's four elements are
+    four consecutive slots from a multiple of 4, and the 128 elements of a
+    warp consecutive slots (from n = 2^14 on; runs of a row of the slot
+    order below). Lazy shapes leave words in [0, 4q), right mod q, which the
+    hint products take as they are."""
+    threads, max_rl, first_rl, pair, split, lazy = RB_SHAPES[shape]
+    parts = 1 << split
     p = jfast.FastParams.make(log_n, 2)
-    n, half = p.n, p.n // 2
+    n, half = p.n, p.n >> split
     t = launch.kernel_tables(n, p.qs, order)
     rng = np.random.default_rng(log_n)
     x = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(np.int64)  # any uint32
     y = launch.plain_transforms(order)[0](torch.from_numpy(x), n, p.qs).numpy()
-    own = t["slot_own"].astype(np.int64).reshape(2, half)
+    own = t["slot_own" if split == 1 else "slot_own4"].astype(np.int64).reshape(parts, half)
     slots, local = own & 0xFFFF, own >> 16
     assert np.array_equal(np.sort(slots.ravel()), np.arange(n))
     A, B, r = _split3(n)
     run = _pick_split(n)[1] if order == "mxu" else B * r    # a row of the slot order
-    for part in (0, 1):
+    for part in range(parts):
         assert np.array_equal(np.sort(slots[part]), np.sort(t["slot_inv"][part * half:(part + 1) * half]))
         assert np.array_equal(local[part], t["slot_ct"][slots[part]] - part * half)
         for width in (min(4, run), min(128, run)):       # a thread's quad; a warp's 128
@@ -312,13 +332,16 @@ def test_register_blocked_schedule_matches_plain_ntt(log_n, order, shape):
     owners = []
     for li, ql in enumerate(p.qs):                     # the two limbs stand for two digits
         fwd = t["fwd"][li, 0].astype(np.int64)
+        tws = t["fwd"][li, 1].astype(np.int64) if lazy else None
         got = np.full(n, -1, dtype=np.int64)
         owner = np.full(n, -1, dtype=np.int64)
-        for part in (0, 1):
-            smem = _rb_forward(x[li], fwd, ql, part, max_rl, first_rl, pair)
+        for part in range(parts):
+            smem = _rb_forward(x[li], fwd, ql, part, max_rl, first_rl, pair, split, tws)
+            assert (got[slots[part]] == -1).all()
             got[slots[part]] = smem[_pad(local[part])]
             owner[slots[part]] = part * threads + np.arange(half) // 4 % threads
-        assert np.array_equal(got, y[li])
+        assert (got >= 0).all() and (got < (4 if lazy else 1) * ql).all()
+        assert np.array_equal(got % ql, y[li])
         owners.append(owner)
     assert (owners[0] >= 0).all() and np.array_equal(owners[0], owners[1])
 
@@ -694,10 +717,12 @@ def _need_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", ["pallas", "mxu", "vpu"])
-@pytest.mark.parametrize("log_n,L,Bt", [(8, 2, 2), (14, 3, 2), (15, 8, 2), (16, 3, 2)])
+@pytest.mark.parametrize("log_n,L,Bt", [(8, 2, 2), (14, 3, 2), (15, 8, 2), (16, 3, 2),
+                                        (15, 8, 16), (15, 8, 1)])
 def test_kernels_match_plain_on_the_card(log_n, L, Bt, order):
     """At 2^8 the 2-factor order's rows are 2 words: B's hint loop takes its
-    word accesses there."""
+    word accesses there. [16, 8, 2^15] and [1, 8, 2^15] are the batch and
+    single shapes of B at 2^15: halves, and quarters two blocks an SM."""
     _need_card()
     p = tfast.FastParams.make(log_n, L)
     rng = np.random.default_rng(log_n)
@@ -715,6 +740,60 @@ def test_kernels_match_plain_on_the_card(log_n, L, Bt, order):
     assert torch.equal(mr.digit_relin(p.n, p.qs, *c, hb[0], ha[0], order), out)
     assert launch.LAUNCHES == {**before, "tensor_intt": before["tensor_intt"] + 1,
                                "digit_relin": before["digit_relin"] + 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bt", [1, 16])
+def test_digit_relin_takes_exact_butterflies_from_2e30_on_the_card(Bt):
+    """Limbs of 31 bits, where B's lazy butterflies (words below 4q) would
+    pass 2^32: each of B's forms at n = 2^15 ([1, 8] quarters; [16, 8]
+    halves, and quarters for the tenant form) takes the exact ones, and matches its plain version with Shoup and raw
+    hints and over two tenants' hints."""
+    _need_card()
+    p = tfast.FastParams.make(15, 8, bits=31)
+    assert min(p.qs) >= 1 << 30
+    rng = np.random.default_rng(31)
+    q = np.array(p.qs, dtype=np.int64)[:, None]
+    res = lambda shape: to_torch(rng.integers(0, 1 << 62, shape) % q, "cuda")
+    c = [res((Bt, 8, p.n)) for _ in range(3)]
+    hb, ha = (tfast.shoup_precompute(res((2, 8, 8, p.n)), p.qs) for _ in range(2))
+    one_b, one_a = (tuple(x[0] for x in h) for h in (hb, ha))
+    want = mr.digit_relin_plain(p.n, p.qs, *c, one_b, one_a, "mxu")
+    assert torch.equal(mr.digit_relin(p.n, p.qs, *c, one_b, one_a, "mxu"), want)
+    assert torch.equal(mr.digit_relin(p.n, p.qs, *c, one_b[0], one_a[0], "mxu"), want)
+    index = to_torch(rng.integers(0, 2, Bt), "cuda")
+    assert torch.equal(mr.digit_relin(p.n, p.qs, *c, hb, ha, "mxu", index),
+                       mr.digit_relin_plain(p.n, p.qs, *c, hb, ha, "mxu", index))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n,L,Bt,forms", [(15, 8, 1, ((4, 2), (4, 2))),
+                                              (15, 8, 16, ((2, 1), (4, 2))),
+                                              (16, 8, 16, ((2, 1), (2, 1))),
+                                              (9, 2, 2, ((2, 1), (2, 1)))])
+def test_digit_relin_launch_span_names_its_form(log_n, L, Bt, forms):
+    """Each card launch of kernel B and of its tenant form carries on its
+    launch span the blocks it splits a limb over, and the library reports
+    the same form, (parts, blocks an SM): at n = 2^15 quarters two blocks
+    an SM for the tenant form, and for one key where they fit one wave
+    ([1, 8]), else halves ([16, 8]); halves at 2^16 and below 2^10."""
+    _need_card()
+    p = tfast.FastParams.make(log_n, L)
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device="cuda")
+    c = [z(Bt, L, p.n) for _ in range(3)]
+    profiling.reset()
+    try:
+        with profiling.tracing():
+            mr.digit_relin(p.n, p.qs, *c, (z(L, L, p.n),) * 2, (z(L, L, p.n),) * 2, "mxu")
+            mr.digit_relin(p.n, p.qs, *c, (z(2, L, L, p.n),) * 2, (z(2, L, L, p.n),) * 2, "mxu",
+                           z(Bt))
+        got = [(s.name, s.attrs) for s in profiling.spans()]
+    finally:
+        profiling.reset()
+    (one, _), (ten, _) = forms
+    assert got == [("launch.digit_relin", {"entry": "digit_relin", "parts": one}),
+                   ("launch.digit_relin_tenants", {"entry": "digit_relin_tenants", "parts": ten})]
+    assert [mr.digit_relin_form(p.n, L, Bt, t) for t in (False, True)] == list(forms)
 
 
 @pytest.mark.cuda
